@@ -1,0 +1,38 @@
+"""Linear layers; counterpart of ``refiners_tpu/fluxion/layers/linear.py``.
+
+The weight is torch's (out_features, in_features); the JAX package stores
+(in, out), which the weight bridge transposes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from refiners_tpu_torch.fluxion import rng
+from refiners_tpu_torch.fluxion.layers.module import WeightedModule
+
+
+class Linear(WeightedModule):
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        device: Any = None,
+        dtype: Any = None,
+    ) -> None:
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = rng.init_uniform((out_features, in_features), bound, device=device, dtype=dtype)
+        self.bias = rng.init_uniform((out_features,), bound, device=device, dtype=dtype) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), bias)
+

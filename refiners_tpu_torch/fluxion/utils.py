@@ -1,0 +1,69 @@
+"""Tensor/image helpers; counterpart of the image↔tensor part of
+``refiners_tpu/fluxion/utils.py``.
+
+Images are NCHW float tensors in [0, 1] here (the JAX package's are NHWC).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from PIL import Image
+
+from refiners_tpu_torch.fluxion.rng import manual_seed
+
+__all__ = [
+    "manual_seed",
+    "interpolate",
+    "image_to_tensor",
+    "images_to_tensor",
+    "tensor_to_image",
+    "tensor_to_images",
+]
+
+
+def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str = "nearest", antialias: bool = False) -> torch.Tensor:
+    """Resize NCHW `x` to spatial `size`. Nearest takes source index
+    floor(i·in/out), as the JAX package's nearest resize does."""
+    if mode == "nearest":
+        return F.interpolate(x, size=tuple(size), mode="nearest")
+    y = F.interpolate(x.float(), size=tuple(size), mode=mode, antialias=antialias)
+    return y.to(x.dtype)
+
+
+def image_to_tensor(image: Image.Image, device: Any = None, dtype: Any = None) -> torch.Tensor:
+    """PIL → (1, C, H, W) float in [0, 1]; 8-bit grayscale stays 1-channel and
+    1-bit images are thresholded."""
+    arr = np.asarray(image)
+    if image.mode == "1":
+        arr = arr.astype(np.float32)
+    elif image.mode == "I":
+        arr = arr.astype(np.float32) / (2**32 - 1)
+    else:
+        arr = arr.astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    t = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)[None]))
+    return t.to(device=device, dtype=dtype or torch.float32)
+
+
+def images_to_tensor(images: list[Image.Image], device: Any = None, dtype: Any = None) -> torch.Tensor:
+    return torch.cat([image_to_tensor(im, device=device, dtype=dtype) for im in images], dim=0)
+
+
+def tensor_to_image(tensor: torch.Tensor) -> Image.Image:
+    """(1, C, H, W) or (C, H, W) float in [0, 1] → PIL."""
+    if tensor.ndim == 4:
+        assert tensor.shape[0] == 1, "batched tensors use tensor_to_images"
+        tensor = tensor[0]
+    arr = tensor.detach().float().clamp(0.0, 1.0).permute(1, 2, 0).cpu().numpy()
+    if arr.shape[-1] == 1:
+        arr = arr[:, :, 0]
+    return Image.fromarray((arr * 255).round().astype(np.uint8))
+
+
+def tensor_to_images(tensor: torch.Tensor) -> list[Image.Image]:
+    return [tensor_to_image(t) for t in tensor]
