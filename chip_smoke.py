@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's SDXL text-to-image path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,50 +7,128 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
 0. device: requires CUDA; prints the card's name and power limit; turns
    TF32 off so that float32 references are true float32.
 1. build: compiles the CUDA kernels from ``refiners_tpu_torch/csrc/`` into
-   ``build/refiners_tpu_torch/``.
-2. kernels: the hand-written flash attention kernel against its plain
-   PyTorch version, bf16 inputs from a seed, at the shapes of the SDXL path
-   plus a ragged and a causal case; relative Frobenius error ≤ 1e-2 against
-   the plain version computed in float32, and the kernel's uniform weights on
-   causal rows that have no admissible key. Times are medians over CUDA events.
-3. slice: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 on the card
-   with seeded synthetic weights, one UNet step through the kernel against
-   the same step on the plain path, then 3 requests through ``TextToImage``
-   at 1024², 30 DDIM steps, CFG 5.0. Each image must be finite and not
-   constant, and each request must launch the kernel exactly 70 × 30 + 1
-   times (70 UNet self-attention sites per step, one VAE site).
+   ``build/refiners_tpu_torch/``, one ``nvcc`` per source, side by side.
+2. kernels: every hand-written kernel against its plain PyTorch version on
+   inputs from a seed, in bf16 (tensor cores) and in float32 (FFMA); times
+   are medians over CUDA events. Float32 cases are held to 1e-5 against
+   the float32 plain version.
+   - the packed forward (``flash_attention_packed``) at the SDXL path's
+     shapes plus a ragged and a causal case: relative Frobenius error
+     ≤ 1e-2 against the plain version in float32; uniform weights on causal
+     rows that have no admissible key;
+   - the forward with bias and logsumexp (``flash_attention``) at the
+     SD1.5 shapes, a ragged, a causal and a biased case: out ≤ 1e-2, lse max
+     abs ≤ 1e-3; a boolean mask with a fully masked row gives uniform
+     weights;
+   - the backward kernels (``flash_attention_bwd_dkv``,
+     ``flash_attention_bwd_dq``) at the SD1.5 shapes and a causal case, and
+     through strided heads of a packed fused projection: dq, dk, dv each
+     ≤ 2e-2 against ``flash_attention_backward_plain`` in float32.
+3. SDXL serving: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 with
+   seeded synthetic weights, one UNet step through the kernel against the
+   same step on the plain path, then 3 requests through ``TextToImage`` at
+   1024², 30 DDIM steps, CFG 5.0. Each image must be finite and not
+   constant, and each request must launch the packed kernel exactly
+   70 × 30 + 1 times (70 UNet self-attention sites per step, one VAE site).
+4. SD1.5 training: full-width ``SD1UNet`` with seeded synthetic weights,
+   batch 2 of 64×64 latents.
+   (a) one forward + backward of the DDPM noise-regression loss four ways:
+   float32 on the plain path (the reference), bf16 on the plain path, bf16
+   through the kernels and float32 through the kernels (each kernel route
+   exactly 10 + 10 + 10 launches); the bf16 kernel route's gradient, over
+   all parameters, may be at most twice as far from the reference as the
+   bf16 plain route's, and the float32 kernel route at most 1e-4 from it.
+   (b) the port's ``Trainer`` (``refiners_tpu_torch.examples.train_unet``)
+   in bf16: 4 steps, gradient accumulation 2, AdamW at lr 1e-3. Every loss
+   and grad norm finite, every weight of two or more dims changed, every
+   parameter finite, and exactly 10 forward + 10 dK/dV + 10 dQ launches per
+   step.
 
-The last lines are a JSON summary of the kernels, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are a JSON summary of the kernels (launches counted over
+phases 3 and 4b, each with the counts set to 0 just before it), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 REL_TOL = 1e-2  # bf16 unit roundoff 3.9e-3; P and O are each rounded once
+LSE_TOL = 1e-3  # lse is float32 from the same bf16 q and k: summation order only
+GRAD_TOL = 2e-2  # the backward rounds P and dS once each and sums over a sequence
+F32_TOL = 1e-5  # float32 kernels against float32 plain versions: summation order only
+# a float32 UNet step through the kernels against the same step on the plain
+# path: summation order (≈1e-7 per op) amplified through the UNet's depth
+F32_STEP_TOL = 1e-4
+BF16, F32 = torch.bfloat16, torch.float32
 LAUNCHES_PER_REQUEST = 70 * 30 + 1
+LAUNCHES_PER_TRAINING_STEP = 10  # of each of the forward, dK/dV and dQ kernels
 ATTENTION_SHAPES = [
-    # (batch, q_len, kv_len, heads, head_dim, causal)
-    (2, 4096, 4096, 10, 64, False),  # UNet self-attention at 64×64 latents
-    (2, 1024, 1024, 20, 64, False),  # UNet self-attention at 32×32 latents
-    (1, 16384, 16384, 1, 512, False),  # VAE decoder mid-block at 128×128
-    (2, 1000, 1100, 5, 64, False),  # ragged
-    (2, 1024, 1024, 10, 64, True),  # causal
+    # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
+    (2, 4096, 4096, 10, 64, False, BF16),  # SDXL UNet self-attention at 64×64 latents
+    (2, 1024, 1024, 20, 64, False, BF16),  # SDXL UNet self-attention at 32×32 latents
+    (1, 16384, 16384, 1, 512, False, BF16),  # SDXL VAE decoder mid-block at 128×128
+    (2, 1000, 1100, 5, 64, False, BF16),  # ragged
+    (2, 1024, 1024, 10, 64, True, BF16),  # causal
+    (1, 4096, 4096, 1, 512, False, F32),  # a float32 VAE mid-block at 64×64 latents
 ]
+FORWARD_SHAPES = [
+    # (batch, q_len, kv_len, heads, head_dim, causal, bias, dtype)
+    (2, 4096, 4096, 8, 40, False, False, BF16),  # SD1.5 UNet self-attention at 64×64 latents
+    (2, 1024, 1024, 8, 80, False, False, BF16),  # SD1.5 UNet self-attention at 32×32 latents
+    (2, 1000, 1100, 5, 64, False, False, BF16),  # ragged
+    (2, 1024, 1024, 8, 80, True, False, BF16),  # causal
+    (1, 1024, 1024, 4, 64, False, True, BF16),  # a float32 bias (B, H, Lq, Lk)
+    (2, 4096, 4096, 8, 40, False, False, F32),
+    (2, 1024, 1024, 8, 80, False, False, F32),
+    (2, 1000, 1100, 5, 64, True, True, F32),  # ragged, causal and biased
+]
+BACKWARD_SHAPES = [
+    (2, 4096, 4096, 8, 40, False, BF16),
+    (2, 1024, 1024, 8, 80, False, BF16),
+    (2, 1024, 1024, 8, 80, True, BF16),
+    (2, 4096, 4096, 8, 40, False, F32),
+    (2, 1024, 1024, 8, 80, False, F32),
+    (2, 1000, 1100, 5, 64, True, F32),
+]
+
+
+def _tols(dtype: torch.dtype) -> tuple[float, float, float]:
+    """(out, lse, gradient) tolerances of a kernel in `dtype` against its
+    plain version in float32 on the same inputs."""
+    return (F32_TOL, F32_TOL, F32_TOL) if dtype == F32 else (REL_TOL, LSE_TOL, GRAD_TOL)
 PROMPTS = [
     ("a cute cat sitting on a windowsill, soft morning light", "blurry, low quality"),
     ("an astronaut riding a horse on the moon, highly detailed", "cartoon"),
     ("a bowl of ramen, studio photograph", ""),
 ]
+TRAIN_CONFIG = """
+[training]
+duration = "4:step"
+gradient_accumulation = "2:step"
+dtype = "bfloat16"
+device = "cuda"
+
+[optimizer]
+optimizer = "AdamW"
+learning_rate = 1e-3
+
+[lr_scheduler]
+type = "ConstantLR"
+
+[unet]
+requires_grad = true
+"""
 
 
 def _smi() -> str:
@@ -61,7 +139,7 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
+def _time_ms(fn: Callable[[], Any], reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     times = []
@@ -79,33 +157,64 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a.float() - b.float()) / torch.linalg.vector_norm(b.float()))
 
 
-def check_kernels(dev: torch.device) -> list[dict]:
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _counters() -> dict[str, Any]:
+    from refiners_tpu_torch.ops import flash_attention as fa
+
+    return {
+        "flash_attention_packed": fa.flash_attention_packed,
+        "flash_attention": fa.flash_attention,
+        "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+        "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+    }
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_packed_forward(dev: torch.device) -> list[dict]:
     from refiners_tpu_torch.ops.flash_attention import flash_attention_packed, flash_attention_packed_plain
 
     results = []
     gen = torch.Generator(dev).manual_seed(0)
-    for b, lq, lk, h, d, causal in ATTENTION_SHAPES:
-        q = torch.randn((b, lq, h * d), generator=gen, device=dev).bfloat16()
-        k = torch.randn((b, lk, h * d), generator=gen, device=dev).bfloat16()
-        v = torch.randn((b, lk, h * d), generator=gen, device=dev).bfloat16()
+    for b, lq, lk, h, d, causal, dtype in ATTENTION_SHAPES:
+        q, k, v = (torch.randn((b, n, h * d), generator=gen, device=dev).to(dtype) for n in (lq, lk, lk))
         out = flash_attention_packed(q, k, v, is_causal=causal, head_dim=d)
         torch.cuda.synchronize()
         ref = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=causal, head_dim=d)
-        rel = _rel(out, ref)
-        max_abs = float((out.float() - ref).abs().max())
+        rel, max_abs = _rel(out, ref), _max_abs(out, ref)
         ms = _time_ms(lambda: flash_attention_packed(q, k, v, is_causal=causal, head_dim=d), reps=10)
         plain_ms = _time_ms(lambda: flash_attention_packed_plain(q, k, v, is_causal=causal, head_dim=d), reps=3, warmup=1)
         flops = 4 * b * h * lq * lk * d / (2 if causal else 1)
         print(
-            f"kernel (B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal}): rel_err={rel:.3e} "
+            f"packed forward (B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal}, {dtype}): rel_err={rel:.3e} "
             f"max_abs_err={max_abs:.3e} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"kernel_TFLOP/s={flops / ms / 1e9:.1f}"
         )
-        if not rel <= REL_TOL:
-            raise AssertionError(f"kernel disagrees with the plain version: rel_err={rel} > {REL_TOL}")
+        if not rel <= _tols(dtype)[0]:
+            raise AssertionError(f"packed kernel disagrees with the plain version: rel_err={rel} > {_tols(dtype)[0]}")
         results.append(
-            {"shape": [b, lq, lk, h, d], "causal": causal, "rel_err": rel, "max_abs_err": max_abs,
-             "ms": ms, "plain_ms": plain_ms}
+            {"shape": [b, lq, lk, h, d], "causal": causal, "dtype": str(dtype), "rel_err": rel,
+             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
         )  # fmt: skip
         del q, k, v, out, ref
 
@@ -123,27 +232,116 @@ def check_kernels(dev: torch.device) -> list[dict]:
     rel_uniform = _rel(out[:, :empty], uniform)
     ref_rest = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=True, head_dim=d)[:, empty:]
     rel_rest = _rel(out[:, empty:], ref_rest)
-    print(f"kernel fully-masked causal rows: rel_err vs uniform={rel_uniform:.3e}, other rows rel_err={rel_rest:.3e}")
+    print(f"packed forward, fully-masked causal rows: rel_err vs uniform={rel_uniform:.3e}, other rows {rel_rest:.3e}")
     if not (rel_uniform <= REL_TOL and rel_rest <= REL_TOL):
         raise AssertionError("causal rows with no admissible key must get uniform weights")
     return results
 
 
-def synthesize_weights(module: torch.nn.Module, seed: int) -> None:
-    """Seeded fan-in-scaled normals, drawn on the device, for every weight of
-    two or more dims; norms and biases keep their constructor values."""
-    gen = torch.Generator(next(module.parameters()).device).manual_seed(seed)
-    with torch.no_grad():
-        for p in module.parameters():
-            if p.ndim >= 2:
-                p.normal_(generator=gen).mul_(math.prod(p.shape[1:]) ** -0.5)
+def check_forward(dev: torch.device) -> list[dict]:
+    from refiners_tpu_torch.ops import flash_attention as fa
+    from refiners_tpu_torch.ops.attention import dot_product_attention
+
+    results = []
+    gen = torch.Generator(dev).manual_seed(1)
+    for b, lq, lk, h, d, causal, with_bias, dtype in FORWARD_SHAPES:
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype) for n in (lq, lk, lk))
+        bias = torch.randn((b, h, lq, lk), generator=gen, device=dev) if with_bias else None
+        out, lse = fa.flash_attention_forward(q, k, v, bias, is_causal=causal, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa._plain_forward(q.float(), k.float(), v.float(), bias, causal, None)
+        rel, max_abs, lse_err = _rel(out, ref), _max_abs(out, ref), _max_abs(lse, ref_lse)
+        ms = _time_ms(lambda: fa.flash_attention_forward(q, k, v, bias, is_causal=causal, with_lse=True), reps=10)
+        plain_ms = _time_ms(lambda: fa._plain_forward(q, k, v, bias, causal, None), reps=3, warmup=1)
+        flops = 4 * b * h * lq * lk * d / (2 if causal else 1)
+        print(
+            f"forward+lse (B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal}, bias={with_bias}, {dtype}): "
+            f"rel_err={rel:.3e} max_abs_err={max_abs:.3e} lse_max_abs_err={lse_err:.3e} kernel_ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} kernel_TFLOP/s={flops / ms / 1e9:.1f}"
+        )
+        tol, lse_tol, _ = _tols(dtype)
+        if not (rel <= tol and lse_err <= lse_tol):
+            raise AssertionError(f"forward kernel disagrees: rel_err={rel} (≤ {tol}), lse {lse_err} (≤ {lse_tol})")
+        results.append(
+            {"shape": [b, lq, lk, h, d], "causal": causal, "bias": with_bias, "dtype": str(dtype), "rel_err": rel,
+             "max_abs_err": max_abs, "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms}
+        )  # fmt: skip
+        del q, k, v, bias, out, lse, ref, ref_lse
+        _free()
+
+    # a boolean keep-mask with one fully masked row: uniform weights
+    q, k, v = (torch.randn((1, 4, 1024, 64), generator=gen, device=dev).bfloat16() for _ in range(3))
+    mask = torch.rand((1, 1, 1024, 1024), generator=gen, device=dev) > 0.5
+    mask[..., 17, :] = False
+    got = dot_product_attention(q, k, v, mask=mask, use_flash=True)
+    torch.cuda.synchronize()
+    rel_mask = _rel(got, fa.flash_attention_plain(q.float(), k.float(), v.float(), bias=torch.where(mask, 0.0, -1e30)))
+    rel_uniform = _rel(got[..., 17, :], v.float().mean(dim=2))
+    print(f"forward, boolean mask: rel_err={rel_mask:.3e}, fully masked row vs uniform rel_err={rel_uniform:.3e}")
+    if not (rel_mask <= REL_TOL and rel_uniform <= REL_TOL):
+        raise AssertionError("a boolean-masked row with no key must get uniform weights")
+    return results
 
 
-def run_slice(dev: torch.device) -> tuple[int, list[float], int]:
+def check_backward(dev: torch.device) -> tuple[list[dict], list[dict]]:
+    from refiners_tpu_torch.ops import flash_attention as fa
+    from refiners_tpu_torch.ops.attention import split_heads
+
+    dkv_results, dq_results = [], []
+    gen = torch.Generator(dev).manual_seed(2)
+
+    def one(label: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, timed: bool) -> None:
+        out, lse = fa.flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+        do = torch.randn(out.shape, generator=gen, device=dev).to(q.dtype)
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)
+        rels = [_rel(g, w) for g, w in zip((dq, dk, dv), want)]
+        errs = [_max_abs(g, w) for g, w in zip((dq, dk, dv), want)]
+        line = f"backward {label}, {q.dtype}: rel_err dq={rels[0]:.3e} dk={rels[1]:.3e} dv={rels[2]:.3e}"
+        if timed:
+            b, h, lq, d = q.shape
+            scale = 1.0 / math.sqrt(d)
+            delta = (do.float() * out.float()).sum(-1)
+            dkv_ms = _time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale), reps=10)
+            dq_ms = _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale), reps=10)
+            plain_ms = _time_ms(lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, do, causal), reps=3, warmup=1)
+            lk = k.shape[2]
+            flops = b * h * lq * lk * d / (2 if causal else 1)
+            line += (
+                f" dkv_ms={dkv_ms:.3f} ({8 * flops / dkv_ms / 1e9:.1f} TFLOP/s) dq_ms={dq_ms:.3f} "
+                f"({6 * flops / dq_ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.3f} (dq, dk, dv together)"
+            )
+            shape = {"shape": [b, lq, lk, h, d], "causal": causal, "dtype": str(q.dtype), "plain_ms": plain_ms}
+            dkv_results.append({**shape, "rel_err": max(rels[1:]), "max_abs_err": max(errs[1:]), "ms": dkv_ms})
+            dq_results.append({**shape, "rel_err": rels[0], "max_abs_err": errs[0], "ms": dq_ms})
+        print(line)
+        tol = _tols(q.dtype)[2]
+        if not max(rels) <= tol:
+            raise AssertionError(f"backward kernels disagree with the plain version: {rels} > {tol}")
+
+    for b, lq, lk, h, d, causal, dtype in BACKWARD_SHAPES:
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype) for n in (lq, lk, lk))
+        one(f"(B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal})", q, k, v, causal, timed=True)
+        del q, k, v
+        _free()
+    # heads read through strides: column slices of a packed fused projection
+    qkv = torch.randn((2, 4096, 3 * 320), generator=gen, device=dev).bfloat16()
+    q, k, v = (split_heads(qkv[..., i * 320 : (i + 1) * 320], 8) for i in range(3))
+    one("strided heads of a fused (2, 4096, 3·8·40) projection", q, k, v, False, timed=False)
+    return dkv_results, dq_results
+
+
+# ---------------------------------------------------------------------------
+# phase 3: SDXL serving
+# ---------------------------------------------------------------------------
+
+
+def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int]:
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
     from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, StableDiffusion_XL
-    from refiners_tpu_torch.ops.flash_attention import flash_attention_packed
     from refiners_tpu_torch.pipelines import TextToImage
 
     t0 = time.perf_counter()
@@ -152,7 +350,7 @@ def run_slice(dev: torch.device) -> tuple[int, list[float], int]:
     synthesize_weights(sd, seed=7)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in sd.parameters())
-    print(f"slice: StableDiffusion_XL built, {n_params} parameters, bf16, {time.perf_counter() - t0:.1f} s")
+    print(f"sdxl: StableDiffusion_XL built, {n_params} parameters, bf16, {time.perf_counter() - t0:.1f} s")
 
     # One full-width UNet step (CFG batch 2) three ways: bf16 through the
     # kernel, bf16 on the plain path, and float32 on the plain path as the
@@ -180,7 +378,7 @@ def run_slice(dev: torch.device) -> tuple[int, list[float], int]:
         kernel_noise = step(torch.bfloat16, kernel=True)
     err_kernel, err_plain = _rel(kernel_noise, reference), _rel(plain_noise, reference)
     print(
-        f"slice: one UNet step (1024², CFG batch 2) vs float32 reference: kernel route rel_err={err_kernel:.3e}, "
+        f"sdxl: one UNet step (1024², CFG batch 2) vs float32 reference: kernel route rel_err={err_kernel:.3e}, "
         f"plain bf16 route rel_err={err_plain:.3e}, kernel vs plain rel_err={_rel(kernel_noise, plain_noise):.3e}"
     )
     if not (torch.isfinite(kernel_noise).all() and err_kernel <= 2 * err_plain):
@@ -189,21 +387,21 @@ def run_slice(dev: torch.device) -> tuple[int, list[float], int]:
     decoded: list[torch.Tensor] = []
     hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
     seconds = []
-    flash_attention_packed.launches = 0
+    reset_launches()
     for seed, (prompt, negative) in enumerate(PROMPTS):
-        before = flash_attention_packed.launches
+        before = read_launches()["flash_attention_packed"]
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         start = time.perf_counter()
         image = pipe(prompt, negative_prompt=negative, seed=seed, condition_scale=5.0)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
-        launched = flash_attention_packed.launches - before
+        launched = read_launches()["flash_attention_packed"] - before
         out = decoded[-1]
         arr = np.asarray(image)
         peak = torch.cuda.max_memory_allocated(dev)
         print(
-            f"request {seed}: {seconds[-1]:.3f} s, kernel launches {launched}, image {image.size}, "
+            f"sdxl request {seed}: {seconds[-1]:.3f} s, kernel launches {launched}, image {image.size}, "
             f"decoded mean {float(out.float().mean()):.4f} std {float(out.float().std()):.4f}, "
             f"peak memory {peak / 2**30:.2f} GiB"
         )
@@ -213,9 +411,141 @@ def run_slice(dev: torch.device) -> tuple[int, list[float], int]:
             raise AssertionError(f"request {seed}: decoded image of shape {tuple(out.shape)} is not finite")
         if float(out.float().std()) == 0.0 or arr.min() == arr.max():
             raise AssertionError(f"request {seed}: the image is constant")
-    launches = flash_attention_packed.launches
+    launches = read_launches()
     hook.remove()
+    del sd, pipe, sdpa, decoded, emb, pooled, x, reference, plain_noise, kernel_noise
+    _free()
     return launches, seconds, peak
+
+
+# ---------------------------------------------------------------------------
+# phase 4: SD1.5 training
+# ---------------------------------------------------------------------------
+
+
+def check_training_step(dev: torch.device) -> dict[str, float]:
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDPM, SD1UNet
+
+    t0 = time.perf_counter()
+    unet = SD1UNet(in_channels=4, device=dev)
+    synthesize_weights(unet, seed=11)
+    n_params = sum(p.numel() for p in unet.parameters())
+    print(f"sd15: SD1UNet built, {n_params} parameters, {time.perf_counter() - t0:.1f} s")
+    solver = DDPM(num_inference_steps=1000, device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device=dev)
+    noise = torch.randn((2, 4, 64, 64), generator=gen, device=dev)
+    text = torch.randn((2, 77, 768), generator=gen, device=dev)
+    steps = [250, 750]
+    sdpa = list(unet.layers(fl.ScaledDotProductAttention, recurse=True))
+    params = list(unet.parameters())
+
+    def grads(dtype: torch.dtype, kernel: bool) -> tuple[list[torch.Tensor], float, dict[str, int]]:
+        for layer in sdpa:
+            layer.is_optimized = kernel
+        unet.to(dtype=dtype)
+        unet.zero_grad(set_to_none=True)
+        reset_launches()
+        unet.set_timestep(solver.timesteps[steps])
+        unet.set_clip_text_embedding(text.to(dtype))
+        noised = solver.add_noise(x.to(dtype), noise.to(dtype), steps)
+        loss = ((unet(noised).float() - noise) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return [p.grad.float() for p in params], float(loss.detach()), read_launches()
+
+    reference, ref_loss, ref_launches = grads(torch.float32, kernel=False)
+    ref_norm = math.sqrt(sum(float((g * g).sum()) for g in reference))
+
+    def distance(got: list[torch.Tensor]) -> float:
+        return math.sqrt(sum(float(((g - r) ** 2).sum()) for g, r in zip(got, reference))) / ref_norm
+
+    # float32 through the kernels first: the bf16 routes round the weights
+    f32_kernel, f32_kernel_loss, f32_launches = grads(torch.float32, kernel=True)
+    err_f32_kernel = distance(f32_kernel)
+    del f32_kernel
+    plain, plain_loss, plain_launches = grads(torch.bfloat16, kernel=False)
+    err_plain = distance(plain)
+    del plain
+    kernel, kernel_loss, kernel_launches = grads(torch.bfloat16, kernel=True)
+    err_kernel = distance(kernel)
+    finite = all(bool(torch.isfinite(g).all()) for g in kernel)
+    del kernel, reference
+    print(
+        f"sd15: one training step (batch 2, 64×64, fwd+bwd) losses float32 plain {ref_loss:.5f}, bf16 plain "
+        f"{plain_loss:.5f}, bf16 kernels {kernel_loss:.5f}, float32 kernels {f32_kernel_loss:.5f}; gradient vs "
+        f"float32 plain: bf16 kernel route rel_err={err_kernel:.3e}, bf16 plain route rel_err={err_plain:.3e}, "
+        f"float32 kernel route rel_err={err_f32_kernel:.3e}; launches float32 plain {ref_launches}, bf16 plain "
+        f"{plain_launches}, bf16 kernels {kernel_launches}, float32 kernels {f32_launches}"
+    )
+    if any(ref_launches.values()) or any(plain_launches.values()):
+        raise AssertionError("the plain steps must launch no kernel")
+    want = {"flash_attention_packed": 0, **{k: LAUNCHES_PER_TRAINING_STEP for k in list(kernel_launches)[1:]}}
+    if kernel_launches != want or f32_launches != want:
+        raise AssertionError(f"the kernel steps launched {kernel_launches} (bf16), {f32_launches} (float32), not {want}")
+    if not (finite and err_kernel <= 2 * err_plain):
+        raise AssertionError(f"the kernel route's gradient is further from float32 than twice the plain route's: {err_kernel} > 2 × {err_plain}")
+    if not err_f32_kernel <= F32_STEP_TOL:
+        raise AssertionError(f"the float32 kernel route's gradient is {err_f32_kernel} from the plain route's (> {F32_STEP_TOL})")
+    del unet, params, sdpa
+    _free()
+    return {"grad_rel_err_kernel": err_kernel, "grad_rel_err_plain_bf16": err_plain, "grad_rel_err_f32_kernel": err_f32_kernel}
+
+
+def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]]:
+    from refiners_tpu_torch.examples.train_unet import UnetConfig, UnetTrainer
+
+    records: list[dict[str, Any]] = []
+
+    class SmokeTrainer(UnetTrainer):
+        """Times each step and counts its kernel launches."""
+
+        def step(self, batch: dict[str, torch.Tensor]) -> None:
+            before = read_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            super().step(batch)
+            torch.cuda.synchronize()
+            after = read_launches()
+            records.append(
+                {"seconds": time.perf_counter() - start, "loss": float(self.loss.detach()),
+                 "optimizer_step": self.clock.num_minibatches_processed == 0, "grad_norm": self.grad_norm,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": {k: after[k] - before[k] for k in after}}
+            )  # fmt: skip
+
+    t0 = time.perf_counter()
+    trainer = SmokeTrainer(UnetConfig.load_from_toml_string(TRAIN_CONFIG), batch_size=2, latent_size=64, num_batches=4)
+    before = {name: p.detach().clone() for name, p in trainer.unet.named_parameters() if p.ndim >= 2}
+    print(f"sd15 trainer: built in {time.perf_counter() - t0:.1f} s, bf16, {trainer.learnable_parameter_count} parameters")
+    reset_launches()
+    trainer.train()
+    launches = read_launches()
+    for i, r in enumerate(records):
+        print(
+            f"sd15 trainer step {i}: {r['seconds']:.3f} s, loss {r['loss']:.5f}, optimizer step {r['optimizer_step']}, "
+            f"grad norm {r['grad_norm']:.4f}, peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB, launches {r['launches']}"
+        )
+    want = {"flash_attention_packed": 0, **{k: LAUNCHES_PER_TRAINING_STEP for k in list(launches)[1:]}}
+    if len(records) != 4 or any(r["launches"] != want for r in records):
+        raise AssertionError(f"each of the 4 training steps must launch {want}")
+    if not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError("a training loss is not finite")
+    if not all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in records if r["optimizer_step"]):
+        raise AssertionError("a grad norm is not finite")
+    params = dict(trainer.unet.named_parameters())
+    unchanged = [name for name, w in before.items() if torch.equal(params[name].detach(), w)]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} weights did not change after two optimizer steps: {unchanged[:5]}")
+    if not all(bool(torch.isfinite(p).all()) for p in params.values()):
+        raise AssertionError("a parameter is not finite after training")
+    print(f"sd15 trainer: {len(before)} weights of two or more dims all changed; every parameter finite")
+    del trainer, before, params
+    _free()
+    return launches, records
 
 
 def main() -> int:
@@ -233,32 +563,45 @@ def main() -> int:
     print("tf32: torch.backends.cuda.matmul.allow_tf32=False, torch.backends.cudnn.allow_tf32=False")
 
     start = time.perf_counter()
-    path, log = build.build_library()
+    paths, log = build.build_libraries()
     build.load_library()
-    print(f"build: {path.relative_to(build.BUILD_DIR.parents[1])} in {time.perf_counter() - start:.1f} s")
+    print(f"build: {', '.join(p.name for p in paths.values())} in {time.perf_counter() - start:.1f} s")
     for line in log.splitlines():
         if "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    per_shape = check_kernels(dev)
-    launches, seconds, peak = run_slice(dev)
-    main_site = per_shape[0]
+    packed = check_packed_forward(dev)
+    forward = check_forward(dev)
+    dkv, dq = check_backward(dev)
+    _free()
+    sdxl_launches, seconds, sdxl_peak = run_sdxl(dev)
+    step_check = check_training_step(dev)
+    train_launches, train_records = run_trainer(dev)
+
+    def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict]) -> dict[str, Any]:
+        return {
+            "name": name, "route": "cuda", "source": f"refiners_tpu_torch/csrc/{source}",
+            "replaces": f"refiners_tpu/ops/flash_attention.py:{replaces}", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes), "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"], "per_shape": shapes,
+        }  # fmt: skip
+
     summary = {
         "kernels": [
-            {
-                "name": "flash_attention_packed",
-                "route": "cuda",
-                "source": "refiners_tpu_torch/csrc/flash_attention_packed.cu",
-                "replaces": "refiners_tpu/ops/flash_attention.py:707",
-                "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-                "ms": main_site["ms"],
-                "plain_ms": main_site["plain_ms"],
-                "per_shape": per_shape,
-            }
-        ],
-        "seconds_per_request": seconds,
-        "peak_memory_bytes": peak,
+            kernel("flash_attention_packed", "flash_attention_forward.cu", "707",
+                   sdxl_launches["flash_attention_packed"], packed),
+            kernel("flash_attention", "flash_attention_forward.cu", "105", train_launches["flash_attention"], forward),
+            kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "521",
+                   train_launches["flash_attention_bwd_dkv"], dkv),
+            kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "553",
+                   train_launches["flash_attention_bwd_dq"], dq),
+        ],  # fmt: skip
+        "sdxl_seconds_per_request": seconds,
+        "sdxl_peak_memory_bytes": sdxl_peak,
+        "sd15_training_step": step_check,
+        "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],
+        "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],
+        "sd15_trainer_losses": [r["loss"] for r in train_records],
     }
     print(json.dumps(summary))
     print(smi)

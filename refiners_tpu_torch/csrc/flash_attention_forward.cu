@@ -1,29 +1,43 @@
-// Flash attention forward over packed (B, L, H*D) operands, for Hopper (sm_90a).
+// Flash attention forward, for Hopper (sm_90a): one kernel source for both
+// of the port's entries, the packed (B, L, H*D) layout and the flat
+// (B, H, L, D) layout, with an optional additive bias and an optional
+// logsumexp output.
 //
-// Replaces the TPU kernel `_flash_kernel_packed` (with `_flash_forward_packed`)
-// of refiners_tpu/ops/flash_attention.py. Same contract: per (batch, head),
-// O = softmax(scale * Q K^T + mask) V with an online softmax; running max and
-// sum and the output accumulator in float32; P cast to the input type before
-// the PV product; output cast to the input type. Masked scores are -1e30 (not
-// -inf), so a causal row with no admissible key gets uniform weights over the
-// keys, as the TPU kernel does. Keys past the sequence end do not take part.
-// No logsumexp is written.
+// Replaces two TPU kernels of refiners_tpu/ops/flash_attention.py:
+// `_flash_kernel_packed` (with `_flash_forward_packed`, entry
+// `flash_attention_packed`) and `_flash_kernel` (with `_flash_forward`, entry
+// `flash_attention`). They differ on the TPU only because of its 128-lane
+// blocks; here head h of batch b starts at b*batch_stride + h*head_stride
+// with its own row stride (all in elements, given by the caller), so one
+// kernel reads either layout, or column slices of a fused projection, in
+// place with no split/merge-heads copies.
 //
-// Head h of batch b starts at b*batch_stride + h*D with row stride row_stride
-// (both in elements, given by the caller), so heads are read straight out of
-// the projection layout with no split/merge-heads copies.
+// Same contract as the TPU kernels: per (batch, head),
+// O = softmax(scale * Q K^T + bias + mask) V with an online softmax; running
+// max and sum and the output accumulator in float32; P cast to the input
+// type before the PV product; output cast to the input type. The bias is
+// float32, read through four strides (a stride of 0 broadcasts, as
+// torch.broadcast_to gives). Masked scores are -1e30 (not -inf), so a causal
+// row with no admissible key gets uniform weights over the keys, as the TPU
+// kernel does; keys past the sequence end do not take part. With an lse
+// pointer the kernel also writes m + log(l) per row, float32, laid out
+// (batch*heads, q_len): the residual the backward kernels recompute P from.
 //
-// What bounds it on the H100: at seq >= 1024 with D = 64 the kernel is bound by
-// tensor-core throughput (4*L^2*D flops against 4*L*D bytes per head); at the
-// VAE's D = 512 site by registers and shared memory per block, since a query
-// tile's float32 accumulator (rows x 512) must live beside a K/V tile.
+// What bounds it on the H100: at seq >= 1024 with d <= 128 the kernel is
+// bound by tensor-core throughput (4*L^2*d flops against 4*L*d bytes per
+// head); at the VAE's d = 512 site by registers and shared memory per block,
+// since a query tile's float32 accumulator (rows x 512) must live beside a
+// K/V tile. A bias adds a float32 read per score, which makes a biased call
+// bound by that read.
 //
-// Two kernels, picked by head_dim; both are one block of 4 warps per
-// (query tile, batch*head) with a loop over K/V tiles of 64 keys:
+// Three kernels, picked by type and head_dim; each is one block per
+// (query tile, batch*head) with a loop over K/V tiles of 64 keys. For
+// bfloat16 and float16, 4 warps:
 //
-// - head_dim <= 128 (the UNet's d = 64 sites): FlashAttention-2's layout on
-//   mma.sync m16n8k16 tensor-core instructions. Each warp owns 16 query rows;
-//   its Q fragments, S tile, softmax statistics and O accumulator stay in
+// - head_dim <= 128 (the UNet's d = 40, 64 and 80 sites): FlashAttention-2's
+//   layout on mma.sync m16n8k16 tensor-core instructions, compiled for
+//   padded head dims 48, 64, 80 and 128. Each warp owns 16 query rows; its
+//   Q fragments, S tile, softmax statistics and O accumulator stay in
 //   registers, and P goes from the S accumulators straight into the A
 //   operand of the PV product. K and V tiles are double-buffered in shared
 //   memory with cp.async, read with ldmatrix (transposed for V).
@@ -33,25 +47,24 @@
 //   sizes are chosen per head_dim to fit (32x64 at D = 512, about 180 KB of
 //   dynamic shared memory).
 //
+// For float32 (head_dim up to 512), 8 warps on plain FFMA, so the result
+// keeps float32 accuracy as the float32 plain version has it: Q, one K or V
+// tile and P in shared memory, the scores and the O accumulator in
+// registers, compiled for padded head dims 48, 64, 80, 128, 256 and 512.
+//
 // wgmma, TMA and warp specialization are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace flash;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxBlockK = 64;
-constexpr float kMaskedScore = -1e30f;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on Hopper
 
 struct Params {
@@ -59,12 +72,29 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  const float* bias;  // may be null
+  float* lse;         // may be null
   int heads, head_dim, dim_pad, q_len, kv_len;
-  long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
+  long long q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs, o_bs, o_hs, o_rs;
+  long long bias_bs, bias_hs, bias_rs, bias_cs;
   float scale;
   int causal;
   int block_q, block_k;
 };
+
+// Scaled score of (row, col) with the bias added (when kBias) and the masks
+// applied: keys past the end are -inf, causally masked keys -1e30. The bias
+// is a template parameter so that the unbiased kernels' inner loop carries
+// no test for it.
+template <bool kBias>
+__device__ __forceinline__ float masked_score(const Params& p, const float* bh, float s, int row, int col,
+                                              int causal_shift) {
+  float x = s * p.scale;
+  if (col >= p.kv_len) return -INFINITY;
+  if (kBias && row < p.q_len) x += bh[row * p.bias_rs + col * p.bias_cs];
+  if (p.causal && col > row + causal_shift) x = kMaskedScore;
+  return x;
+}
 
 // ---------------------------------------------------------------------------
 // head_dim up to 512: WMMA with shared-memory accumulators
@@ -100,17 +130,6 @@ __host__ __device__ inline Layout make_layout(int bq, int bk, int dp) {
   off = align128(off + size_t(bq) * 4);
   L.total = off;
   return L;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -158,10 +177,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
   const int q0 = blockIdx.x * bq;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + (long long)h * d;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + (long long)h * d;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + (long long)h * d;
-  T* oh = static_cast<T*>(p.o) + b * p.o_bs + (long long)h * d;
+  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
+  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
+  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
+  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
+  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -204,13 +224,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
       float s[kMaxBlockK / 32];
       float m_cur = -INFINITY;
       for (int i = 0; i < bk / 32; ++i) {
+        const float raw = sS[r * lds + lane + 32 * i];
         const int col = k0 + lane + 32 * i;
-        float x = sS[r * lds + lane + 32 * i] * p.scale;
-        if (col >= p.kv_len) {
-          x = -INFINITY;
-        } else if (p.causal && col > row + causal_shift) {
-          x = kMaskedScore;
-        }
+        const float x = bh != nullptr ? masked_score<true>(p, bh, raw, row, col, causal_shift)
+                                      : masked_score<false>(p, bh, raw, row, col, causal_shift);
         s[i] = x;
         m_cur = fmaxf(m_cur, x);
       }
@@ -266,104 +283,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
     for (int j = 0; j < 8; ++j) out[j] = from_float<T>(sO[r * ldo + col + j] / l);
     *reinterpret_cast<uint4*>(oh + (long long)(q0 + r) * p.o_rs + col) = *reinterpret_cast<const uint4*>(out);
   }
+  if (p.lse != nullptr) {
+    for (int r = threadIdx.x; r < bq; r += kThreads) {
+      if (q0 + r < p.q_len) p.lse[(long long)blockIdx.y * p.q_len + q0 + r] = sM[r] + logf(sL[r]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // head_dim <= 128: register-resident FlashAttention-2 on mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBlock = 64;  // query rows per block (16 per warp) and keys per tile
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), float32 accumulation
-template <typename T>
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two floats → one register of two T, `lo` in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-}
-
-// Start copying rows [row0, row0 + 64) of one head into shared memory (row
-// pitch D + 8); rows past `len` and columns past `d` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride, int row0, int len,
-                                                int d) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kMmaBlock * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len && col < d;
-    cp_async16(dst + r * (D + 8) + col, valid ? src + (long long)(row0 + r) * row_stride + col : src, valid);
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + 8;  // +16 bytes per row: ldmatrix rows fall in distinct banks
-  constexpr int kTile = kMmaBlock * LD;
+  constexpr int kTileElems = kTile * LD;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTile;      // two buffers
-  T* sV = sK + 2 * kTile;  // two buffers
+  T* sK = sQ + kTileElems;      // two buffers
+  T* sV = sK + 2 * kTileElems;  // two buffers
 
   const int d = p.head_dim;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * kMmaBlock;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + (long long)h * d;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + (long long)h * d;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + (long long)h * d;
-  T* oh = static_cast<T*>(p.o) + b * p.o_bs + (long long)h * d;
+  const int q0 = blockIdx.x * kTile;
+  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
+  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
+  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
+  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
+  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -372,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
   const int causal_shift = p.kv_len - p.q_len;
-  const int n_tiles = (p.kv_len + kMmaBlock - 1) / kMmaBlock;
+  const int n_tiles = (p.kv_len + kTile - 1) / kTile;
 
   load_tile_async<T, D>(sQ, qh, p.q_rs, q0, p.q_len, d);
   load_tile_async<T, D>(sK, kh, p.k_rs, 0, p.kv_len, d);
@@ -389,8 +337,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile_async<T, D>(sK + (buf ^ 1) * kTile, kh, p.k_rs, (j + 1) * kMmaBlock, p.kv_len, d);
-      load_tile_async<T, D>(sV + (buf ^ 1) * kTile, vh, p.v_rs, (j + 1) * kMmaBlock, p.kv_len, d);
+      load_tile_async<T, D>(sK + (buf ^ 1) * kTileElems, kh, p.k_rs, (j + 1) * kTile, p.kv_len, d);
+      load_tile_async<T, D>(sV + (buf ^ 1) * kTileElems, vh, p.v_rs, (j + 1) * kTile, p.kv_len, d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -399,22 +347,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
     __syncthreads();
     if (j == 0) {
       #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-      }
+      for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, warp * 16, kk, lane);
     }
 
     // S = Q K^T for this warp's 16 rows x 64 keys
-    const T* kb = sK + buf * kTile;
-    float s[kMmaBlock / 8][4];
+    const T* kb = sK + buf * kTileElems;
+    float s[kTile / 8][4];
     #pragma unroll
-    for (int i = 0; i < kMmaBlock / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    for (int i = 0; i < kTile / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
     #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       #pragma unroll
-      for (int np = 0; np < kMmaBlock / 16; ++np) {
+      for (int np = 0; np < kTile / 16; ++np) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, kb + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+        load_b_rows<LD>(kf, kb, np, kk, lane);
         mma_16816<T>(s[2 * np], qf[kk], kf[0], kf[1]);
         mma_16816<T>(s[2 * np + 1], qf[kk], kf[2], kf[3]);
       }
@@ -423,17 +369,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
     // online softmax; a row's 64 scores are spread over the 4 lanes of a quad
     float mx[2] = {-INFINITY, -INFINITY};
     #pragma unroll
-    for (int nt = 0; nt < kMmaBlock / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * kMmaBlock + nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        float x = s[nt][e] * p.scale;
-        if (col >= p.kv_len) {
-          x = -INFINITY;
-        } else if (p.causal && col > row + causal_shift) {
-          x = kMaskedScore;
-        }
+        const int col = j * kTile + nt * 8 + 2 * t + (e & 1);
+        const float x = masked_score<kBias>(p, bh, s[nt][e], e < 2 ? row_a : row_b, col, causal_shift);
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -449,7 +389,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
       l[r] *= alpha[r];
     }
     #pragma unroll
-    for (int nt = 0; nt < kMmaBlock / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = expf(s[nt][e] - m[e >> 1]);
@@ -467,16 +407,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
 
     // O += P V; the S accumulators of key columns [16kc, 16kc + 16) are the
     // A fragment of that 16-key slice
-    const T* vb = sV + buf * kTile;
+    const T* vb = sV + buf * kTileElems;
     #pragma unroll
-    for (int kc = 0; kc < kMmaBlock / 16; ++kc) {
-      const uint32_t pa[4] = {
-          pack2<T>(s[2 * kc][0], s[2 * kc][1]), pack2<T>(s[2 * kc][2], s[2 * kc][3]),
-          pack2<T>(s[2 * kc + 1][0], s[2 * kc + 1][1]), pack2<T>(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    for (int kc = 0; kc < kTile / 16; ++kc) {
+      uint32_t pa[4];
+      acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);
       #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8);
+        load_b_cols<LD>(vf, vb, kc, dp, lane);
         mma_16816<T>(o[2 * dp], pa, vf[0], vf[1]);
         mma_16816<T>(o[2 * dp + 1], pa, vf[2], vf[3]);
       }
@@ -500,19 +439,153 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
       *reinterpret_cast<uint32_t*>(oh + (long long)row_b * p.o_rs + col) = pack2<T>(o[i][2] / l[1], o[i][3] / l[1]);
     }
   }
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (long long)blockIdx.y * p.q_len;
+    if (row_a < p.q_len) lse[row_a] = m[0] + logf(l[0]);
+    if (row_b < p.q_len) lse[row_b] = m[1] + logf(l[1]);
+  }
 }
 
 template <typename T, int D>
 int launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  const int bytes = 5 * kMmaBlock * (D + 8) * int(sizeof(T));  // Q + 2 x K + 2 x V
+  const int bytes = 5 * kTile * (D + 8) * int(sizeof(T));  // Q + 2 x K + 2 x V
+  auto kernel = p.bias != nullptr ? flash_fwd_mma_kernel<T, D, true> : flash_fwd_mma_kernel<T, D, false>;
   if (bytes > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
   }
-  const dim3 grid((p.q_len + kMmaBlock - 1) / kMmaBlock, batch * p.heads);
-  flash_fwd_mma_kernel<T, D><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid((p.q_len + kTile - 1) / kTile, batch * p.heads);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// float32: FFMA tiles, head_dim up to 512
+// ---------------------------------------------------------------------------
+
+// One block of 256 threads per (query tile of BQ rows, batch*head), a loop
+// over K/V tiles of 64 keys. Q, one K or V tile and P sit in shared memory
+// (K and V take turns in one buffer); the scores, softmax statistics and O
+// accumulator in registers (see flash_common.cuh for the thread layout).
+template <int D, int BQ>
+constexpr int f32_forward_bytes() {
+  return (BQ * (D + 1) + kTile * (D + 1) + BQ * kF32ScorePitch) * int(sizeof(float));
+}
+
+template <int D, int BQ, bool kBias>
+__global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params p) {
+  constexpr int R = BQ / 16;  // rows per thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sKV = sQ + BQ * (D + 1);
+  float* sP = sKV + kTile * (D + 1);
+
+  const int d = p.head_dim;
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int q0 = blockIdx.x * BQ;
+  const float* qh = static_cast<const float*>(p.q) + b * p.q_bs + h * p.q_hs;
+  const float* kh = static_cast<const float*>(p.k) + b * p.k_bs + h * p.k_hs;
+  const float* vh = static_cast<const float*>(p.v) + b * p.v_bs + h * p.v_hs;
+  float* oh = static_cast<float*>(p.o) + b * p.o_bs + h * p.o_hs;
+  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int causal_shift = p.kv_len - p.q_len;
+
+  load_tile_f32<D>(sQ, qh, p.q_rs, q0, BQ, p.q_len, d);
+  float o[R][D / 16];
+  float m[R], l[R];  // l: this thread's share of the row sums
+  #pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kMaskedScore;
+    l[i] = 0.f;
+    #pragma unroll
+    for (int c = 0; c < D / 16; ++c) o[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < p.kv_len; k0 += kTile) {
+    __syncthreads();  // the previous tile's PV is done with sKV
+    load_tile_f32<D>(sKV, kh, p.k_rs, k0, kTile, p.kv_len, d);
+    __syncthreads();
+    float s[R][4];
+    #pragma unroll
+    for (int i = 0; i < R; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    mm_abt_f32<D, R>(s, sQ, sKV, tx, ty);
+
+    #pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = masked_score<kBias>(p, bh, s[i][j], row, k0 + tx + 16 * j, causal_shift);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+      #pragma unroll
+      for (int c = 0; c < D / 16; ++c) o[i][c] *= alpha;
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pe = expf(s[i][j] - m_new);
+        l[i] += pe;
+        sP[(ty + 16 * i) * kF32ScorePitch + tx + 16 * j] = pe;
+      }
+    }
+    __syncthreads();  // every thread is done with K; P is complete
+    load_tile_f32<D>(sKV, vh, p.v_rs, k0, kTile, p.kv_len, d);
+    __syncthreads();
+    mm_ab_f32<D, R>(o, sP, sKV, tx, ty);
+  }
+
+  #pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const float li = row_sum16(l[i]);
+    if (row >= p.q_len) continue;
+    #pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const int col = tx + 16 * c;
+      if (col < d) oh[(long long)row * p.o_rs + col] = o[i][c] / li;
+    }
+    if (p.lse != nullptr && tx == 0) p.lse[(long long)blockIdx.y * p.q_len + row] = m[i] + logf(li);
+  }
+}
+
+template <int D, int BQ>
+int launch_f32_d(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int bytes = f32_forward_bytes<D, BQ>();
+  static_assert(bytes <= int(kMaxSharedBytes), "float32 forward tiles exceed shared memory");
+  auto kernel = p.bias != nullptr ? flash_fwd_f32_kernel<D, BQ, true> : flash_fwd_f32_kernel<D, BQ, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return int(err);
+  }
+  const dim3 grid((p.q_len + BQ - 1) / BQ, batch * p.heads);
+  kernel<<<grid, kF32Threads, bytes, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+int launch_f32(const Params& p, int batch, cudaStream_t stream) {
+  switch (f32_template(p.dim_pad)) {
+    case 48:
+      return launch_f32_d<48, 64>(p, batch, stream);
+    case 64:
+      return launch_f32_d<64, 64>(p, batch, stream);
+    case 80:
+      return launch_f32_d<80, 64>(p, batch, stream);
+    case 128:
+      return launch_f32_d<128, 64>(p, batch, stream);
+    case 256:
+      return launch_f32_d<256, 64>(p, batch, stream);
+    case 512:
+      return launch_f32_d<512, 32>(p, batch, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -535,8 +608,18 @@ bool choose_tiles(int dp, int* bq, int* bk, size_t* bytes) {
 
 template <typename T>
 int launch(Params p, int batch, cudaStream_t stream) {
-  if (p.dim_pad <= 64) return launch_mma<T, 64>(p, batch, stream);
-  if (p.dim_pad <= 128) return launch_mma<T, 128>(p, batch, stream);
+  switch (mma_template(p.dim_pad)) {
+    case 48:
+      return launch_mma<T, 48>(p, batch, stream);
+    case 64:
+      return launch_mma<T, 64>(p, batch, stream);
+    case 80:
+      return launch_mma<T, 80>(p, batch, stream);
+    case 128:
+      return launch_mma<T, 128>(p, batch, stream);
+    default:
+      break;
+  }
   size_t bytes = 0;
   if (!choose_tiles(p.dim_pad, &p.block_q, &p.block_k, &bytes)) return int(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
@@ -551,14 +634,16 @@ int launch(Params p, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16. Strides are in elements. Returns a
-// cudaError_t value (0 on success). Launches on `stream`, does not
-// synchronize, allocates nothing.
-extern "C" int refiners_flash_attention_packed(const void* q, const void* k, const void* v, void* o, int dtype,
-                                               int batch, int heads, int head_dim, int q_len, int kv_len,
-                                               long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                                               long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-                                               float scale, int causal, void* stream) {
+// dtype: 0 = bfloat16, 1 = float16, 2 = float32. `strides` holds 16 values
+// in elements:
+// (batch, head, row) for q, k, v and o, then (batch, head, row, column) for
+// the bias. `bias` and `lse` may be null; lse is (batch*heads, q_len)
+// float32. Returns a cudaError_t value (0 on success). Launches on `stream`,
+// does not synchronize, allocates nothing.
+extern "C" int refiners_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
+                                                const float* bias, float* lse, int dtype, int batch, int heads,
+                                                int head_dim, int q_len, int kv_len, const long long* strides,
+                                                float scale, int causal, void* stream) {
   if (head_dim <= 0 || head_dim > 512 || head_dim % 8 != 0 || batch <= 0 || heads <= 0 || kv_len <= 0) {
     return int(cudaErrorInvalidValue);
   }
@@ -568,19 +653,16 @@ extern "C" int refiners_flash_attention_packed(const void* q, const void* k, con
   p.k = k;
   p.v = v;
   p.o = o;
+  p.bias = bias;
+  p.lse = lse;
   p.heads = heads;
   p.head_dim = head_dim;
   p.dim_pad = (head_dim + 15) / 16 * 16;
   p.q_len = q_len;
   p.kv_len = kv_len;
-  p.q_bs = q_bs;
-  p.q_rs = q_rs;
-  p.k_bs = k_bs;
-  p.k_rs = k_rs;
-  p.v_bs = v_bs;
-  p.v_rs = v_rs;
-  p.o_bs = o_bs;
-  p.o_rs = o_rs;
+  long long* const fields[] = {&p.q_bs, &p.q_hs, &p.q_rs, &p.k_bs, &p.k_hs, &p.k_rs, &p.v_bs, &p.v_hs,
+                               &p.v_rs, &p.o_bs, &p.o_hs, &p.o_rs, &p.bias_bs, &p.bias_hs, &p.bias_rs, &p.bias_cs};
+  for (int i = 0; i < 16; ++i) *fields[i] = strides[i];
   p.scale = scale;
   p.causal = causal;
   p.block_q = 0;
@@ -591,6 +673,8 @@ extern "C" int refiners_flash_attention_packed(const void* q, const void* k, con
       return launch<__nv_bfloat16>(p, batch, s);
     case 1:
       return launch<__half>(p, batch, s);
+    case 2:
+      return launch_f32(p, batch, s);
     default:
       return int(cudaErrorInvalidValue);
   }

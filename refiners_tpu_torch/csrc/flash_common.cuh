@@ -1,0 +1,255 @@
+// Helpers shared by the flash attention kernels (forward and backward), for
+// Hopper (sm_90a): cp.async copies, ldmatrix, the m16n8k16 tensor-core
+// product, and the strided tile loads every kernel uses; and, for the
+// float32 kernels, shared-memory tiles multiplied with FFMA.
+//
+// Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
+// - A (16 x 16, row-major), 4 registers of two values: (g, 2t), (g + 8, 2t),
+//   (g, 2t + 8), (g + 8, 2t + 8);
+// - B (16 x 8, column-major), 2 registers: (2t, g), (2t + 8, g);
+// - C (16 x 8, float32), 4 values: (g, 2t), (g, 2t + 1), (g + 8, 2t),
+//   (g + 8, 2t + 1).
+// So the C accumulators of two neighbouring 16 x 8 tiles are, packed two by
+// two, the A fragment of their 16 x 16 block: a product's result feeds the
+// next product from registers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace flash {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;  // rows per tile: 16 per warp, and keys per inner step
+constexpr float kMaskedScore = -1e30f;
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy; src-size 0 writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// 4-byte copy; src-size 0 writes zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), float32 accumulation
+template <typename T>
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// two floats → one register of two T, `lo` in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// The A fragment of 16 columns [16c, 16c + 16) of a 16-row block whose
+// float32 accumulators are acc[n][4] (n-th 8-column tile), rounded to T.
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4], const float hi[4]) {
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
+}
+
+// Start copying rows [row0, row0 + 64) of one head into shared memory with
+// row pitch D + 8; rows past `len` and columns past `d` are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride, int row0, int len,
+                                                int d) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    const bool valid = row0 + r < len && col < d;
+    cp_async16(dst + r * (D + 8) + col, valid ? src + (long long)(row0 + r) * row_stride + col : src, valid);
+  }
+}
+
+// The A fragment of the 16 rows [row0, row0 + 16) and 16 columns
+// [16kk, 16kk + 16) of a tile with row pitch LD.
+template <int LD, typename T>
+__device__ __forceinline__ void load_a(uint32_t a[4], const T* tile, int row0, int kk, int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+}
+
+// The B fragments of two 8-column tiles [16np, 16np + 16) of X^T, for X's
+// rows as columns (X row-major, pitch LD), over depth [16kk, 16kk + 16):
+// b[0], b[1] for tile 2np and b[2], b[3] for tile 2np + 1.
+template <int LD, typename T>
+__device__ __forceinline__ void load_b_rows(uint32_t b[4], const T* tile, int np, int kk, int lane) {
+  ldmatrix_x4(b, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+}
+
+// The B fragments of two 8-column tiles [16dp, 16dp + 16) of X (X row-major,
+// pitch LD), over depth rows [16kc, 16kc + 16): transposed ldmatrix.
+template <int LD, typename T>
+__device__ __forceinline__ void load_b_cols(uint32_t b[4], const T* tile, int kc, int dp, int lane) {
+  ldmatrix_x4_trans(b, tile + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8);
+}
+
+// Smallest compiled head-dim template that holds `dim_pad` (a multiple of 16).
+inline int mma_template(int dim_pad) {
+  if (dim_pad <= 48) return 48;
+  if (dim_pad <= 64) return 64;
+  if (dim_pad <= 80) return 80;
+  if (dim_pad <= 128) return 128;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// float32: plain FMA tiles
+// ---------------------------------------------------------------------------
+//
+// The float32 kernels keep float32 accuracy with FFMA, not tensor cores.
+// 256 threads form a 16 x 16 grid (tx = tid % 16, ty = tid / 16); a thread
+// owns rows ty + 16i and columns tx + 16j of a score tile of 64 columns,
+// and columns tx + 16c of a rows x D accumulator. Each half-warp shares one
+// ty, so a row's reductions are shuffles over 16 lanes. Tiles sit in shared
+// memory with odd row pitches (D + 1, 64 + 1): the 16 rows a half-warp reads
+// at one depth fall in 16 distinct banks.
+
+constexpr int kF32Threads = 256;
+constexpr int kF32ScorePitch = kTile + 1;
+
+// Smallest compiled float32 head-dim template that holds `dim_pad`.
+inline int f32_template(int dim_pad) {
+  const int mma = mma_template(dim_pad);
+  if (mma != 0) return mma;
+  if (dim_pad <= 256) return 256;
+  if (dim_pad <= 512) return 512;
+  return 0;
+}
+
+// Copy rows [row0, row0 + rows) of one head into shared memory with pitch
+// D + 1, 16 bytes per global read; rows past `len` and columns past `d` are
+// zero.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long row_stride, int row0, int rows,
+                                              int len, int d) {
+  constexpr int kChunks = D / 4;
+  for (int c = threadIdx.x; c < rows * kChunks; c += kF32Threads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < len && col < d) val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * row_stride + col);
+    float* out = dst + r * (D + 1) + col;
+    out[0] = val.x;
+    out[1] = val.y;
+    out[2] = val.z;
+    out[3] = val.w;
+  }
+}
+
+// acc[i][j] += sum over k < D of A[ty + 16i][k] * B[tx + 16j][k]: a tile of
+// A B^T, A and B with pitch D + 1.
+template <int D, int R>
+__device__ __forceinline__ void mm_abt_f32(float acc[R][4], const float* a, const float* b, int tx, int ty) {
+  #pragma unroll 4
+  for (int k = 0; k < D; ++k) {
+    float av[R], bv[4];
+    #pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + k];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + k];
+    #pragma unroll
+    for (int i = 0; i < R; ++i) {
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// acc[i][c] += sum over k < 64 of P[ty + 16i][k] * X[k][tx + 16c]: a tile
+// of P X, P with pitch 64 + 1 and X (64 x D) with pitch D + 1.
+template <int D, int R>
+__device__ __forceinline__ void mm_ab_f32(float acc[R][D / 16], const float* p, const float* x, int tx, int ty) {
+  #pragma unroll 4
+  for (int k = 0; k < kTile; ++k) {
+    float pv[R];
+    #pragma unroll
+    for (int i = 0; i < R; ++i) pv[i] = p[(ty + 16 * i) * kF32ScorePitch + k];
+    #pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const float xv = x[k * (D + 1) + tx + 16 * c];
+      #pragma unroll
+      for (int i = 0; i < R; ++i) acc[i][c] = fmaf(pv[i], xv, acc[i][c]);
+    }
+  }
+}
+
+// max and sum over the 16 lanes of a half-warp (one row's owners)
+__device__ __forceinline__ float row_max16(float x) {
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+}  // namespace flash

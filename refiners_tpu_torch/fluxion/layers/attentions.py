@@ -1,10 +1,12 @@
 """Attention layers; counterpart of ``refiners_tpu/fluxion/layers/attentions.py``.
 
-`ScaledDotProductAttention` routes to the hand-written flash kernel
+`ScaledDotProductAttention` routes to the hand-written flash kernels
 (``ops.flash_attention.flash_attention_packed``) under the JAX layer's
 conditions: never when ``is_optimized`` is False, always when ``slice_size``
 is set, and otherwise when the tensors are on the card and both sequences are
-at least ``FLASH_MIN_SEQ`` long. Everything else takes the plain math path.
+at least ``FLASH_MIN_SEQ`` long, in bfloat16, float16 or float32. Everything
+else takes the plain math path. Under autograd the kernel route runs the
+backward kernels.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ class ScaledDotProductAttention(Module):
             split_heads(key, self.num_heads),
             split_heads(value, self.num_heads),
             is_causal=self.is_causal,
+            use_flash=False,
         )
         return merge_heads(out)
 

@@ -6,6 +6,7 @@ Images are NCHW float tensors in [0, 1] here (the JAX package's are NHWC).
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -17,12 +18,52 @@ from refiners_tpu_torch.fluxion.rng import manual_seed
 
 __all__ = [
     "manual_seed",
+    "str_to_dtype",
+    "synthesize_weights",
     "interpolate",
     "image_to_tensor",
     "images_to_tensor",
     "tensor_to_image",
     "tensor_to_images",
 ]
+
+
+def str_to_dtype(dtype: str) -> torch.dtype:
+    """Map a name (as the JAX package's `str_to_dtype` takes it) to a torch dtype."""
+    match dtype.lower():
+        case "float32" | "float":
+            return torch.float32
+        case "float64" | "double":
+            return torch.float64
+        case "float16" | "half":
+            return torch.float16
+        case "bfloat16" | "bf16":
+            return torch.bfloat16
+        case "int32" | "int":
+            return torch.int32
+        case "int64" | "long":
+            return torch.int64
+        case "int16" | "short":
+            return torch.int16
+        case "int8":
+            return torch.int8
+        case "uint8" | "byte":
+            return torch.uint8
+        case "bool":
+            return torch.bool
+        case _:
+            raise ValueError(f"Unknown dtype: {dtype}")
+
+
+def synthesize_weights(module: torch.nn.Module, seed: int) -> None:
+    """Seeded fan-in-scaled normals, drawn on the module's device, for every
+    weight of two or more dims; norms and biases keep their constructor
+    values. Stands in for real checkpoints, which the repository does not hold."""
+    gen = torch.Generator(next(module.parameters()).device).manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.ndim >= 2:
+                p.normal_(generator=gen).mul_(math.prod(p.shape[1:]) ** -0.5)
 
 
 def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str = "nearest", antialias: bool = False) -> torch.Tensor:

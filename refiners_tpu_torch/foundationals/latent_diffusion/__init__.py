@@ -2,12 +2,14 @@ from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import Laten
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import (
     DDIM,
+    DDPM,
     ModelPredictionType,
     NoiseSchedule,
     Solver,
     SolverParams,
     TimestepSpacing,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import SD1UNet
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl import (
     DoubleTextEncoder,
     SDXLAutoencoder,
@@ -17,11 +19,13 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl impor
 
 __all__ = [
     "DDIM",
+    "DDPM",
     "DoubleTextEncoder",
     "LatentDiffusionAutoencoder",
     "LatentDiffusionModel",
     "ModelPredictionType",
     "NoiseSchedule",
+    "SD1UNet",
     "SDXLAutoencoder",
     "SDXLUNet",
     "Solver",

@@ -217,6 +217,21 @@ class Solver(fl.Module, ABC):
     def _check_step(self, step: int) -> None:
         assert self.first_inference_step <= step < self.num_inference_steps, f"invalid step {step}"
 
+    def _add_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int) -> torch.Tensor:
+        timestep = self.timesteps[step].long()  # indexed on the tables' device, no host read
+        csf = self.cumulative_scale_factors[timestep]
+        std = self.noise_std[timestep]
+        # arXiv:2006.11239 Eq. 4, in float32
+        return (csf * x.float() + std * noise.float()).to(x.dtype)
+
+    def add_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int | list[int]) -> torch.Tensor:
+        """Noise `x` to the timestep of inference step `step`; with a list,
+        one step per batch element."""
+        if isinstance(step, list):
+            assert len(x) == len(noise) == len(step)
+            return torch.stack([self._add_noise(x[i], noise[i], s) for i, s in enumerate(step)], dim=0)
+        return self._add_noise(x, noise, step)
+
     @property
     def all_steps(self) -> list[int]:
         return list(range(self.num_inference_steps))

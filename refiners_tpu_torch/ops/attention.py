@@ -7,9 +7,10 @@ softmax weights are cast to the query dtype before the product with V — the
 numerics of the JAX package's XLA path.
 
 On the card, attention whose query and key sequences are both at least
-``FLASH_MIN_SEQ`` long goes to the hand-written kernel
-(``ops.flash_attention``); this path serves the rest (cross-attention over
-77 text tokens, CLIP) and is the kernel's plain reference.
+``FLASH_MIN_SEQ`` long goes to the hand-written kernels
+(``ops.flash_attention``), in bfloat16, float16 or float32; this path serves
+the rest (cross-attention over 77 text tokens, CLIP) and is the layers'
+plain reference.
 """
 
 from __future__ import annotations
@@ -89,9 +90,27 @@ def dot_product_attention(
     mask: torch.Tensor | None = None,
     is_causal: bool = False,
     scale: float | None = None,
+    use_flash: bool | None = None,
 ) -> torch.Tensor:
-    """Attention over (B, H, Lq, D) / (B, H, Lk, D) tensors, plain math path."""
+    """Attention over (B, H, Lq, D) / (B, H, Lk, D) tensors.
+
+    `use_flash=None` picks the flash kernel by `flash_auto`; `True` calls
+    ``ops.flash_attention.flash_attention`` with the mask as an additive
+    bias (its plain version on CPU tensors); `False` takes the plain path.
+    """
     assert q.ndim == 4, f"expected (B, H, L, D), got {tuple(q.shape)}"
+    if use_flash is None:
+        use_flash = flash_auto(q, q.shape[-2], k.shape[-2])
+    if use_flash:
+        from refiners_tpu_torch.ops.flash_attention import MASKED_SCORE, flash_attention
+
+        bias = mask
+        if bias is not None and bias.dtype == torch.bool:
+            # boolean keep-mask → large negative additive bias. A row whose
+            # keys are ALL masked gets uniform weights here (every score ties
+            # at -1e30) where the plain path gives NaN, as in the JAX package.
+            bias = torch.where(bias, 0.0, MASKED_SCORE).float()
+        return flash_attention(q, k, v, bias=bias, is_causal=is_causal, scale=scale)
     return _attention(q, k, v, mask=mask, is_causal=is_causal, scale=scale)
 
 

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``refiners_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``. The library goes to ``build/refiners_tpu_torch/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edited source
-rebuilds. Nothing is built or loaded until the first kernel launch on a CUDA
-tensor.
+Each source ``refiners_tpu_torch/csrc/*.cu`` is compiled with ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface, loaded
+with ``ctypes``. The ``nvcc`` processes run side by side. The libraries go to
+``build/refiners_tpu_torch/`` at the root of the checkout, each named by a
+hash of its source, the shared headers and the flags, so an edited source
+rebuilds its own library (an edited header rebuilds all). Nothing is built
+or loaded until the first kernel launch on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "refiners_tpu_torch"
@@ -26,6 +28,23 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]  # fmt: skip
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C entry point → (source stem, argument types); every entry returns a cudaError_t as int
+_ENTRIES = {
+    "refiners_flash_attention_forward": (
+        "flash_attention_forward",
+        [_P] * 6 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
+    ),
+    "refiners_flash_attention_bwd_dkv": (
+        "flash_attention_backward",
+        [_P] * 9 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
+    ),
+    "refiners_flash_attention_bwd_dq": (
+        "flash_attention_backward",
+        [_P] * 9 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
+    ),
+}
 
 
 def _nvcc() -> str:
@@ -42,45 +61,67 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_paths() -> dict[str, Path]:
+    """Source stem → the path of its library, tagged by a hash of the flags,
+    the source and the shared headers."""
+    headers = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        headers.update(header.name.encode() + header.read_bytes())
+    paths = {}
     for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"librefiners_kernels_{digest.hexdigest()[:16]}.so"
+        tag = hashlib.sha256(headers.digest() + src.read_bytes()).hexdigest()[:16]
+        paths[src.stem] = BUILD_DIR / f"lib{src.stem}_{tag}.so"
+    return paths
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile the kernels if their library is missing; return its path and
-    the compiler's output (empty when nothing was compiled)."""
-    path = library_path()
-    if path.exists():
-        return path, ""
+def build_libraries() -> tuple[dict[str, Path], str]:
+    """Compile every missing library, one ``nvcc`` per source, all at once;
+    return the paths and the compilers' output (empty when nothing was
+    compiled)."""
+    paths = library_paths()
+    missing = {stem: path for stem, path in paths.items() if not path.exists()}
+    if not missing:
+        return paths, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    jobs = []
+    for stem, path in missing.items():
+        # compile to a private name, then rename: concurrent builders never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((path, tmp, cmd, proc))
+    log, failures = [], []
+    for path, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths, "".join(log)
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed and load the kernels' library, with typed entry points."""
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.refiners_flash_attention_packed
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 6
-        + [ctypes.c_longlong] * 8
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return lib
+def load_library() -> SimpleNamespace:
+    """Build if needed and load the kernels' libraries; the C entry points,
+    typed, as attributes of the result."""
+    paths, _ = build_libraries()
+    libs = {stem: ctypes.CDLL(str(path)) for stem, path in paths.items()}
+    entries = {}
+    for name, (stem, argtypes) in _ENTRIES.items():
+        fn = getattr(libs[stem], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return SimpleNamespace(**entries)
+
+
+def c_longlongs(values: list[int]) -> ctypes.Array:
+    """A C array of long long, for the entry points' stride arguments."""
+    return (_LL * len(values))(*values)

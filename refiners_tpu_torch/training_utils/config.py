@@ -1,0 +1,204 @@
+"""Training configuration, read from TOML; counterpart of
+``refiners_tpu/training_utils/config.py``.
+
+Same class names, field names, defaults and TOML schema as the JAX
+package; the classes are dataclasses loaded with `tomllib` (see
+``config_base.py``), not pydantic models. Optimizers are `torch.optim`'s,
+with every default (betas, eps, weight decay 1e-2) taken from the JAX
+package. LR schedules are the same multiplier functions, applied by the
+Trainer at every optimizer step.
+
+Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
+AdamW8bit, Lion8bit and Prodigy optimizers, the ``[training.mesh]``
+section, and ``jit_step``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from enum import Enum
+from pathlib import Path
+from typing import Any, Callable, Iterable, Literal, TypeVar
+
+import torch
+
+from refiners_tpu_torch.training_utils.clock import ClockConfig
+from refiners_tpu_torch.training_utils.common import Iteration, Step, TimeValue, parse_number_unit_field
+from refiners_tpu_torch.training_utils.config_base import Config, parsed
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 step {step})"
+
+
+def _tuple(value: Any) -> tuple[Any, ...]:
+    return tuple(value)
+
+
+class TrainingConfig(Config):
+    device: str = "cuda"
+    dtype: str = "float32"
+    duration: TimeValue = parsed(parse_number_unit_field, factory=lambda: Iteration(1))
+    seed: int = 0
+    gradient_accumulation: Step = parsed(parse_number_unit_field, factory=lambda: Step(1))
+    gradient_clipping_max_norm: float | None = None
+    jit_step: bool = False
+    mesh: dict[str, Any] | None = None
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.mesh is not None:
+            raise NotImplementedError("[training.mesh] " + _NOT_PORTED.format(step=12))
+        if self.jit_step:
+            raise NotImplementedError("training.jit_step (a compiled step: CUDA graphs) " + _NOT_PORTED.format(step=10))
+
+
+class Optimizers(str, Enum):
+    SGD = "SGD"
+    Adam = "Adam"
+    AdamW = "AdamW"
+    AdamW8bit = "AdamW8bit"
+    Lion8bit = "Lion8bit"
+    Prodigy = "Prodigy"
+
+
+class LRSchedulerType(str, Enum):
+    STEP_LR = "StepLR"
+    EXPONENTIAL_LR = "ExponentialLR"
+    REDUCE_LR_ON_PLATEAU = "ReduceLROnPlateau"
+    COSINE_ANNEALING_LR = "CosineAnnealingLR"
+    CONSTANT_LR = "ConstantLR"
+    LAMBDA_LR = "LambdaLR"
+    ONE_CYCLE_LR = "OneCycleLR"
+    MULTIPLICATIVE_LR = "MultiplicativeLR"
+    COSINE_ANNEALING_WARM_RESTARTS = "CosineAnnealingWarmRestarts"
+    CYCLIC_LR = "CyclicLR"
+    MULTI_STEP_LR = "MultiStepLR"
+    DEFAULT = "ConstantLR"
+
+
+class LRSchedulerConfig(Config):
+    type: LRSchedulerType = parsed(LRSchedulerType, default=LRSchedulerType.DEFAULT)
+    update_interval: TimeValue = parsed(parse_number_unit_field, factory=lambda: Iteration(1))
+    warmup: TimeValue = parsed(parse_number_unit_field, factory=lambda: Iteration(0))
+    gamma: float = 0.1
+    lr_lambda: Callable[[int], float] | None = None
+    mode: Literal["min", "max"] = "min"
+    factor: float = 0.1
+    patience: int = 10
+    threshold: float = 1e-4
+    cooldown: int = 0
+    milestones: list[int] = dataclasses.field(default_factory=list)
+    base_lr: float = 1e-7
+    min_lr: float | list[float] = 0
+    max_lr: float | list[float] = 0
+    eta_min: float = 0
+
+    def multiplier(self, t: int, base_lr: float) -> float:
+        """LR multiplier after `t` scheduler steps (torch-scheduler semantics)."""
+        n = self.update_interval.number
+        match self.type:
+            case LRSchedulerType.CONSTANT_LR | LRSchedulerType.DEFAULT:
+                return 1.0
+            case LRSchedulerType.STEP_LR:
+                return self.gamma ** (t // n)
+            case LRSchedulerType.EXPONENTIAL_LR:
+                return self.gamma**t
+            case LRSchedulerType.COSINE_ANNEALING_LR:
+                eta_min = float(self.eta_min)
+                return (eta_min + (base_lr - eta_min) * (1 + math.cos(math.pi * t / n)) / 2) / base_lr
+            case LRSchedulerType.COSINE_ANNEALING_WARM_RESTARTS:
+                t_cur = t % n
+                return (1 + math.cos(math.pi * t_cur / n)) / 2
+            case LRSchedulerType.LAMBDA_LR:
+                assert self.lr_lambda is not None, "lr_lambda must be specified to use LambdaLR"
+                return self.lr_lambda(t)
+            case LRSchedulerType.MULTIPLICATIVE_LR:
+                assert self.lr_lambda is not None, "lr_lambda must be specified to use MultiplicativeLR"
+                m = 1.0
+                for i in range(1, t + 1):
+                    m *= self.lr_lambda(i)
+                return m
+            case LRSchedulerType.MULTI_STEP_LR:
+                return self.gamma ** sum(1 for m in self.milestones if t >= m)
+            case LRSchedulerType.ONE_CYCLE_LR:
+                max_lr = self.max_lr if isinstance(self.max_lr, float) else self.max_lr[0]
+                pct = min(t / max(n, 1), 1.0)
+                if pct < 0.3:
+                    lr = base_lr + (max_lr - base_lr) * pct / 0.3
+                else:
+                    lr = max_lr * (1 + math.cos(math.pi * (pct - 0.3) / 0.7)) / 2
+                return lr / base_lr
+            case LRSchedulerType.CYCLIC_LR:
+                max_lr = self.max_lr if isinstance(self.max_lr, float) else self.max_lr[0]
+                cycle_pos = (t % (2 * n)) / n if n else 0.0
+                frac = cycle_pos if cycle_pos <= 1 else 2 - cycle_pos
+                return (self.base_lr + (max_lr - self.base_lr) * frac) / base_lr
+            case LRSchedulerType.REDUCE_LR_ON_PLATEAU:
+                return 1.0  # handled statefully by the trainer
+            case _:
+                raise ValueError(f"Unknown scheduler type: {self.type}")
+
+
+class OptimizerConfig(Config):
+    optimizer: Optimizers = parsed(Optimizers)
+    learning_rate: float = 1e-4
+    betas: tuple[float, float] = parsed(_tuple, default=(0.9, 0.999))
+    eps: float = 1e-8
+    weight_decay: float = 1e-2
+
+    def get(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        learning_rate: float | None = None,
+        betas: tuple[float, float] | None = None,
+        eps: float | None = None,
+        weight_decay: float | None = None,
+    ) -> torch.optim.Optimizer:
+        """The optimizer over `params`; each argument left None takes this
+        config's value. SGD and Adam add the decay to the gradient (the JAX
+        package's `add_decayed_weights` before the transform); AdamW decays
+        the weights directly."""
+        lr = learning_rate if learning_rate is not None else self.learning_rate
+        b = tuple(betas) if betas is not None else self.betas
+        e = eps if eps is not None else self.eps
+        wd = weight_decay if weight_decay is not None else self.weight_decay
+        match self.optimizer:
+            case Optimizers.SGD:
+                return torch.optim.SGD(params, lr=lr, weight_decay=wd)
+            case Optimizers.Adam:
+                return torch.optim.Adam(params, lr=lr, betas=b, eps=e, weight_decay=wd)
+            case Optimizers.AdamW:
+                return torch.optim.AdamW(params, lr=lr, betas=b, eps=e, weight_decay=wd)
+            case _:
+                raise NotImplementedError(f"the {self.optimizer.value} optimizer " + _NOT_PORTED.format(step=10))
+
+
+class ModelConfig(Config):
+    requires_grad: bool | None = None
+    learning_rate: float | None = None
+    betas: tuple[float, float] | None = parsed(_tuple, default=None)
+    eps: float | None = None
+    weight_decay: float | None = None
+
+
+T = TypeVar("T", bound="BaseConfig")
+
+
+class BaseConfig(Config):
+    training: TrainingConfig
+    optimizer: OptimizerConfig
+    lr_scheduler: LRSchedulerConfig
+    clock: ClockConfig = ClockConfig()
+
+    @classmethod
+    def load_from_toml(cls: type[T], toml_path: Path | str) -> T:
+        import tomllib
+
+        with open(toml_path, "rb") as f:
+            return cls.from_dict(tomllib.load(f))
+
+    @classmethod
+    def load_from_toml_string(cls: type[T], text: str) -> T:
+        import tomllib
+
+        return cls.from_dict(tomllib.loads(text))

@@ -1,0 +1,164 @@
+"""The port's flash attention forward (with bias and logsumexp) and backward
+against the JAX package, on the CPU.
+
+The port's entries run their plain versions on CPU tensors; the JAX side
+runs its Pallas kernels through the interpreter (as
+tests/fluxion/test_flash_packed.py does): K2 (`_flash_forward`), K1
+(`_flash_forward_packed`) and K4 (`_flash_backward`, through `jax.vjp`).
+The kernels themselves run only on the card: see
+tests/test_torch_flash_kernel.py.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from refiners_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
+from refiners_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
+from refiners_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from refiners_tpu.ops.flash_attention import flash_attention_packed as jax_flash_attention_packed
+from refiners_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
+from refiners_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_forward,
+    flash_attention_packed,
+    flash_attention_plain,
+)
+
+# float32 on both sides; the Pallas kernels' online softmax and the port's
+# dense softmax sum in different orders (≈1e-7 per element)
+TOL = 1e-5
+LSE_TOL = 1e-5
+# autograd of the same plain version, on the same tensors
+AUTOGRAD_TOL = 1e-6
+
+SHAPES = [
+    # (batch, lq, lk, heads, dim, causal)
+    (1, 200, 300, 8, 40, False),  # SD1.5 head width, ragged lengths
+    (2, 256, 256, 4, 64, True),
+    (1, 256, 256, 3, 160, False),  # wide heads
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads() -> Any:
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(np.asarray(got) - np.asarray(want)) / np.linalg.norm(np.asarray(want)))
+
+
+def _inputs(batch: int, lq: int, lk: int, heads: int, dim: int, seed: int) -> list[np.ndarray]:
+    """q, k, v and an output gradient, (B, H, L, D) float32."""
+    rs = np.random.RandomState(seed)
+    return [rs.randn(batch, heads, n, dim).astype(np.float32) for n in (lq, lk, lk, lq)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("batch,lq,lk,heads,dim,causal", SHAPES)
+def test_forward_and_lse_match_jax(
+    batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool, with_bias: bool
+) -> None:
+    q, k, v, _ = _inputs(batch, lq, lk, heads, dim, seed=lq + dim)
+    bias = np.random.RandomState(1).randn(batch, heads, lq, lk).astype(np.float32) if with_bias else None
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jbias = None if bias is None else jnp.asarray(bias)
+    want = jax_flash_attention(jq, jk, jv, bias=jbias, is_causal=causal)
+    _, want_lse = jax_flash_forward(jq, jk, jv, jbias, causal, None, with_lse=True)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    tbias = None if bias is None else torch.tensor(bias)
+    got = flash_attention(tq, tk, tv, bias=tbias, is_causal=causal)
+    assert torch.equal(got, flash_attention_plain(tq, tk, tv, bias=tbias, is_causal=causal))
+    _, lse = flash_attention_forward(tq, tk, tv, tbias, is_causal=causal, with_lse=True)
+    assert got.shape == (batch, heads, lq, dim) and lse is not None and lse.shape == (batch, heads, lq)
+    assert _rel(got.numpy(), want) <= TOL
+    # the JAX lse is lane-broadcast (B, H, Lq_pad, 128): its first lane, first Lq rows
+    assert float(np.abs(lse.numpy() - np.asarray(want_lse)[:, :, :lq, 0]).max()) <= LSE_TOL
+
+
+def test_boolean_mask_with_a_fully_masked_row_gives_uniform_weights() -> None:
+    """`use_flash=True` turns a boolean keep-mask into a -1e30 bias: a row
+    with every key masked gets uniform weights (the plain path gives NaN).
+
+    Lk is a multiple of 128 here: the JAX kernel's uniform weights run over
+    its key block padded to 128 lanes (so with Lk = 160 it gives
+    sum(V) / 256), where the port's kernel and plain version exclude the
+    key tail and give mean(V) at any Lk."""
+    q, k, v, _ = _inputs(1, 128, 256, 2, 32, seed=3)
+    mask = np.random.RandomState(4).rand(1, 1, 128, 256) > 0.5
+    mask[..., 5, :] = False
+    want = np.asarray(
+        jax_dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jnp.asarray(mask), use_flash=True)
+    )
+    got = dot_product_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), mask=torch.tensor(mask), use_flash=True)
+    uniform = v.mean(axis=2)
+    assert _rel(want[:, :, 5], uniform) <= TOL
+    assert _rel(got.numpy()[:, :, 5], uniform) <= TOL
+    assert _rel(got.numpy(), want) <= TOL
+
+
+@pytest.mark.parametrize("entry", ["packed", "flat"])
+@pytest.mark.parametrize("batch,lq,lk,heads,dim,causal", SHAPES + [(1, 300, 200, 2, 64, True)])
+def test_backward_plain_matches_jax_vjp(
+    entry: str, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool
+) -> None:
+    """`flash_attention_backward_plain` against `jax.vjp` of the JAX entries:
+    packed d = 40 takes K2 + K4, packed d = 64 K1 + K4, flat K2 + K4. With
+    Lq > Lk under `causal`, rows without an admissible key get zero dq."""
+    q, k, v, do = _inputs(batch, lq, lk, heads, dim, seed=lq + 2 * dim)
+    if entry == "packed":
+        packed = [np.asarray(merge_heads(torch.tensor(x))) for x in (q, k, v, do)]
+
+        def jax_fn(a: jax.Array, b: jax.Array, c: jax.Array) -> jax.Array:
+            return jax_flash_attention_packed(a, b, c, is_causal=causal, head_dim=dim)
+
+        _, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in packed[:3]))
+        want = [np.asarray(split_heads(torch.tensor(np.asarray(g)), heads)) for g in vjp(jnp.asarray(packed[3]))]
+    else:
+        _, vjp = jax.vjp(
+            lambda a, b, c: jax_flash_attention(a, b, c, is_causal=causal), *(jnp.asarray(x) for x in (q, k, v))
+        )
+        want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    out, lse = flash_attention_forward(tq, tk, tv, is_causal=causal, with_lse=True)
+    assert lse is not None
+    got = flash_attention_backward_plain(tq, tk, tv, out, lse, tdo, is_causal=causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g.numpy(), w) <= TOL
+    # CPU tensors: the backward entry runs its plain version
+    for g, h in zip(got, flash_attention_backward(tq, tk, tv, out, lse, tdo, is_causal=causal)):
+        assert torch.equal(g, h)
+    if causal and lq > lk:
+        assert float(got[0][:, :, : lq - lk].abs().max()) == 0.0
+        assert float(np.abs(want[0][:, :, : lq - lk]).max()) == 0.0
+
+
+@pytest.mark.parametrize(
+    "entry,causal,with_bias", [("packed", False, False), ("packed", True, False), ("flat", True, False), ("flat", False, True)]
+)
+def test_autograd_on_cpu_tensors_is_autograd_of_the_plain_version(entry: str, causal: bool, with_bias: bool) -> None:
+    q, k, v, do = (torch.tensor(x) for x in _inputs(2, 96, 112, 3, 40, seed=11))
+    bias = torch.tensor(np.random.RandomState(12).randn(2, 1, 96, 112).astype(np.float32)) if with_bias else None
+    leaves = [x.requires_grad_() for x in (q, k, v) + ((bias,) if bias is not None else ())]
+    if entry == "packed":
+        pq, pk, pv = (merge_heads(x) for x in (q, k, v))
+        got_out = split_heads(flash_attention_packed(pq, pk, pv, is_causal=causal, head_dim=40), 3)
+    else:
+        got_out = flash_attention(q, k, v, bias=bias, is_causal=causal)
+    got = torch.autograd.grad(got_out, leaves, do)
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, bias=bias, is_causal=causal), leaves, do)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w.numpy()) <= AUTOGRAD_TOL

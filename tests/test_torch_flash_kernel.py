@@ -1,4 +1,4 @@
-"""The hand-written flash attention kernel against its plain version, on the card.
+"""The hand-written flash attention kernels against their plain versions, on the card.
 
 These tests need an NVIDIA card with nvcc (sm_90a) and skip elsewhere. The
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -12,19 +12,39 @@ from __future__ import annotations
 import pytest
 import torch
 
-from refiners_tpu_torch.ops.flash_attention import flash_attention_packed, flash_attention_packed_plain
+import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.ops import flash_attention as fa
+from refiners_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_forward,
+    flash_attention_packed,
+    flash_attention_packed_plain,
+    flash_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
 # bf16 unit roundoff is 3.9e-3 and the kernel rounds P and O once each; the
 # plain version runs in float32 from the same bf16 inputs
 TOL = 1e-2
+# the backward rounds P and dS once each and sums over a whole sequence
+GRAD_TOL = 2e-2
+# lse is float32 throughout, from the same bf16 q and k: summation order only
+LSE_TOL = 1e-3
+# the float32 kernels against the float32 plain versions: summation order
+# only (float32 unit roundoff 6e-8, sums over a few hundred terms)
+F32_TOL = 1e-5
+F32_LSE_TOL = 1e-5
+
+COUNTERS = (fa.flash_attention_packed, fa.flash_attention, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
 
 
 @pytest.fixture
 def device() -> torch.device:
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
@@ -34,8 +54,17 @@ def _qkv(device: torch.device, batch: int, lq: int, lk: int, width: int, dtype: 
     return [torch.randn((batch, n, width), generator=gen, device=device).to(dtype) for n in (lq, lk, lk)]
 
 
+def _qkv4(device: torch.device, batch: int, lq: int, lk: int, heads: int, dim: int) -> list[torch.Tensor]:
+    gen = torch.Generator(device).manual_seed(lq + 3 * lk + dim)
+    return [torch.randn((batch, heads, n, dim), generator=gen, device=device).bfloat16() for n in (lq, lk, lk)]
+
+
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want))
+    return float(torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(want.float()))
+
+
+def _launches() -> list[int]:
+    return [c.launches for c in COUNTERS]  # type: ignore[attr-defined]
 
 
 @pytest.mark.parametrize(
@@ -51,6 +80,10 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
         (1, 300, 260, 3, 128, False, torch.bfloat16),
         (2, 200, 200, 2, 80, True, torch.float16),
         (1, 130, 150, 2, 256, False, torch.bfloat16),  # between the two kernels' ranges
+        (1, 200, 300, 8, 40, False, torch.float32),
+        (2, 256, 256, 4, 64, True, torch.float32),
+        (1, 130, 150, 2, 160, False, torch.float32),  # the D = 256 template
+        (1, 256, 256, 1, 512, False, torch.float32),
     ],
 )
 def test_kernel_matches_plain(
@@ -63,7 +96,7 @@ def test_kernel_matches_plain(
     assert flash_attention_packed.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=causal, head_dim=dim)
-    assert _rel(got, want) <= TOL
+    assert _rel(got, want) <= (F32_TOL if dtype == torch.float32 else TOL)
 
 
 def test_kernel_reads_strided_heads(device: torch.device) -> None:
@@ -83,11 +116,172 @@ def test_causal_rows_without_keys_get_uniform_weights(device: torch.device) -> N
 
 
 def test_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
-    q, k, v = _qkv(device, 1, 64, 64, 128, torch.float32)
+    q, k, v = _qkv(device, 1, 64, 64, 256, torch.float64)
     with pytest.raises(TypeError):
         flash_attention_packed(q, k, v, head_dim=64)
     q, k, v = (x.bfloat16() for x in (q, k, v))
     with pytest.raises(ValueError):
         flash_attention_packed(q, k, v, head_dim=12)
-    with pytest.raises(NotImplementedError):
-        flash_attention_packed(q.requires_grad_(), k, v, head_dim=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention_packed(q.requires_grad_(), k, v, head_dim=256)
+
+
+@pytest.mark.parametrize(
+    "batch,lq,lk,heads,dim,causal,bias_shape",
+    [
+        (1, 200, 300, 8, 40, False, None),
+        (2, 1000, 1100, 5, 64, False, None),
+        (2, 256, 256, 4, 64, True, None),
+        (1, 1024, 1024, 4, 64, False, (1, 4, 1024, 1024)),  # a full float32 bias
+        (2, 300, 260, 3, 80, False, (2, 1, 1, 260)),  # a broadcast key bias (stride 0)
+        (1, 256, 256, 1, 512, True, (1, 1, 256, 256)),  # the WMMA kernel
+    ],
+)
+def test_forward_with_bias_and_lse(
+    device: torch.device,
+    batch: int,
+    lq: int,
+    lk: int,
+    heads: int,
+    dim: int,
+    causal: bool,
+    bias_shape: tuple[int, ...] | None,
+) -> None:
+    q, k, v = _qkv4(device, batch, lq, lk, heads, dim)
+    bias = None if bias_shape is None else torch.randn(bias_shape, device=device)
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, bias, is_causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert lse is not None and lse.shape == (batch, heads, lq) and lse.dtype == torch.float32
+    want_out, want_lse = fa._plain_forward(q.float(), k.float(), v.float(), bias, causal, None)
+    assert _rel(out, want_out) <= TOL
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+
+
+def test_boolean_mask_with_a_fully_masked_row_gives_uniform_weights(device: torch.device) -> None:
+    from refiners_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v = _qkv4(device, 1, 256, 256, 2, 64)
+    mask = torch.rand((1, 1, 256, 256), generator=torch.Generator(device).manual_seed(1), device=device) > 0.5
+    mask[..., 7, :] = False
+    got = dot_product_attention(q, k, v, mask=mask, use_flash=True).float()
+    want = flash_attention_plain(q.float(), k.float(), v.float(), bias=torch.where(mask, 0.0, -1e30))
+    assert _rel(got, want) <= TOL
+    assert _rel(got[..., 7, :], v.float().mean(dim=2)) <= TOL
+
+
+@pytest.mark.parametrize(
+    "batch,lq,lk,heads,dim,causal",
+    [
+        (2, 1000, 1100, 5, 64, False),  # ragged
+        (2, 256, 256, 4, 64, True),
+        (1, 300, 200, 2, 64, True),  # causal rows without keys: zero gradient
+        (1, 512, 512, 8, 40, False),
+        (1, 512, 512, 8, 80, True),
+        (1, 200, 330, 2, 128, False),
+    ],
+)
+def test_backward_matches_plain(
+    device: torch.device, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool
+) -> None:
+    q, k, v = _qkv4(device, batch, lq, lk, heads, dim)
+    out, lse = flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+    do = torch.randn_like(out)
+    before = _launches()
+    grads = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1], before[2] + 1, before[3] + 1]
+    want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel(got, ref) <= GRAD_TOL
+    if lq > lk and causal:
+        assert float(grads[0][:, :, : lq - lk].abs().max()) == 0.0
+
+
+def test_packed_backward_reads_strided_heads(device: torch.device) -> None:
+    """Autograd through the packed entry, q, k, v as column slices of one
+    fused projection: the backward kernels read the heads in place."""
+    qkv = torch.randn((2, 640, 3 * 320), device=device).bfloat16().requires_grad_()
+    q, k, v = qkv[..., :320], qkv[..., 320:640], qkv[..., 640:]
+    before = _launches()
+    out = flash_attention_packed(q, k, v, head_dim=40)
+    do = torch.randn_like(out)
+    (grad,) = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1] + 1, before[2] + 1, before[3] + 1]
+    q4, k4, v4, o4, do4 = (x.detach().float().reshape(2, 640, 8, 40).transpose(1, 2) for x in (q, k, v, out, do))
+    _, lse = fa._plain_forward(q4, k4, v4, None, False, None)
+    want = flash_attention_backward_plain(q4, k4, v4, o4, lse, do4)
+    for got, ref in zip(grad.split(320, dim=-1), want):
+        assert _rel(got, ref.transpose(1, 2).reshape(2, 640, 320)) <= GRAD_TOL
+
+
+def test_bias_backward_recomputes_through_the_plain_version(device: torch.device) -> None:
+    q, k, v = (x.requires_grad_() for x in _qkv4(device, 1, 128, 160, 2, 64))
+    bias = torch.randn((1, 2, 128, 160), device=device, requires_grad=True)
+    out = flash_attention(q, k, v, bias=bias)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v, bias), do)
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, bias=bias), (q, k, v, bias), do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= GRAD_TOL
+
+
+@pytest.mark.parametrize(
+    "batch,lq,lk,heads,dim,causal,bias_shape",
+    [
+        (1, 200, 300, 8, 40, False, None),
+        (2, 256, 256, 4, 64, True, None),
+        (1, 300, 200, 2, 64, True, None),  # causal rows without keys
+        (2, 300, 260, 3, 80, False, (2, 1, 1, 260)),  # a broadcast key bias (stride 0)
+        (1, 200, 330, 2, 128, False, (1, 2, 200, 330)),
+    ],
+)
+def test_float32_kernels_match_plain(
+    device: torch.device,
+    batch: int,
+    lq: int,
+    lk: int,
+    heads: int,
+    dim: int,
+    causal: bool,
+    bias_shape: tuple[int, ...] | None,
+) -> None:
+    """The FFMA kernels: float32 forward, lse and backward against the
+    float32 plain versions."""
+    q, k, v = (x.float() for x in _qkv4(device, batch, lq, lk, heads, dim))
+    bias = None if bias_shape is None else torch.randn(bias_shape, device=device)
+    before = _launches()
+    out, lse = flash_attention_forward(q, k, v, bias, is_causal=causal, with_lse=True)
+    do = torch.randn_like(out)
+    grads = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1] + 1, before[2] + 1, before[3] + 1]
+    want_out, want_lse = fa._plain_forward(q, k, v, bias, causal, None)
+    assert out.dtype == torch.float32 and _rel(out, want_out) <= F32_TOL
+    assert float((lse - want_lse).abs().max()) <= F32_LSE_TOL
+    want = flash_attention_backward_plain(q, k, v, out, lse, do, causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == torch.float32 and _rel(got, ref) <= F32_TOL
+
+
+def test_float32_on_the_card_runs_the_kernels(device: torch.device) -> None:
+    """A float32 module routes its long sites to the kernels, forward and
+    backward, and agrees with the same module on the plain path."""
+    layer = fl.SelfAttention(embedding_dim=320, num_heads=8).to(device)
+    x = torch.randn((1, 4096, 320), device=device, requires_grad=True)
+    before = _launches()
+    out = layer(x)
+    (grad,) = torch.autograd.grad(out, x, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1] + 1, before[2] + 1, before[3] + 1]
+    for sdpa in layer.layers(fl.ScaledDotProductAttention, recurse=True):
+        sdpa.is_optimized = False
+    plain = layer(x)
+    (plain_grad,) = torch.autograd.grad(plain, x, torch.ones_like(plain))
+    assert _rel(out, plain) <= F32_TOL and _rel(grad, plain_grad) <= F32_TOL
+    with torch.no_grad():
+        sliced = fl.ScaledDotProductAttention(num_heads=8, slice_size=64)(x, x, x)
+    assert _launches()[0] == before[0] + 1 and bool(torch.isfinite(sliced).all())
