@@ -23,7 +23,13 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    - the backward kernels (``flash_attention_bwd_dkv``,
      ``flash_attention_bwd_dq``) at the SD1.5 shapes and a causal case, and
      through strided heads of a packed fused projection: dq, dk, dv each
-     ≤ 2e-2 against ``flash_attention_backward_plain`` in float32.
+     ≤ 2e-2 against ``flash_attention_backward_plain`` in float32;
+   - the forward with SAM's decomposed relative-position bias
+     (``flash_attention_relpos``) at the SAM-H global and windowed layers'
+     shapes and at a 10 × 10 key grid, in bf16 and float32, against
+     ``flash_attention_relpos_plain`` in float32 (≤ 1e-2 in bf16, ≤ 1e-5
+     in float32), on strided head views of a fused projection; at the
+     global shape the kernel may allocate at most 64 MiB beyond its output.
 3. SDXL serving: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 with
    seeded synthetic weights, one UNet step through the kernel against the
    same step on the plain path, then 3 requests through ``TextToImage`` at
@@ -43,9 +49,23 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    and grad norm finite, every weight of two or more dims changed, every
    parameter finite, and exactly 10 forward + 10 dK/dV + 10 dQ launches per
    step.
+5. SAM serving: full-width ``SegmentAnythingH`` (ViT-H, 1280 wide, 32
+   layers, 16 heads) in bf16 with seeded synthetic weights and a
+   single-mask decoder. (a) One image embedding four ways: float32 on the
+   plain path (the reference), float32 through the kernel (≤ 1e-4 from the
+   reference), bf16 on the plain path and bf16 through the kernel (at most
+   twice as far from the reference as the bf16 plain route); each kernel
+   route launches ``flash_attention_relpos`` exactly 32 times, each plain
+   route never. (b) 3 requests (1024 × 768, 600 × 400 and 1024 × 1024
+   images): one ``compute_image_embedding`` (exactly 32 launches), a
+   ``predict`` with two foreground points and one background point and a
+   ``predict`` with a box (no launch each), then ``predict_pipelined`` over
+   the three embeddings (equal to the serial ``predict``); then HQ-SAM
+   injected, one embedding and one ``predict``. Masks must have the
+   original size and not be constant, IoU predictions finite.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3 and 4b, each with the counts set to 0 just before it), the
+phases 3, 4b and 5b, each with the counts set to 0 just before it), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,6 +93,13 @@ F32_STEP_TOL = 1e-4
 BF16, F32 = torch.bfloat16, torch.float32
 LAUNCHES_PER_REQUEST = 70 * 30 + 1
 LAUNCHES_PER_TRAINING_STEP = 10  # of each of the forward, dK/dV and dQ kernels
+TRAINING_STEP_LAUNCHES = {
+    "flash_attention_packed": 0,
+    "flash_attention": LAUNCHES_PER_TRAINING_STEP,
+    "flash_attention_bwd_dkv": LAUNCHES_PER_TRAINING_STEP,
+    "flash_attention_bwd_dq": LAUNCHES_PER_TRAINING_STEP,
+    "flash_attention_relpos": 0,
+}
 ATTENTION_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
     (2, 4096, 4096, 10, 64, False, BF16),  # SDXL UNet self-attention at 64×64 latents
@@ -93,6 +120,18 @@ FORWARD_SHAPES = [
     (2, 1024, 1024, 8, 80, False, False, F32),
     (2, 1000, 1100, 5, 64, True, True, F32),  # ragged, causal and biased
 ]
+RELPOS_SHAPES = [
+    # (batch, kh, kw, heads, head_dim, dtype); q_len = kv_len = kh·kw
+    (1, 64, 64, 16, 80, BF16),  # SAM-H global-attention layer
+    (25, 14, 14, 16, 80, BF16),  # SAM-H windowed layer (25 windows of 14 × 14)
+    (1, 10, 10, 1, 32, BF16),  # a grid where the TPU kernel falls back to a dense bias
+    (1, 64, 64, 16, 80, F32),
+    (25, 14, 14, 16, 80, F32),
+]
+RELPOS_EXTRA_BYTES = 64 * 2**20  # what K3 may allocate beyond its output at the global shape
+SAM_LAUNCHES_PER_EMBEDDING = 32  # one per ViT-H layer
+SAM_F32_TOL = 1e-4  # a float32 ViT-H embedding through K3 against the plain route: summation order over 32 layers
+SAM_IMAGES = [(1024, 768), (600, 400), (1024, 1024)]  # (width, height)
 BACKWARD_SHAPES = [
     (2, 4096, 4096, 8, 40, False, BF16),
     (2, 1024, 1024, 8, 80, False, BF16),
@@ -169,6 +208,7 @@ def _counters() -> dict[str, Any]:
         "flash_attention": fa.flash_attention,
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+        "flash_attention_relpos": fa.flash_attention_relpos,
     }
 
 
@@ -332,6 +372,49 @@ def check_backward(dev: torch.device) -> tuple[list[dict], list[dict]]:
     return dkv_results, dq_results
 
 
+def check_relpos(dev: torch.device) -> list[dict]:
+    from refiners_tpu_torch.ops import flash_attention as fa
+
+    results = []
+    gen = torch.Generator(dev).manual_seed(4)
+    for b, kh, kw, h, d, dtype in RELPOS_SHAPES:
+        seq = kh * kw
+        # q, k, v as head views of one fused (B, L, 3, H, D) projection, as SAM's encoder reads them
+        qkv = torch.randn((b, seq, 3 * h * d), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.reshape(b, seq, 3, h, d).permute(2, 0, 3, 1, 4)
+        v_rel = torch.randn((b, h, seq, kh), generator=gen, device=dev).to(dtype)
+        h_rel = torch.randn((b, h, seq, kw), generator=gen, device=dev).to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fa.flash_attention_relpos(q, k, v, v_rel, h_rel)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - base - out.numel() * out.element_size()
+        ref = fa.flash_attention_relpos_plain(*(x.float() for x in (q, k, v, v_rel, h_rel)))
+        rel, max_abs = _rel(out, ref), _max_abs(out, ref)
+        del ref
+        ms = _time_ms(lambda: fa.flash_attention_relpos(q, k, v, v_rel, h_rel), reps=10)
+        plain_ms = _time_ms(lambda: fa.flash_attention_relpos_plain(q, k, v, v_rel, h_rel), reps=3, warmup=1)
+        flops = 4 * b * h * seq * seq * d
+        print(
+            f"relpos forward (B={b}, L={seq}, grid {kh}x{kw}, H={h}, d={d}, {dtype}): rel_err={rel:.3e} "
+            f"max_abs_err={max_abs:.3e} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"kernel_TFLOP/s={flops / ms / 1e9:.1f} allocated beyond the output {extra / 2**20:.2f} MiB"
+        )
+        tol = _tols(dtype)[0]
+        if not rel <= tol:
+            raise AssertionError(f"relpos kernel disagrees with the plain version: rel_err={rel} > {tol}")
+        if (kh, kw) == (64, 64) and not extra < RELPOS_EXTRA_BYTES:
+            raise AssertionError(f"relpos kernel allocated {extra} bytes beyond its output (limit {RELPOS_EXTRA_BYTES})")
+        results.append(
+            {"shape": [b, seq, seq, h, d], "grid": [kh, kw], "dtype": str(dtype), "rel_err": rel,
+             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "extra_bytes": extra}
+        )  # fmt: skip
+        del qkv, q, k, v, v_rel, h_rel, out
+        _free()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: SDXL serving
 # ---------------------------------------------------------------------------
@@ -482,7 +565,7 @@ def check_training_step(dev: torch.device) -> dict[str, float]:
     )
     if any(ref_launches.values()) or any(plain_launches.values()):
         raise AssertionError("the plain steps must launch no kernel")
-    want = {"flash_attention_packed": 0, **{k: LAUNCHES_PER_TRAINING_STEP for k in list(kernel_launches)[1:]}}
+    want = TRAINING_STEP_LAUNCHES
     if kernel_launches != want or f32_launches != want:
         raise AssertionError(f"the kernel steps launched {kernel_launches} (bf16), {f32_launches} (float32), not {want}")
     if not (finite and err_kernel <= 2 * err_plain):
@@ -529,7 +612,7 @@ def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]
             f"sd15 trainer step {i}: {r['seconds']:.3f} s, loss {r['loss']:.5f}, optimizer step {r['optimizer_step']}, "
             f"grad norm {r['grad_norm']:.4f}, peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB, launches {r['launches']}"
         )
-    want = {"flash_attention_packed": 0, **{k: LAUNCHES_PER_TRAINING_STEP for k in list(launches)[1:]}}
+    want = TRAINING_STEP_LAUNCHES
     if len(records) != 4 or any(r["launches"] != want for r in records):
         raise AssertionError(f"each of the 4 training steps must launch {want}")
     if not all(math.isfinite(r["loss"]) for r in records):
@@ -546,6 +629,152 @@ def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]
     del trainer, before, params
     _free()
     return launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 5: SAM serving
+# ---------------------------------------------------------------------------
+
+
+def _sam_image(seed: int, size: tuple[int, int]) -> Any:
+    """A seeded (width, height) RGB image: smooth gradients plus noise."""
+    from PIL import Image
+
+    w, h = size
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([xx / w, yy / h, (xx + yy) / (w + h)], axis=-1) * 200.0
+    return Image.fromarray(np.clip(base + rs.randint(0, 55, (h, w, 3)), 0, 255).astype(np.uint8))
+
+
+def _check_masks(label: str, masks: torch.Tensor, iou: torch.Tensor, size: tuple[int, int]) -> None:
+    w, h = size
+    if tuple(masks.shape[-2:]) != (h, w) or masks.dtype != torch.bool:
+        raise AssertionError(f"{label}: masks of shape {tuple(masks.shape)} and {masks.dtype}, not (…, {h}, {w}) bool")
+    if not (bool(masks.any()) and not bool(masks.all())):
+        raise AssertionError(f"{label}: the mask is constant")
+    if not bool(torch.isfinite(iou).all()):
+        raise AssertionError(f"{label}: the IoU prediction is not finite")
+
+
+def run_sam(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
+    from refiners_tpu_torch.foundationals.segment_anything import HQSAMAdapter, SegmentAnythingH
+    from refiners_tpu_torch.foundationals.segment_anything.image_encoder import RelativePositionAttention
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+
+    t0 = time.perf_counter()
+    sam = SegmentAnythingH(multimask_output=False, device=dev, dtype=BF16)
+    synthesize_weights(sam, seed=13)
+    sam.eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sam.parameters())
+    print(f"sam: SegmentAnythingH built, {n_params} parameters, bf16, {time.perf_counter() - t0:.1f} s")
+    relpos = list(sam.layers(RelativePositionAttention, recurse=True))
+    images = [_sam_image(i, size) for i, size in enumerate(SAM_IMAGES)]
+
+    # (a) one embedding four ways; float32 first, from the same (bf16) weights
+    def embed(dtype: torch.dtype, kernel: bool) -> tuple[torch.Tensor, int]:
+        for layer in relpos:
+            layer.is_optimized = kernel
+        sam.to(dtype=dtype)
+        reset_launches()
+        with torch.inference_mode():
+            features = sam.compute_image_embedding(images[0]).features.float()
+        torch.cuda.synchronize()
+        return features, read_launches()["flash_attention_relpos"]
+
+    reference, ref_launches = embed(F32, kernel=False)
+    f32_kernel, f32_launches = embed(F32, kernel=True)
+    plain, plain_launches = embed(BF16, kernel=False)
+    kernel, kernel_launches = embed(BF16, kernel=True)
+    err_f32, err_plain, err_kernel = (_rel(x, reference) for x in (f32_kernel, plain, kernel))
+    print(
+        f"sam: one ViT-H image embedding vs the float32 plain route: float32 kernel route rel_err={err_f32:.3e}, "
+        f"bf16 plain route rel_err={err_plain:.3e}, bf16 kernel route rel_err={err_kernel:.3e}; relpos launches "
+        f"float32 plain {ref_launches}, float32 kernel {f32_launches}, bf16 plain {plain_launches}, bf16 kernel "
+        f"{kernel_launches}"
+    )
+    if ref_launches or plain_launches:
+        raise AssertionError("the plain routes must launch no kernel")
+    if not f32_launches == kernel_launches == SAM_LAUNCHES_PER_EMBEDDING:
+        raise AssertionError(f"the kernel routes launched {f32_launches}, {kernel_launches} times, not {SAM_LAUNCHES_PER_EMBEDDING}")
+    if not err_f32 <= SAM_F32_TOL:
+        raise AssertionError(f"the float32 kernel route is {err_f32} from the float32 plain route (> {SAM_F32_TOL})")
+    if not (torch.isfinite(kernel).all() and err_kernel <= 2 * err_plain):
+        raise AssertionError(f"the bf16 kernel route is further from float32 than twice the plain route: {err_kernel} > 2 × {err_plain}")
+    del reference, f32_kernel, plain, kernel
+    _free()
+
+    # (b) serving
+    fg_bg = [((0.3, 0.4), (0.6, 0.5)), ((0.1, 0.1),)]  # foreground and background points, as fractions of the size
+    report: dict[str, Any] = {"embedding_seconds": [], "predict_ms": [], "pipelined_ms": None}
+    embeddings, prompts, serial = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+
+    def timed(fn: Callable[[], Any]) -> tuple[Any, float, int]:
+        before = read_launches()["flash_attention_relpos"]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, read_launches()["flash_attention_relpos"] - before
+
+    with torch.inference_mode():
+        for i, (image, (w, h)) in enumerate(zip(images, SAM_IMAGES)):
+            embedding, seconds, launched = timed(lambda: sam.compute_image_embedding(image))
+            report["embedding_seconds"].append(seconds)
+            if launched != SAM_LAUNCHES_PER_EMBEDDING:
+                raise AssertionError(f"request {i}: the embedding launched the kernel {launched} times, not {SAM_LAUNCHES_PER_EMBEDDING}")
+            points = dict(
+                foreground_points=[(fx * w, fy * h) for fx, fy in fg_bg[0]],
+                background_points=[(fx * w, fy * h) for fx, fy in fg_bg[1]],
+            )
+            box = dict(box_points=[[(0.2 * w, 0.25 * h), (0.7 * w, 0.8 * h)]])
+            line = f"sam request {i} ({w}x{h}): embedding {seconds:.3f} s, {launched} launches"
+            for label, prompt in (("points", points), ("box", box)):
+                (masks, iou, low), seconds, launched = timed(lambda: sam.predict(embedding, **prompt))
+                report["predict_ms"].append(seconds * 1e3)
+                if launched:
+                    raise AssertionError(f"request {i}: a predict on an ImageEmbedding launched the kernel {launched} times")
+                _check_masks(f"request {i}, {label}", masks, iou, (w, h))
+                line += f"; predict ({label}) {seconds * 1e3:.2f} ms, iou {float(iou.float().flatten()[0]):.4f}, mask share {float(masks.float().mean()):.3f}"
+                if label == "points":
+                    serial.append((masks, iou, low))
+            print(line)
+            embeddings.append(embedding)
+            prompts.append(points)
+
+        pipelined, seconds, launched = timed(lambda: sam.predict_pipelined(embeddings, prompts))
+        report["pipelined_ms"] = seconds * 1e3
+        for i, ((masks, iou, low), (p_masks, p_iou, p_low)) in enumerate(zip(serial, pipelined)):
+            if not (np.array_equal(masks.cpu().numpy(), p_masks) and np.allclose(low.float().cpu().numpy(), p_low.astype(np.float32), atol=1e-3)):
+                raise AssertionError(f"request {i}: predict_pipelined differs from predict")
+        print(f"sam: predict_pipelined over 3 embeddings in {seconds * 1e3:.2f} ms ({launched} launches), equal to the serial predicts")
+
+        hq = HQSAMAdapter(sam).inject()
+        (w, h) = SAM_IMAGES[0]
+        embedding, seconds, launched = timed(lambda: sam.compute_image_embedding(images[0]))
+        if launched != SAM_LAUNCHES_PER_EMBEDDING:
+            raise AssertionError(f"HQ-SAM: the embedding launched the kernel {launched} times")
+        (masks, iou, _), predict_seconds, launched = timed(lambda: sam.predict(embedding, **prompts[0]))
+        if launched:
+            raise AssertionError("HQ-SAM: a predict on an ImageEmbedding launched the kernel")
+        _check_masks("HQ-SAM", masks, iou, (w, h))
+        report["hq_embedding_seconds"], report["hq_predict_ms"] = seconds, predict_seconds * 1e3
+        print(f"sam: HQ-SAM embedding {seconds:.3f} s, predict {predict_seconds * 1e3:.2f} ms, mask share {float(masks.float().mean()):.3f}")
+        hq.eject()
+    launches = read_launches()
+    report["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(
+        f"sam: seconds per embedding {[round(x, 4) for x in report['embedding_seconds']]}, ms per predict "
+        f"{[round(x, 2) for x in report['predict_ms']]}, peak memory {report['peak_memory_bytes'] / 2**30:.2f} GiB, "
+        f"launches {launches}"
+    )
+    del sam, relpos, embeddings, serial, pipelined, hq
+    _free()
+    return report, launches
 
 
 def main() -> int:
@@ -573,10 +802,12 @@ def main() -> int:
     packed = check_packed_forward(dev)
     forward = check_forward(dev)
     dkv, dq = check_backward(dev)
+    relpos = check_relpos(dev)
     _free()
     sdxl_launches, seconds, sdxl_peak = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
+    sam_report, sam_launches = run_sam(dev)
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict]) -> dict[str, Any]:
         return {
@@ -595,6 +826,8 @@ def main() -> int:
                    train_launches["flash_attention_bwd_dkv"], dkv),
             kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "553",
                    train_launches["flash_attention_bwd_dq"], dq),
+            kernel("flash_attention_relpos", "flash_attention_forward.cu", "311",
+                   sam_launches["flash_attention_relpos"], relpos),
         ],  # fmt: skip
         "sdxl_seconds_per_request": seconds,
         "sdxl_peak_memory_bytes": sdxl_peak,
@@ -602,6 +835,7 @@ def main() -> int:
         "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],
         "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],
         "sd15_trainer_losses": [r["loss"] for r in train_records],
+        "sam": sam_report,
     }
     print(json.dumps(summary))
     print(smi)

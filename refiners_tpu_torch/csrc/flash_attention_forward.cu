@@ -1,34 +1,50 @@
-// Flash attention forward, for Hopper (sm_90a): one kernel source for both
-// of the port's entries, the packed (B, L, H*D) layout and the flat
-// (B, H, L, D) layout, with an optional additive bias and an optional
-// logsumexp output.
+// Flash attention forward, for Hopper (sm_90a): one kernel source for the
+// port's three forward entries, the packed (B, L, H*D) layout and the flat
+// (B, H, L, D) layout, with an optional additive bias (dense, or SAM's
+// decomposed relative position) and an optional logsumexp output.
 //
-// Replaces two TPU kernels of refiners_tpu/ops/flash_attention.py:
+// Replaces three TPU kernels of refiners_tpu/ops/flash_attention.py:
 // `_flash_kernel_packed` (with `_flash_forward_packed`, entry
-// `flash_attention_packed`) and `_flash_kernel` (with `_flash_forward`, entry
-// `flash_attention`). They differ on the TPU only because of its 128-lane
-// blocks; here head h of batch b starts at b*batch_stride + h*head_stride
-// with its own row stride (all in elements, given by the caller), so one
-// kernel reads either layout, or column slices of a fused projection, in
-// place with no split/merge-heads copies.
+// `flash_attention_packed`), `_flash_kernel` (with `_flash_forward`, entry
+// `flash_attention`) and `_flash_relpos_kernel` (entry
+// `flash_attention_relpos`). The first two differ on the TPU only because of
+// its 128-lane blocks; here head h of batch b starts at
+// b*batch_stride + h*head_stride with its own row stride (all in elements,
+// given by the caller), so one kernel reads either layout, or column slices
+// of a fused projection, in place with no split/merge-heads copies.
 //
 // Same contract as the TPU kernels: per (batch, head),
 // O = softmax(scale * Q K^T + bias + mask) V with an online softmax; running
 // max and sum and the output accumulator in float32; P cast to the input
-// type before the PV product; output cast to the input type. The bias is
-// float32, read through four strides (a stride of 0 broadcasts, as
-// torch.broadcast_to gives). Masked scores are -1e30 (not -inf), so a causal
-// row with no admissible key gets uniform weights over the keys, as the TPU
-// kernel does; keys past the sequence end do not take part. With an lse
-// pointer the kernel also writes m + log(l) per row, float32, laid out
-// (batch*heads, q_len): the residual the backward kernels recompute P from.
+// type before the PV product; output cast to the input type. The bias takes
+// one of three compile-time modes:
+// - none;
+// - dense: float32, read through four strides (a stride of 0 broadcasts, as
+//   torch.broadcast_to gives);
+// - relative position (SAM's image encoder, K3): for a key grid of kh rows
+//   and kw columns (kh * kw = kv_len), bias[q, k] = v_rel[q, k / kw] +
+//   h_rel[q, k % kw], with v_rel (q_len, kh) and h_rel (q_len, kw) per head in
+//   the input type, widened to float32. The (q_len, kv_len) bias is never
+//   materialized: a SAM-H global layer reads 2 x 16 x 4096 x 64 values in
+//   place of a 1 GiB float32 bias. The TPU kernel rebuilds the bias tile with
+//   two 0/1 expansion matmuls and needs every key tile to share one kw phase
+//   (else it falls back to `_flash_kernel` with a materialized bias); here
+//   each score computes k / kw and k % kw, so any kw is taken and there is no
+//   fallback. The two rows of a query are read through L1.
+// Masked scores are -1e30 (not -inf), so a causal row with no admissible key
+// gets uniform weights over the keys, as the TPU kernel does; keys past the
+// sequence end do not take part. With an lse pointer the kernel also writes
+// m + log(l) per row, float32, laid out (batch*heads, q_len): the residual
+// the backward kernels recompute P from.
 //
 // What bounds it on the H100: at seq >= 1024 with d <= 128 the kernel is
 // bound by tensor-core throughput (4*L^2*d flops against 4*L*d bytes per
 // head); at the VAE's d = 512 site by registers and shared memory per block,
 // since a query tile's float32 accumulator (rows x 512) must live beside a
-// K/V tile. A bias adds a float32 read per score, which makes a biased call
-// bound by that read.
+// K/V tile. A dense bias adds a float32 read per score, which makes a biased
+// call bound by that read. The relative-position bias adds two cached reads,
+// an integer division and a remainder per score: instruction issue, not
+// memory.
 //
 // Three kernels, picked by type and head_dim; each is one block per
 // (query tile, batch*head) with a loop over K/V tiles of 64 keys. For
@@ -66,32 +82,68 @@ using namespace flash;
 
 constexpr int kMaxBlockK = 64;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on Hopper
+// widest key grid side of the relative-position bias (kh and kw each)
+constexpr int kMaxRelPosSide = 256;
+
+// bias modes, a template parameter of every kernel
+constexpr int kNoBias = 0;
+constexpr int kDenseBias = 1;
+constexpr int kRelPosBias = 2;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  const float* bias;  // may be null
-  float* lse;         // may be null
-  int heads, head_dim, dim_pad, q_len, kv_len;
+  const float* bias;  // dense bias; may be null
+  const void* vrel;   // relative-position bias, in the input type; both null or both set
+  const void* hrel;
+  float* lse;  // may be null
+  int heads, head_dim, dim_pad, q_len, kv_len, kw;
   long long q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs, o_bs, o_hs, o_rs;
   long long bias_bs, bias_hs, bias_rs, bias_cs;
+  long long vrel_bs, vrel_hs, vrel_rs, hrel_bs, hrel_hs, hrel_rs;
   float scale;
   int causal;
   int block_q, block_k;
 };
 
-// Scaled score of (row, col) with the bias added (when kBias) and the masks
-// applied: keys past the end are -inf, causally masked keys -1e30. The bias
+__host__ __device__ inline int bias_mode(const Params& p) {
+  if (p.vrel != nullptr) return kRelPosBias;
+  return p.bias != nullptr ? kDenseBias : kNoBias;
+}
+
+// One (batch, head)'s bias operands: the dense bias, or the rows of v_rel and
+// h_rel; the pointers a mode does not use are null.
+template <typename T>
+struct HeadBias {
+  const float* dense;
+  const T* vrel;
+  const T* hrel;
+};
+
+template <typename T>
+__device__ __forceinline__ HeadBias<T> head_bias(const Params& p, int b, int h) {
+  HeadBias<T> hb;
+  hb.dense = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
+  hb.vrel = p.vrel == nullptr ? nullptr : static_cast<const T*>(p.vrel) + b * p.vrel_bs + h * p.vrel_hs;
+  hb.hrel = p.hrel == nullptr ? nullptr : static_cast<const T*>(p.hrel) + b * p.hrel_bs + h * p.hrel_hs;
+  return hb;
+}
+
+// Scaled score of (row, col) with the bias of mode kBias added and the masks
+// applied: keys past the end are -inf, causally masked keys -1e30. The mode
 // is a template parameter so that the unbiased kernels' inner loop carries
 // no test for it.
-template <bool kBias>
-__device__ __forceinline__ float masked_score(const Params& p, const float* bh, float s, int row, int col,
+template <int kBias, typename T>
+__device__ __forceinline__ float masked_score(const Params& p, const HeadBias<T>& hb, float s, int row, int col,
                                               int causal_shift) {
   float x = s * p.scale;
   if (col >= p.kv_len) return -INFINITY;
-  if (kBias && row < p.q_len) x += bh[row * p.bias_rs + col * p.bias_cs];
+  if (kBias == kDenseBias && row < p.q_len) x += hb.dense[row * p.bias_rs + col * p.bias_cs];
+  if (kBias == kRelPosBias && row < p.q_len) {
+    x += to_float(hb.vrel[row * p.vrel_rs + col / p.kw]) + to_float(hb.hrel[row * p.hrel_rs + col % p.kw]);
+  }
   if (p.causal && col > row + causal_shift) x = kMaskedScore;
   return x;
 }
@@ -181,7 +233,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
   const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
   const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
   T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
-  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
+  const HeadBias<T> hb = head_bias<T>(p, b, h);
+  const int mode = bias_mode(p);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -226,8 +279,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
       for (int i = 0; i < bk / 32; ++i) {
         const float raw = sS[r * lds + lane + 32 * i];
         const int col = k0 + lane + 32 * i;
-        const float x = bh != nullptr ? masked_score<true>(p, bh, raw, row, col, causal_shift)
-                                      : masked_score<false>(p, bh, raw, row, col, causal_shift);
+        const float x = mode == kRelPosBias ? masked_score<kRelPosBias>(p, hb, raw, row, col, causal_shift)
+                        : mode == kDenseBias ? masked_score<kDenseBias>(p, hb, raw, row, col, causal_shift)
+                                             : masked_score<kNoBias>(p, hb, raw, row, col, causal_shift);
         s[i] = x;
         m_cur = fmaxf(m_cur, x);
       }
@@ -294,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p
 // head_dim <= 128: register-resident FlashAttention-2 on mma.sync
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kBias>
+template <typename T, int D, int kBias>
 __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + 8;  // +16 bytes per row: ldmatrix rows fall in distinct banks
   constexpr int kTileElems = kTile * LD;
@@ -311,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
   const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
   const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
   T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
-  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
+  const HeadBias<T> hb = head_bias<T>(p, b, h);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -373,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * kTile + nt * 8 + 2 * t + (e & 1);
-        const float x = masked_score<kBias>(p, bh, s[nt][e], e < 2 ? row_a : row_b, col, causal_shift);
+        const float x = masked_score<kBias>(p, hb, s[nt][e], e < 2 ? row_a : row_b, col, causal_shift);
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -449,7 +503,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
 template <typename T, int D>
 int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   const int bytes = 5 * kTile * (D + 8) * int(sizeof(T));  // Q + 2 x K + 2 x V
-  auto kernel = p.bias != nullptr ? flash_fwd_mma_kernel<T, D, true> : flash_fwd_mma_kernel<T, D, false>;
+  const int mode = bias_mode(p);
+  auto kernel = mode == kRelPosBias ? flash_fwd_mma_kernel<T, D, kRelPosBias>
+                : mode == kDenseBias ? flash_fwd_mma_kernel<T, D, kDenseBias>
+                                     : flash_fwd_mma_kernel<T, D, kNoBias>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
@@ -472,7 +529,7 @@ constexpr int f32_forward_bytes() {
   return (BQ * (D + 1) + kTile * (D + 1) + BQ * kF32ScorePitch) * int(sizeof(float));
 }
 
-template <int D, int BQ, bool kBias>
+template <int D, int BQ, int kBias>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params p) {
   constexpr int R = BQ / 16;  // rows per thread
   extern __shared__ __align__(128) unsigned char smem[];
@@ -488,7 +545,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
   const float* kh = static_cast<const float*>(p.k) + b * p.k_bs + h * p.k_hs;
   const float* vh = static_cast<const float*>(p.v) + b * p.v_bs + h * p.v_hs;
   float* oh = static_cast<float*>(p.o) + b * p.o_bs + h * p.o_hs;
-  const float* bh = p.bias == nullptr ? nullptr : p.bias + b * p.bias_bs + h * p.bias_hs;
+  const HeadBias<float> hb = head_bias<float>(p, b, h);
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int causal_shift = p.kv_len - p.q_len;
@@ -519,7 +576,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32_kernel(const Params
       float mx = -INFINITY;
       #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked_score<kBias>(p, bh, s[i][j], row, k0 + tx + 16 * j, causal_shift);
+        s[i][j] = masked_score<kBias>(p, hb, s[i][j], row, k0 + tx + 16 * j, causal_shift);
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max16(mx));
@@ -559,7 +616,10 @@ template <int D, int BQ>
 int launch_f32_d(const Params& p, int batch, cudaStream_t stream) {
   constexpr int bytes = f32_forward_bytes<D, BQ>();
   static_assert(bytes <= int(kMaxSharedBytes), "float32 forward tiles exceed shared memory");
-  auto kernel = p.bias != nullptr ? flash_fwd_f32_kernel<D, BQ, true> : flash_fwd_f32_kernel<D, BQ, false>;
+  const int mode = bias_mode(p);
+  auto kernel = mode == kRelPosBias ? flash_fwd_f32_kernel<D, BQ, kRelPosBias>
+                : mode == kDenseBias ? flash_fwd_f32_kernel<D, BQ, kDenseBias>
+                                     : flash_fwd_f32_kernel<D, BQ, kNoBias>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
@@ -632,41 +692,34 @@ int launch(Params p, int batch, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-// dtype: 0 = bfloat16, 1 = float16, 2 = float32. `strides` holds 16 values
-// in elements:
-// (batch, head, row) for q, k, v and o, then (batch, head, row, column) for
-// the bias. `bias` and `lse` may be null; lse is (batch*heads, q_len)
-// float32. Returns a cudaError_t value (0 on success). Launches on `stream`,
-// does not synchronize, allocates nothing.
-extern "C" int refiners_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
-                                                const float* bias, float* lse, int dtype, int batch, int heads,
-                                                int head_dim, int q_len, int kv_len, const long long* strides,
-                                                float scale, int causal, void* stream) {
-  if (head_dim <= 0 || head_dim > 512 || head_dim % 8 != 0 || batch <= 0 || heads <= 0 || kv_len <= 0) {
-    return int(cudaErrorInvalidValue);
-  }
-  if (q_len <= 0) return 0;
-  Params p;
+// The fields every entry sets: operands, sizes, the (batch, head, row)
+// strides of q, k, v and o (12 values, in elements), the scale; no bias, no
+// lse, no mask.
+Params base_params(const void* q, const void* k, const void* v, void* o, int heads, int head_dim, int q_len,
+                   int kv_len, const long long* strides, float scale) {
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
-  p.bias = bias;
-  p.lse = lse;
   p.heads = heads;
   p.head_dim = head_dim;
   p.dim_pad = (head_dim + 15) / 16 * 16;
   p.q_len = q_len;
   p.kv_len = kv_len;
-  long long* const fields[] = {&p.q_bs, &p.q_hs, &p.q_rs, &p.k_bs, &p.k_hs, &p.k_rs, &p.v_bs, &p.v_hs,
-                               &p.v_rs, &p.o_bs, &p.o_hs, &p.o_rs, &p.bias_bs, &p.bias_hs, &p.bias_rs, &p.bias_cs};
-  for (int i = 0; i < 16; ++i) *fields[i] = strides[i];
+  long long* const fields[] = {&p.q_bs, &p.q_hs, &p.q_rs, &p.k_bs, &p.k_hs, &p.k_rs,
+                               &p.v_bs, &p.v_hs, &p.v_rs, &p.o_bs, &p.o_hs, &p.o_rs};
+  for (int i = 0; i < 12; ++i) *fields[i] = strides[i];
   p.scale = scale;
-  p.causal = causal;
-  p.block_q = 0;
-  p.block_k = 0;
+  return p;
+}
+
+bool valid_sizes(int batch, int heads, int head_dim, int kv_len) {
+  return head_dim > 0 && head_dim <= 512 && head_dim % 8 == 0 && batch > 0 && heads > 0 && kv_len > 0;
+}
+
+int run(const Params& p, int dtype, int batch, void* stream) {
+  if (p.q_len <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -678,4 +731,56 @@ extern "C" int refiners_flash_attention_forward(const void* q, const void* k, co
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// The entries return a cudaError_t value (0 on success), launch on `stream`,
+// do not synchronize and allocate nothing. dtype: 0 = bfloat16,
+// 1 = float16, 2 = float32.
+
+// K1/K2. `strides` holds 16 values in elements: (batch, head, row) for q, k,
+// v and o, then (batch, head, row, column) for the bias. `bias` and `lse`
+// may be null; lse is (batch*heads, q_len) float32.
+extern "C" int refiners_flash_attention_forward(const void* q, const void* k, const void* v, void* o,
+                                                const float* bias, float* lse, int dtype, int batch, int heads,
+                                                int head_dim, int q_len, int kv_len, const long long* strides,
+                                                float scale, int causal, void* stream) {
+  if (!valid_sizes(batch, heads, head_dim, kv_len)) return int(cudaErrorInvalidValue);
+  Params p = base_params(q, k, v, o, heads, head_dim, q_len, kv_len, strides, scale);
+  p.bias = bias;
+  p.lse = lse;
+  p.bias_bs = strides[12];
+  p.bias_hs = strides[13];
+  p.bias_rs = strides[14];
+  p.bias_cs = strides[15];
+  p.causal = causal;
+  return run(p, dtype, batch, stream);
+}
+
+// K3: the relative-position bias of a kh x kw key grid (kh * kw = kv_len,
+// each side at most kMaxRelPosSide); `vrel` (q_len, kh) and `hrel`
+// (q_len, kw) per head, in the input type, unit stride along their last dim.
+// `strides` holds 18 values in elements: (batch, head, row) for q, k, v, o,
+// vrel and hrel. No mask, no lse.
+extern "C" int refiners_flash_attention_relpos_forward(const void* q, const void* k, const void* v, void* o,
+                                                       const void* vrel, const void* hrel, int dtype, int batch,
+                                                       int heads, int head_dim, int q_len, int kv_len, int kh,
+                                                       int kw, const long long* strides, float scale,
+                                                       void* stream) {
+  if (!valid_sizes(batch, heads, head_dim, kv_len) || vrel == nullptr || hrel == nullptr || kh <= 0 || kw <= 0 ||
+      kh > kMaxRelPosSide || kw > kMaxRelPosSide || (long long)kh * kw != kv_len) {
+    return int(cudaErrorInvalidValue);
+  }
+  Params p = base_params(q, k, v, o, heads, head_dim, q_len, kv_len, strides, scale);
+  p.vrel = vrel;
+  p.hrel = hrel;
+  p.kw = kw;
+  p.vrel_bs = strides[12];
+  p.vrel_hs = strides[13];
+  p.vrel_rs = strides[14];
+  p.hrel_bs = strides[15];
+  p.hrel_hs = strides[16];
+  p.hrel_rs = strides[17];
+  return run(p, dtype, batch, stream);
 }

@@ -53,7 +53,7 @@ KINDS = [
     ("attention (flash kernels)", ("flash_",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("optimizer and other foreach", ("multi_tensor_apply", "foreach")),
-    ("matmul", ("gemm", "cutlass", "xmma", "cublas")),
+    ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
     ("norm statistics and reductions", ("reduce", "welford", "norm")),
     ("copies and casts", ("copy", "cast", "Memcpy", "Memset")),
@@ -100,7 +100,12 @@ def _kind(name: str) -> str:
     return "elementwise and other"
 
 
-def device_breakdown(prof: torch.profiler.profile, wall: float) -> None:
+def device_breakdown(
+    prof: torch.profiler.profile, wall: float, label: str = "warm steps", unit: str = "two steps", top: int = 0
+) -> None:
+    """Device time by kernel kind of a traced run (and its `top` kernels by
+    name), and its idle share; `wall` is the host-clock seconds of the same
+    work unprofiled."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -110,9 +115,16 @@ def device_breakdown(prof: torch.profiler.profile, wall: float) -> None:
         entry[0] += e.time_range.elapsed_us() / 1e3
         entry[1] += 1
     total = sum(v[0] for v in by_kind.values())
-    print(f"warm steps under torch.profiler: {len(kernels)} device events, {total:.1f} ms of summed device time")
+    print(f"{label} under torch.profiler: {len(kernels)} device events, {total:.1f} ms of summed device time")
     for kind, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
         print(f"  {kind}: {ms:.1f} ms ({n} launches)")
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {ms:.2f} ms ({n}) {name[:160]}")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for s, e in spans:
@@ -122,7 +134,7 @@ def device_breakdown(prof: torch.profiler.profile, wall: float) -> None:
     window = spans[-1][1] - spans[0][0]
     print(
         f"  traced window {window / 1e3:.1f} ms from the first kernel's start to the last one's end, device busy "
-        f"{busy / 1e3:.1f} ms, idle share {1 - busy / window:.3f}; the same two steps unprofiled: {wall * 1e3:.1f} ms"
+        f"{busy / 1e3:.1f} ms, idle share {1 - busy / window:.3f}; the same {unit} unprofiled: {wall * 1e3:.1f} ms"
     )
 
 

@@ -14,6 +14,11 @@ class Activation(Module):
     """Base class for activation layers."""
 
 
+class ReLU(Activation):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(x)
+
+
 class SiLU(Activation):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(x)

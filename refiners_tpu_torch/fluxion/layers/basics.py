@@ -1,13 +1,17 @@
 """Basic shape/value manipulation layers.
 
-Counterpart of ``refiners_tpu/fluxion/layers/basics.py``; all stateless.
+Counterpart of ``refiners_tpu/fluxion/layers/basics.py``; all stateless
+except `Parameter`.
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
-from refiners_tpu_torch.fluxion.layers.module import Module
+from refiners_tpu_torch.fluxion import rng
+from refiners_tpu_torch.fluxion.layers.module import Module, WeightedModule
 
 
 class Identity(Module):
@@ -61,6 +65,17 @@ class Transpose(Module):
         return x.transpose(self.dim0, self.dim1)
 
 
+class Permute(Module):
+    """Permute dims."""
+
+    def __init__(self, *dims: int) -> None:
+        super().__init__()
+        self.dims = dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.permute(self.dims)
+
+
 class Slicing(Module):
     """Slice along `dim` with start/end/step."""
 
@@ -84,3 +99,47 @@ class Unsqueeze(Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.unsqueeze(self.dim)
+
+
+class Squeeze(Module):
+    def __init__(self, dim: int) -> None:
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.squeeze(self.dim)
+
+
+class Sin(Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sin(x)
+
+
+class Cos(Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cos(x)
+
+
+class Multiply(Module):
+    """scale * x + bias."""
+
+    def __init__(self, scale: float = 1.0, bias: float = 0.0) -> None:
+        super().__init__()
+        self.scale = scale
+        self.bias = bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.scale * x + self.bias
+
+
+class Parameter(WeightedModule):
+    """A learnable tensor returned whatever the input, broadcast over its batch."""
+
+    def __init__(self, *dims: int, requires_grad: bool = True, device: Any = None, dtype: Any = None) -> None:
+        super().__init__()
+        self.dims = dims
+        self.weight = rng.init_normal(dims, device=device, dtype=dtype)
+        self.weight.requires_grad_(requires_grad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.weight.expand(x.shape[0], *self.dims)

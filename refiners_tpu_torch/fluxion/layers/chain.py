@@ -269,6 +269,14 @@ class Chain(ContextModule):
     def append(self, module: Module) -> None:
         self.insert(-1, module)
 
+    def remove(self, module: Module) -> None:
+        modules = [m for m in self if m is not module]
+        if len(modules) == len(self):
+            raise ValueError(f"{module} is not in {self}")
+        self._regenerate_keys(modules)
+        if isinstance(module, ContextModule):
+            module._set_parent(None)
+
     def replace(self, old_module: Module, new_module: Module, old_module_parent: "Chain | None" = None) -> None:
         """Replace a child in place — the `inject` primitive."""
         modules = list(self)
@@ -427,7 +435,7 @@ class Concatenate(Chain):
 
 
 class Matmul(Chain):
-    """matmul(input(x), other(x))."""
+    """matmul(input(x), other(x)), in the promoted dtype of the two, as jnp.matmul."""
 
     def __init__(self, input: Module, other: Module) -> None:
         super().__init__(input, other)
@@ -436,4 +444,5 @@ class Matmul(Chain):
         a = self[0](*args)
         b = self[1](*args)
         self._reset_context()
-        return torch.matmul(a, b)
+        dtype = torch.promote_types(a.dtype, b.dtype)
+        return torch.matmul(a.to(dtype), b.to(dtype))

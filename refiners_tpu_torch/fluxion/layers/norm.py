@@ -2,7 +2,7 @@
 
 Statistics are taken in float32 and the output is cast back to the input
 dtype, as in the JAX package. Spatial tensors are NCHW here, so GroupNorm
-groups channel dim 1.
+groups channel dim 1 and LayerNorm2d normalizes over it.
 """
 
 from __future__ import annotations
@@ -57,5 +57,22 @@ class GroupNorm(WeightedModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         y = _normalize(x.reshape(b, self.num_groups, -1).float(), (2,), self.eps).reshape(x.shape)
+        affine = (-1,) + (1,) * (x.ndim - 2)
+        return (y * self.weight.float().reshape(affine) + self.bias.float().reshape(affine)).to(x.dtype)
+
+
+class LayerNorm2d(WeightedModule):
+    """LayerNorm over the channel dim 1 of (N, C, H, W), with a per-channel
+    affine (the JAX package's normalizes its trailing channel axis)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, device: Any = None, dtype: Any = None) -> None:
+        super().__init__()
+        self.channels = channels
+        self.eps = eps
+        self.weight = rng.ones((channels,), device=device, dtype=dtype)
+        self.bias = rng.zeros((channels,), device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _normalize(x.float(), (1,), self.eps)
         affine = (-1,) + (1,) * (x.ndim - 2)
         return (y * self.weight.float().reshape(affine) + self.bias.float().reshape(affine)).to(x.dtype)

@@ -21,6 +21,8 @@ __all__ = [
     "str_to_dtype",
     "synthesize_weights",
     "interpolate",
+    "normalize",
+    "pad",
     "image_to_tensor",
     "images_to_tensor",
     "tensor_to_image",
@@ -73,6 +75,25 @@ def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str = "nearest", a
         return F.interpolate(x, size=tuple(size), mode="nearest")
     y = F.interpolate(x.float(), size=tuple(size), mode=mode, antialias=antialias)
     return y.to(x.dtype)
+
+
+def pad(x: torch.Tensor, pad: tuple[int, ...] | list[int], value: float = 0.0, mode: str = "constant") -> torch.Tensor:
+    """`torch.nn.functional.pad`: pairs apply to the trailing dims, last dim first."""
+    if mode == "constant":
+        return F.pad(x, tuple(pad), mode=mode, value=value)
+    return F.pad(x, tuple(pad), mode=mode)
+
+
+def normalize(x: torch.Tensor, mean: list[float] | None = None, std: list[float] | None = None) -> torch.Tensor:
+    """Per-channel (dim 1) normalization of (N, C, ...) tensors, in float32."""
+    channels = x.shape[1]
+    mean = [0.5] * channels if mean is None else mean
+    std = [0.5] * channels if std is None else std
+    assert len(mean) == len(std) == channels, "mean/std length must match channel count"
+    shape = (-1,) + (1,) * (x.ndim - 2)
+    m = torch.tensor(mean, dtype=torch.float32, device=x.device).reshape(shape)
+    s = torch.tensor(std, dtype=torch.float32, device=x.device).reshape(shape)
+    return ((x.float() - m) / s).to(x.dtype)
 
 
 def image_to_tensor(image: Image.Image, device: Any = None, dtype: Any = None) -> torch.Tensor:

@@ -10,7 +10,8 @@ On the card, attention whose query and key sequences are both at least
 ``FLASH_MIN_SEQ`` long goes to the hand-written kernels
 (``ops.flash_attention``), in bfloat16, float16 or float32; this path serves
 the rest (cross-attention over 77 text tokens, CLIP) and is the layers'
-plain reference.
+plain reference. SAM's relative-position attention takes its kernel on the
+card at every length (`flash_auto_relpos`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ def flash_auto(x: torch.Tensor, *seq_lens: int) -> bool:
     """Whether an attention call on `x` takes the kernel: only on the card,
     and only when every sequence is long enough."""
     return x.is_cuda and all(s >= FLASH_MIN_SEQ for s in seq_lens)
+
+
+def flash_auto_relpos(x: torch.Tensor) -> bool:
+    """Whether SAM's relative-position attention on `x` takes its kernel: on
+    the card, at every sequence length and in every dtype (the plain path
+    materializes an O(L²) float32 bias whatever the length), as the JAX
+    package's `flash_auto_relpos` selects."""
+    return x.is_cuda
 
 
 def _attention_dense(
@@ -56,7 +65,10 @@ def _attention_dense(
         else:
             logits = logits + mask.float()
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(weights, v)
+    # operands of two dtypes (SAM's decoder mixes float32 prompts with a bf16
+    # image embedding) multiply in the promoted dtype, as jnp.einsum does
+    dtype = torch.promote_types(q.dtype, v.dtype)
+    return torch.matmul(weights.to(dtype), v.to(dtype)).to(q.dtype)
 
 
 def _attention(

@@ -36,6 +36,10 @@ _ENTRIES = {
         "flash_attention_forward",
         [_P] * 6 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
     ),
+    "refiners_flash_attention_relpos_forward": (
+        "flash_attention_forward",
+        [_P] * 6 + [_I] * 8 + [ctypes.POINTER(_LL), _F, _P],
+    ),
     "refiners_flash_attention_bwd_dkv": (
         "flash_attention_backward",
         [_P] * 9 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],

@@ -7,6 +7,9 @@ Replaces the TPU kernels of ``refiners_tpu/ops/flash_attention.py``:
   (B, L, H·D) and flat (B, H, L, D) operands, with an optional additive bias
   and an optional logsumexp residual: one CUDA kernel source,
   ``csrc/flash_attention_forward.cu``, that reads heads through strides;
+- ``_flash_relpos_kernel`` (entry ``flash_attention_relpos``), the forward
+  with SAM's decomposed relative-position bias, never materialized: a bias
+  mode of the same source;
 - ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel`` (via
   ``_flash_backward``), the FlashAttention-2 backward:
   ``csrc/flash_attention_backward.cu``.
@@ -25,6 +28,7 @@ launch of its kernel):
 - ``flash_attention_forward`` (the forward over 4-D views, with bias and
   logsumexp; the forward of ``flash_attention`` and the forward of both
   entries under autograd): ``flash_attention.launches``;
+- ``flash_attention_relpos`` (inference only): ``flash_attention_relpos.launches``;
 - ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``, both called by
   ``flash_attention_backward``: their own ``.launches``.
 
@@ -49,6 +53,8 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 MASKED_SCORE = -1e30
 # widest head the backward kernels take
 MAX_BACKWARD_HEAD_DIM = 128
+# widest key grid side (kh and kw each) of the relative-position kernel
+MAX_RELPOS_SIDE = 256
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +522,90 @@ def flash_attention_packed(
     return out
 
 
+# ---------------------------------------------------------------------------
+# decomposed relative-position forward (SAM's image encoder)
+# ---------------------------------------------------------------------------
+
+
+def _relpos_bias(v_rel: torch.Tensor, h_rel: torch.Tensor, lk: int) -> torch.Tensor:
+    """The (B, H, Lq, Lk) float32 bias v_rel[q, k // kw] + h_rel[q, k % kw]."""
+    b, h, lq, _ = v_rel.shape
+    return (v_rel.float()[..., :, None] + h_rel.float()[..., None, :]).reshape(b, h, lq, lk)
+
+
+def flash_attention_relpos_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    v_rel: torch.Tensor,
+    h_rel: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain version of `flash_attention_relpos`: the O(Lq·Lk) float32 bias
+    materialized, then the plain forward."""
+    return flash_attention_plain(q, k, v, bias=_relpos_bias(v_rel, h_rel, k.shape[2]), scale=scale)
+
+
+def _check_relpos(q: torch.Tensor, k: torch.Tensor, v_rel: torch.Tensor, h_rel: torch.Tensor) -> None:
+    b, h, lq, _ = q.shape
+    kh, kw = v_rel.shape[-1], h_rel.shape[-1]
+    if v_rel.shape != (b, h, lq, kh) or h_rel.shape != (b, h, lq, kw):
+        raise ValueError(f"v_rel {tuple(v_rel.shape)} and h_rel {tuple(h_rel.shape)} must be (B, H, Lq, kh), (B, H, Lq, kw)")
+    if kh * kw != k.shape[2]:
+        raise ValueError(f"decomposed bias {kh}x{kw} != kv length {k.shape[2]}")
+    if max(kh, kw) > MAX_RELPOS_SIDE:
+        raise ValueError(f"the relative-position kernel takes kh, kw <= {MAX_RELPOS_SIDE}, got {kh}x{kw}")
+    for name, x in (("v_rel", v_rel), ("h_rel", h_rel)):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} on {q.device}, got {x.dtype} on {x.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim, strides {x.stride()}")
+
+
+def flash_attention_relpos(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    v_rel: torch.Tensor,
+    h_rel: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention over (B, H, L, D) views with SAM's decomposed relative-position
+    bias, bias[q, k] = v_rel[q, k // kw] + h_rel[q, k % kw], for a key grid of
+    kh × kw = Lk: v_rel (B, H, Lq, kh) over the key's row, h_rel (B, H, Lq, kw)
+    over its column, both in q's dtype.
+
+    On CUDA tensors this launches the kernel (``flash_attention_relpos.launches``),
+    which never materializes the bias, or raises; the output is a (B, H, Lq, D)
+    view of a (B, Lq, H, D) tensor, so merging its heads is free. There is no
+    backward, as in the JAX package: under autograd on the card it raises
+    `NotImplementedError`. On CPU tensors it runs `flash_attention_relpos_plain`.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_relpos_plain(q, k, v, v_rel, h_rel, scale=scale)
+    if _needs_grad(q, k, v, v_rel, h_rel):
+        raise NotImplementedError("the relative-position flash kernel is inference only: it has no backward")
+    _check_operands(q, k, v)
+    _check_relpos(q, k, v_rel, h_rel)
+    from refiners_tpu_torch.ops.build import c_longlongs, load_library
+
+    b, h, lq, d = q.shape
+    lk, kh, kw = k.shape[2], v_rel.shape[-1], h_rel.shape[-1]
+    out = torch.empty((b, lq, h, d), device=q.device, dtype=q.dtype).transpose(1, 2)
+    strides = [s for x in (q, k, v, out, v_rel, h_rel) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = load_library().refiners_flash_attention_relpos_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), v_rel.data_ptr(), h_rel.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, h, d, lq, lk, kh, kw, c_longlongs(strides), _default_scale(q, scale), _stream(q),
+        )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"flash attention relpos kernel launch failed: cudaError {err}")
+    flash_attention_relpos.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
 flash_attention_packed.launches = 0  # type: ignore[attr-defined]
 flash_attention.launches = 0  # type: ignore[attr-defined]
+flash_attention_relpos.launches = 0  # type: ignore[attr-defined]
 flash_attention_bwd_dkv.launches = 0  # type: ignore[attr-defined]
 flash_attention_bwd_dq.launches = 0  # type: ignore[attr-defined]

@@ -285,3 +285,76 @@ def test_float32_on_the_card_runs_the_kernels(device: torch.device) -> None:
     with torch.no_grad():
         sliced = fl.ScaledDotProductAttention(num_heads=8, slice_size=64)(x, x, x)
     assert _launches()[0] == before[0] + 1 and bool(torch.isfinite(sliced).all())
+
+
+def _relpos_operands(
+    device: torch.device, batch: int, kh: int, kw: int, heads: int, dim: int, dtype: torch.dtype
+) -> list[torch.Tensor]:
+    """q, k, v (B, H, kh·kw, D) and the decomposed bias v_rel (B, H, L, kh),
+    h_rel (B, H, L, kw), all in `dtype`, scaled as SAM's are (|bias| ~ 1)."""
+    gen = torch.Generator(device).manual_seed(kh * 31 + kw + dim)
+    seq = kh * kw
+    q, k, v = (torch.randn((batch, heads, seq, dim), generator=gen, device=device).to(dtype) for _ in range(3))
+    v_rel = torch.randn((batch, heads, seq, kh), generator=gen, device=device).to(dtype)
+    h_rel = torch.randn((batch, heads, seq, kw), generator=gen, device=device).to(dtype)
+    return [q, k, v, v_rel, h_rel]
+
+
+@pytest.mark.parametrize(
+    "batch,kh,kw,heads,dim,dtype",
+    [
+        (1, 64, 64, 16, 80, torch.bfloat16),  # a SAM-H global layer
+        (25, 14, 14, 16, 80, torch.bfloat16),  # a SAM-H windowed layer
+        (1, 10, 10, 1, 32, torch.bfloat16),  # where the TPU kernel falls back to a dense bias
+        (2, 16, 16, 2, 64, torch.float16),
+        (1, 8, 24, 2, 128, torch.bfloat16),  # a key grid that is not square
+        (1, 16, 16, 2, 160, torch.bfloat16),  # the WMMA kernel
+        (1, 64, 64, 16, 80, torch.float32),
+        (25, 14, 14, 16, 80, torch.float32),
+        (1, 12, 20, 2, 160, torch.float32),
+    ],
+)
+def test_relpos_kernel_matches_plain(
+    device: torch.device, batch: int, kh: int, kw: int, heads: int, dim: int, dtype: torch.dtype
+) -> None:
+    q, k, v, v_rel, h_rel = _relpos_operands(device, batch, kh, kw, heads, dim, dtype)
+    before = fa.flash_attention_relpos.launches
+    got = fa.flash_attention_relpos(q, k, v, v_rel, h_rel)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_relpos.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()  # heads merge for free
+    want = fa.flash_attention_relpos_plain(*(x.float() for x in (q, k, v, v_rel, h_rel)))
+    assert _rel(got, want) <= (F32_TOL if dtype == torch.float32 else TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_relpos_kernel_reads_a_fused_projection_in_place(device: torch.device, dtype: torch.dtype) -> None:
+    """q, k, v as head views of one (B, L, 3, H, D) projection, as SAM's
+    encoder gives them: row stride 3·H·D, k starting H·D after q."""
+    b, kh, kw, heads, dim = 2, 14, 14, 4, 80
+    seq = kh * kw
+    gen = torch.Generator(device).manual_seed(5)
+    qkv = torch.randn((b, seq, 3 * heads * dim), generator=gen, device=device).to(dtype)
+    q, k, v = qkv.reshape(b, seq, 3, heads, dim).permute(2, 0, 3, 1, 4)
+    assert q.stride(2) == 3 * heads * dim
+    v_rel = torch.randn((b, heads, seq, kh), generator=gen, device=device).to(dtype)
+    h_rel = torch.randn((b, heads, seq, kw), generator=gen, device=device).to(dtype)
+    got = fa.flash_attention_relpos(q, k, v, v_rel, h_rel)
+    want = fa.flash_attention_relpos_plain(*(x.float() for x in (q, k, v, v_rel, h_rel)))
+    assert _rel(got, want) <= (F32_TOL if dtype == torch.float32 else TOL)
+
+
+def test_relpos_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
+    q, k, v, v_rel, h_rel = _relpos_operands(device, 1, 8, 8, 2, 64, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        fa.flash_attention_relpos(q.requires_grad_(), k, v, v_rel, h_rel)
+    q = q.detach()
+    with pytest.raises(ValueError, match="kv length"):
+        fa.flash_attention_relpos(q, k, v, v_rel[..., :7], h_rel)
+    with pytest.raises(TypeError):
+        fa.flash_attention_relpos(q, k, v, v_rel.float(), h_rel)
+    # a key grid of 257 x 1 is beyond the cap of 256 per side
+    q, k, v, v_rel, h_rel = _relpos_operands(device, 1, 257, 1, 1, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="kh, kw <="):
+        fa.flash_attention_relpos(q, k, v, v_rel, h_rel)
