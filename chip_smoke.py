@@ -5,7 +5,9 @@
 Phases, each of which raises on failure (exit code non-zero, no result line):
 
 0. device: requires CUDA; prints the card's name and power limit; turns
-   TF32 off so that float32 references are true float32.
+   TF32 off so that float32 references are true float32; checks that the
+   facades (`StableDiffusion_XL`, `SegmentAnything`) built with no device
+   land on the card (small sub-models, built on the host and moved).
 1. build: compiles the CUDA kernels from ``refiners_tpu_torch/csrc/`` into
    ``build/refiners_tpu_torch/``, one ``nvcc`` per source, side by side.
 2. kernels: every hand-written kernel against its plain PyTorch version on
@@ -29,7 +31,22 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      shapes and at a 10 × 10 key grid, in bf16 and float32, against
      ``flash_attention_relpos_plain`` in float32 (≤ 1e-2 in bf16, ≤ 1e-5
      in float32), on strided head views of a fused projection; at the
-     global shape the kernel may allocate at most 64 MiB beyond its output.
+     global shape the kernel may allocate at most 64 MiB beyond its output;
+   - the fused GroupNorm+SiLU (``group_norm_stats``, K5a, then
+     ``group_norm_apply``, K5b) at the SDXL UNet's and VAE's shapes and a
+     ragged (2, 96, 5, 6), in bf16 and float32, against
+     ``group_norm_silu_plain`` in float32 (≤ 1e-2 in bf16, ≤ 1e-5 in
+     float32), once without SiLU; each kernel also against its own plain
+     version;
+   - the int8 quantization (``quantize_int8``, K6) at the SDXL linears'
+     shapes and a ragged (520, 300): values and scales bit-equal to
+     ``quantize_int8_plain`` (the same Philox stream), |q| ≤ 127, q between
+     floor and ceil of w/scale, and unbiased over 64 seeds;
+   - for every kernel at its main-path shape: the bound (the larger of the
+     bytes over 3.35 TB/s and the operations over 989 TFLOP/s in bf16, or
+     67 TFLOP/s in float32 FFMA) and the time of one PyTorch call that
+     computes the same function where there is one (``library_ms``, timed
+     here and used nowhere in the port).
 3. SDXL serving: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 with
    seeded synthetic weights, one UNet step through the kernel against the
    same step on the plain path, then 3 requests through ``TextToImage`` at
@@ -63,9 +80,21 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    the three embeddings (equal to the serial ``predict``); then HQ-SAM
    injected, one embedding and one ``predict``. Masks must have the
    original size and not be constant, IoU predictions finite.
+6. SDXL under the opt-in passes: full-width SDXL in bf16 with the weights of
+   phase 3. (a) ``fuse_group_norm_silu`` fuses 35 pairs in the UNet and 50
+   in the VAE (21 encoder, 29 decoder); one UNet step four ways: float32
+   unfused on the plain path (the reference), bf16 unfused, bf16 fused
+   through K5 (at most twice as far from the reference as bf16 unfused) and
+   float32 fused through K5 (≤ 1e-4 from it). (b) ``quantize_linears(unet,
+   min_features=256)`` replaces 743 linears with W8A8 ``QuantizedLinear``s,
+   one K6 launch each. (c) 2 requests through ``TextToImage`` with phase 3's
+   first prompts and seeds: exactly 35 × 30 + 29 launches of K5a and of K5b
+   and 70 × 30 + 1 of K1 each; images finite and not constant; request 0's
+   image at PSNR ≥ 20 against phase 3's bf16 image (the JAX package's int8
+   gate).
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b and 5b, each with the counts set to 0 just before it), the
+phases 3, 4b, 5b and 6, each with the counts set to 0 just before it), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -99,6 +128,9 @@ TRAINING_STEP_LAUNCHES = {
     "flash_attention_bwd_dkv": LAUNCHES_PER_TRAINING_STEP,
     "flash_attention_bwd_dq": LAUNCHES_PER_TRAINING_STEP,
     "flash_attention_relpos": 0,
+    "group_norm_stats": 0,
+    "group_norm_apply": 0,
+    "quantize_int8": 0,
 }
 ATTENTION_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
@@ -132,6 +164,35 @@ RELPOS_EXTRA_BYTES = 64 * 2**20  # what K3 may allocate beyond its output at the
 SAM_LAUNCHES_PER_EMBEDDING = 32  # one per ViT-H layer
 SAM_F32_TOL = 1e-4  # a float32 ViT-H embedding through K3 against the plain route: summation order over 32 layers
 SAM_IMAGES = [(1024, 768), (600, 400), (1024, 1024)]  # (width, height)
+GROUP_NORM_SHAPES = [
+    # (shape, groups); the first is the main-path row of the kernel table
+    ((2, 320, 128, 128), 32),  # SDXL UNet, 8 sites per step
+    ((2, 960, 128, 128), 32),  # SDXL UNet up block at 128² (after a skip concatenation)
+    ((2, 1280, 32, 32), 32),  # SDXL UNet, 10 sites per step
+    ((2, 2560, 32, 32), 32),  # SDXL UNet up block at 32²
+    ((1, 512, 256, 256), 32),  # SDXL VAE decoder
+    ((1, 128, 1024, 1024), 32),  # SDXL VAE decoder at full resolution, 6 sites
+    ((2, 96, 5, 6), 32),  # 90-element groups: unaligned chunks, ragged tails
+]
+QUANT_SHAPES = [
+    # (out, in) in the port's layout; the first is the main-path row
+    (1280, 1280),  # 381 of the 743 SDXL UNet linears
+    (1280, 2048),  # 120: cross-attention keys and values
+    (10240, 1280),  # 60: GEGLU feed-forward in
+    (1280, 5120),  # 60: feed-forward out
+    (1280, 2816),  # the add-embedding
+    (520, 300),  # ragged: rows that do not start on a Philox block
+]
+QUANT_SEEDS = 64  # unbiasedness: mean of 64 stochastic roundings on a (256, 1024) weight
+QUANT_UNBIASED_TOL = 0.375  # 6σ of a mean of 64 Bernoulli draws (σ ≤ 1/16): deterministic given the seeds
+PASSES_UNET_FUSED = 35  # GroupNorm → SiLU pairs in the SDXL UNet
+PASSES_VAE_FUSED = (21, 29)  # in the VAE's encoder and decoder
+PASSES_QUANTIZED = 743  # SDXL UNet linears with both widths ≥ 256
+GROUP_NORM_LAUNCHES_PER_REQUEST = PASSES_UNET_FUSED * 30 + PASSES_VAE_FUSED[1]  # the encoder does not run
+INT8_PSNR_FLOOR = 20.0  # tests/tpu/test_bf16_tpu.py: the int8 image against the bf16 image
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
 BACKWARD_SHAPES = [
     (2, 4096, 4096, 8, 40, False, BF16),
     (2, 1024, 1024, 8, 80, False, BF16),
@@ -192,6 +253,22 @@ def _time_ms(fn: Callable[[], Any], reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
+    """Device milliseconds per call of `fn`, for calls shorter than their
+    host overhead: the calls are enqueued while the stream sleeps, so the
+    events bracket back-to-back device work and no host time."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ≈ 25 ms at the H100's clock: the host enqueues the calls meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a.float() - b.float()) / torch.linalg.vector_norm(b.float()))
 
@@ -202,6 +279,8 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _counters() -> dict[str, Any]:
     from refiners_tpu_torch.ops import flash_attention as fa
+    from refiners_tpu_torch.ops import group_norm as gn
+    from refiners_tpu_torch.ops import quant
 
     return {
         "flash_attention_packed": fa.flash_attention_packed,
@@ -209,6 +288,9 @@ def _counters() -> dict[str, Any]:
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
         "flash_attention_relpos": fa.flash_attention_relpos,
+        "group_norm_stats": gn.group_norm_stats,
+        "group_norm_apply": gn.group_norm_apply,
+        "quantize_int8": quant.quantize_int8,
     }
 
 
@@ -415,12 +497,232 @@ def check_relpos(dev: torch.device) -> list[dict]:
     return results
 
 
+def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict[str, Any]:
+    """The least time the card could take: the larger of the operations over
+    the peak rate of `dtype` and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _print_row(label: str, ms: float, row: dict[str, Any]) -> None:
+    library = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none"
+    print(
+        f"row {label}: kernel_ms={ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"share={row['bound_ms'] / ms:.3f} library_ms={library} ({row['library_call']})"
+    )
+
+
+def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
+    """Bound and library time of K1-K4 at their main-path shapes (bf16),
+    the rows of the kernel table. The library calls are timed here only."""
+    import torch.nn.functional as F
+
+    rows: dict[str, dict[str, Any]] = {}
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def randn(*shape: int) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=dev).to(BF16)
+
+    # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 self-attention
+    b, seq, h, d = 2, 4096, 10, 64
+    q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
+    heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
+    rows["K1"] = {
+        **_bound(4 * b * h * seq * seq * d, 4 * b * seq * h * d * 2, BF16),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), reps=10),
+        "library_call": "F.scaled_dot_product_attention on head views",
+    }
+    # K2 and K4: (B, H, L, D) at the SD1.5 UNet's 64×64 self-attention
+    b, h, seq, d = 2, 8, 4096, 40
+    q, k, v = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
+    n = b * h * seq * d
+    rows["K2"] = {
+        **_bound(4 * b * h * seq * seq * d, 4 * n * 2 + b * h * seq * 4, BF16),
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10),
+        "library_call": "F.scaled_dot_product_attention (no lse)",
+    }
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v)
+    do = randn(b, h, seq, d)
+    backward_ms = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), reps=10)
+    backward_call = "the backward of F.scaled_dot_product_attention (dq, dk, dv), against K4a + K4b"
+    rows["K4a"] = {**_bound(8 * b * h * seq * seq * d, 6 * n * 2 + 2 * b * h * seq * 4, BF16),
+                   "library_ms": backward_ms, "library_call": backward_call}  # fmt: skip
+    rows["K4b"] = {**_bound(6 * b * h * seq * seq * d, 5 * n * 2 + 2 * b * h * seq * 4, BF16),
+                   "library_ms": backward_ms, "library_call": backward_call}  # fmt: skip
+    del q, k, v, out, do
+    # K3: SAM-H's global and windowed layers; the dense bias is built outside the timed call
+    for label, (b, kh, h, d) in (("K3 global", (1, 64, 16, 80)), ("K3 windowed", (25, 14, 16, 80))):
+        seq = kh * kh
+        q, k, v = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
+        v_rel, h_rel = randn(b, h, seq, kh), randn(b, h, seq, kh)
+        bias = (v_rel[..., :, None] + h_rel[..., None, :]).reshape(b, h, seq, seq)
+        rows[label] = {
+            **_bound(4 * b * h * seq * seq * d, 4 * b * h * seq * d * 2 + 2 * b * h * seq * kh * 2, BF16),
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10),
+            "library_call": "F.scaled_dot_product_attention with the dense bias as attn_mask",
+        }
+        del q, k, v, v_rel, h_rel, bias
+        _free()
+    return rows
+
+
+def check_group_norm(dev: torch.device) -> tuple[list[dict], list[dict]]:
+    """K5a and K5b at the SDXL path's shapes, bf16 and float32."""
+    import torch.nn.functional as F
+
+    from refiners_tpu_torch.ops import group_norm as gn
+
+    stats_results, apply_results = [], []
+    gen = torch.Generator(dev).manual_seed(6)
+    for shape, groups in GROUP_NORM_SHAPES:
+        for dtype in (BF16, F32):
+            c = shape[1]
+            x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+            w = (torch.randn((c,), generator=gen, device=dev) * 0.2 + 1.0).to(dtype)
+            b = (torch.randn((c,), generator=gen, device=dev) * 0.1).to(dtype)
+            partials = gn.group_norm_stats(x, groups)
+            y = gn.group_norm_apply(x, partials, w, b, groups)
+            torch.cuda.synchronize()
+            rel = _rel(y, gn.group_norm_silu_plain(x.float(), w.float(), b.float(), groups))
+            stats_plain = gn.group_norm_stats_plain(x, groups)
+            stats_rel, stats_err = _rel(partials, stats_plain), _max_abs(partials, stats_plain)
+            apply_err = _max_abs(y, gn.group_norm_apply_plain(x.float(), partials, w.float(), b.float(), groups))
+            stats_ms = _device_ms(lambda: gn.group_norm_stats(x, groups))
+            apply_ms = _device_ms(lambda: gn.group_norm_apply(x, partials, w, b, groups))
+            fused_ms = _device_ms(lambda: gn.group_norm_silu(x, w, b, groups))
+            host_ms = _time_ms(lambda: gn.group_norm_silu(x, w, b, groups), reps=20)
+            stats_plain_ms = _device_ms(lambda: gn.group_norm_stats_plain(x, groups), reps=5)
+            apply_plain_ms = _device_ms(lambda: gn.group_norm_apply_plain(x, partials, w, b, groups), reps=5)
+            plain_ms = _device_ms(lambda: gn.group_norm_silu_plain(x, w, b, groups), reps=5)
+            var_mean_ms = _device_ms(lambda: torch.var_mean(x.view(shape[0], groups, -1), dim=-1))
+            library_ms = _device_ms(lambda: F.silu(F.group_norm(x, groups, w, b, 1e-5)))
+            numel, size = x.numel(), x.element_size()
+            # float32 arithmetic on FFMA: 3 operations an element for the sums, about 8 for the apply and SiLU
+            stats_row = {**_bound(3 * numel, numel * size + partials.numel() * 4, F32), "library_ms": var_mean_ms,
+                         "library_call": "torch.var_mean over the groups"}  # fmt: skip
+            apply_row = {**_bound(8 * numel, 2 * numel * size + partials.numel() * 4 + 2 * c * size, F32),
+                         "library_ms": library_ms,
+                         "library_call": "F.silu(F.group_norm(...)): two calls, the whole op, against K5a + K5b"}  # fmt: skip
+            print(
+                f"group norm + SiLU ({tuple(shape)}, G={groups}, {dtype}): rel_err={rel:.3e} | K5a stats rel_err="
+                f"{stats_rel:.3e} max_abs_err={stats_err:.3e} ms={stats_ms:.4f} plain_ms={stats_plain_ms:.4f} "
+                f"bound_ms={stats_row['bound_ms']:.4f} var_mean_ms={var_mean_ms:.4f} | K5b apply max_abs_err="
+                f"{apply_err:.3e} ms={apply_ms:.4f} plain_ms={apply_plain_ms:.4f} bound_ms={apply_row['bound_ms']:.4f} "
+                f"| K5a+K5b {fused_ms:.4f} ms ({host_ms:.4f} ms as one call timed alone, host included), plain "
+                f"{plain_ms:.4f} ms, F.silu(F.group_norm) {library_ms:.4f} ms"
+            )
+            tol = F32_TOL if dtype == F32 else REL_TOL
+            if not (rel <= tol and stats_rel <= F32_TOL):
+                raise AssertionError(f"K5 disagrees with its plain version: rel_err={rel} (≤ {tol}), stats {stats_rel}")
+            common = {"shape": list(shape), "groups": groups, "dtype": str(dtype), "rel_err": rel,
+                      "fused_ms": fused_ms, "fused_host_ms": host_ms, "fused_plain_ms": plain_ms}  # fmt: skip
+            stats_results.append({**common, **stats_row, "max_abs_err": stats_err, "ms": stats_ms, "plain_ms": stats_plain_ms})
+            apply_results.append({**common, **apply_row, "max_abs_err": apply_err, "ms": apply_ms, "plain_ms": apply_plain_ms})
+            del x, w, b, partials, y, stats_plain
+            _free()
+
+    shape, groups = GROUP_NORM_SHAPES[0]
+    x = torch.randn(shape, generator=gen, device=dev).to(BF16)
+    w, b = torch.ones(shape[1], device=dev, dtype=BF16), torch.zeros(shape[1], device=dev, dtype=BF16)
+    rel = _rel(gn.group_norm_silu(x, w, b, groups, apply_silu=False),
+               gn.group_norm_silu_plain(x.float(), w.float(), b.float(), groups, apply_silu=False))  # fmt: skip
+    print(f"group norm without SiLU ({tuple(shape)}, bf16): rel_err={rel:.3e}")
+    if not rel <= REL_TOL:
+        raise AssertionError(f"K5 without SiLU disagrees with its plain version: {rel}")
+    return stats_results, apply_results
+
+
+def check_quantize(dev: torch.device) -> list[dict]:
+    """K6 at the SDXL linears' shapes: bit-equal to its plain version."""
+    from refiners_tpu_torch.ops import quant
+
+    results = []
+    gen = torch.Generator(dev).manual_seed(8)
+    cases = [(shape, BF16) for shape in QUANT_SHAPES] + [(QUANT_SHAPES[0], F32)]
+    for (rows, cols), dtype in cases:
+        w = (torch.randn((rows, cols), generator=gen, device=dev) * cols**-0.5).to(dtype)
+        seed = rows * cols
+        values, scales = quant.quantize_int8(w, seed=seed)
+        torch.cuda.synchronize()
+        want_values, want_scales = quant.quantize_int8_plain(w, seed=seed)
+        mismatches = int((values != want_values).sum()) + int((scales != want_scales).sum())
+        scaled = w.float() / scales[0][:, None]
+        q = values.float()
+        bracket = bool(((q == torch.floor(scaled)) | (q == torch.ceil(scaled))).all())
+        clipped = int(values.abs().max()) <= 127
+        ms = _device_ms(lambda: quant.quantize_int8(w, seed=seed))
+        plain_ms = _device_ms(lambda: quant.quantize_int8_plain(w, seed=seed), reps=3)
+        # Philox: 10 rounds of 2 multiplies and 4 other operations per 4 elements, about 6 more per element
+        row = {**_bound(21 * rows * cols, rows * cols * (w.element_size() + 1) + rows * 4, F32), "library_ms": None,
+               "library_call": "no single PyTorch call computes it"}  # fmt: skip
+        print(
+            f"int8 quantize ({rows}, {cols}), {dtype}: mismatches against the plain version {mismatches}, "
+            f"floor/ceil bracket {bracket}, |q| <= 127 {clipped}, kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+        )
+        if mismatches or not (bracket and clipped):
+            raise AssertionError(f"K6 at ({rows}, {cols}) is not bit-equal to its plain version or leaves its bracket")
+        results.append({"shape": [rows, cols], "dtype": str(dtype), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **row})
+        del w, values, scales, want_values, want_scales, scaled, q
+
+    w = torch.randn((256, 1024), generator=gen, device=dev) * 0.02
+    total = torch.zeros(w.shape, device=dev, dtype=torch.float64)
+    for seed in range(QUANT_SEEDS):
+        values, scales = quant.quantize_int8(w, seed=seed)
+        total += values.double()
+    error = total / QUANT_SEEDS - (w / scales[0][:, None]).double()
+    worst, mean = float(error.abs().max()), float(error.mean())
+    print(f"int8 quantize, {QUANT_SEEDS} seeds on (256, 1024): max |mean q - w/scale| = {worst:.4f}, mean error {mean:.2e}")
+    if not (worst <= QUANT_UNBIASED_TOL and abs(mean) <= 1e-3):
+        raise AssertionError(f"K6's rounding is biased: max {worst} (≤ {QUANT_UNBIASED_TOL}), mean {mean} (≤ 1e-3)")
+    return results
+
+
+def check_device_default() -> None:
+    """Facades built with no device land on the card, their parts moved there."""
+    from refiners_tpu_torch.foundationals.clip import CLIPTextEncoder, CLIPTokenizer
+    from refiners_tpu_torch.foundationals.latent_diffusion import (
+        DDIM,
+        DoubleTextEncoder,
+        SDXLAutoencoder,
+        SDXLUNet,
+        StableDiffusion_XL,
+    )
+    from refiners_tpu_torch.foundationals.segment_anything import (
+        MaskDecoder,
+        MaskEncoder,
+        PointEncoder,
+        SAMViT,
+        SegmentAnything,
+    )
+
+    small = dict(num_layers=1, feedforward_dim=64)
+    text_l = CLIPTextEncoder(embedding_dim=768, num_attention_heads=12, use_quick_gelu=True, **small)
+    text_g = CLIPTextEncoder(embedding_dim=1280, num_attention_heads=20, tokenizer=CLIPTokenizer(pad_token_id=0), **small)
+    sd = StableDiffusion_XL(
+        unet=SDXLUNet(in_channels=4, base_channels=32), lda=SDXLAutoencoder(),
+        clip_text_encoder=DoubleTextEncoder(text_encoder_l=text_l, text_encoder_g=text_g),
+        solver=DDIM(num_inference_steps=2),
+    )  # fmt: skip
+    sam = SegmentAnything(
+        SAMViT(embedding_dim=32, num_layers=2, num_heads=2, global_attention_indices=(1,)),
+        PointEncoder(), MaskEncoder(), MaskDecoder(multimask_output=False),
+    )  # fmt: skip
+    devices = {p.device.type for model in (sd, sam) for p in model.parameters()} | {sd.solver.timesteps.device.type}
+    print(f"device default: StableDiffusion_XL() and SegmentAnything(...) with no device hold their tensors on {devices}")
+    if devices != {"cuda"}:
+        raise AssertionError(f"a facade built with no device left tensors on {devices}")
+    del sd, sam, text_l, text_g
+    _free()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: SDXL serving
 # ---------------------------------------------------------------------------
 
 
-def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int]:
+def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int, np.ndarray]:
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
@@ -470,6 +772,7 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int]:
     decoded: list[torch.Tensor] = []
     hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
     seconds = []
+    images = []
     reset_launches()
     for seed, (prompt, negative) in enumerate(PROMPTS):
         before = read_launches()["flash_attention_packed"]
@@ -482,6 +785,7 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int]:
         launched = read_launches()["flash_attention_packed"] - before
         out = decoded[-1]
         arr = np.asarray(image)
+        images.append(arr)
         peak = torch.cuda.max_memory_allocated(dev)
         print(
             f"sdxl request {seed}: {seconds[-1]:.3f} s, kernel launches {launched}, image {image.size}, "
@@ -498,7 +802,152 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int]:
     hook.remove()
     del sd, pipe, sdpa, decoded, emb, pooled, x, reference, plain_noise, kernel_noise
     _free()
-    return launches, seconds, peak
+    return launches, seconds, peak, images[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: SDXL under the opt-in passes
+# ---------------------------------------------------------------------------
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return math.inf if mse == 0 else 10.0 * math.log10(255.0**2 / mse)
+
+
+def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str, Any], dict[str, int]]:
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.optimization import FusedGroupNormSiLU, fuse_group_norm_silu, quantize_linears
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, StableDiffusion_XL
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    t0 = time.perf_counter()
+    manual_seed(0)  # the weights of phase 3
+    sd = StableDiffusion_XL(solver=DDIM(num_inference_steps=30, device=dev), device=dev, dtype=BF16)
+    synthesize_weights(sd, seed=7)
+    torch.cuda.synchronize()
+    print(f"passes: StableDiffusion_XL built, bf16, {time.perf_counter() - t0:.1f} s")
+    report: dict[str, Any] = {}
+
+    # (a) GroupNorm + SiLU fusion, and one UNet step four ways
+    pipe = TextToImage(sd, size=(1024, 1024))
+    sdpa = list(sd.unet.layers(fl.ScaledDotProductAttention, recurse=True))
+    with torch.inference_mode():
+        emb, pooled = sd.compute_clip_text_embedding(*PROMPTS[0])
+        x = torch.randn((1, 4, 128, 128), generator=torch.Generator(dev).manual_seed(0), device=dev)
+
+    def step(dtype: torch.dtype, kernels: bool) -> tuple[torch.Tensor, dict[str, int]]:
+        for layer in sdpa:
+            layer.is_optimized = kernels
+        sd.unet.to(dtype=dtype)
+        reset_launches()
+        with torch.inference_mode():
+            noise = sd.predict_noise(
+                x.to(dtype), 0, clip_text_embedding=emb.to(dtype), pooled_text_embedding=pooled.to(dtype),
+                time_ids=sd.default_time_ids, condition_scale=5.0,
+            )  # fmt: skip
+        torch.cuda.synchronize()
+        return noise.float(), read_launches()
+
+    reference, ref_launches = step(F32, kernels=False)
+    plain, plain_launches = step(BF16, kernels=True)
+    fused_unet, fused_lda = fuse_group_norm_silu(sd.unet), fuse_group_norm_silu(sd.lda)
+    fused_parts = tuple(sum(1 for _ in part.layers(FusedGroupNormSiLU, recurse=True)) for part in sd.lda)
+    print(f"passes: fuse_group_norm_silu fused {fused_unet} pairs in the UNet, {fused_lda} in the VAE {fused_parts}")
+    if fused_unet != PASSES_UNET_FUSED or fused_parts != PASSES_VAE_FUSED:
+        raise AssertionError(f"fused {fused_unet} UNet and {fused_parts} VAE pairs, not {PASSES_UNET_FUSED}, {PASSES_VAE_FUSED}")
+    fused, fused_launches = step(BF16, kernels=True)
+    f32_fused, f32_launches = step(F32, kernels=True)
+    sd.unet.to(dtype=BF16)
+    err_plain, err_fused, err_f32 = (_rel(n, reference) for n in (plain, fused, f32_fused))
+    gn_launches = {k: [r[k] for r in (ref_launches, plain_launches, fused_launches, f32_launches)]
+                   for k in ("group_norm_stats", "group_norm_apply")}  # fmt: skip
+    print(
+        f"passes: one UNet step (1024², CFG batch 2) vs float32 unfused on the plain path: bf16 unfused rel_err="
+        f"{err_plain:.3e}, bf16 fused through K5 rel_err={err_fused:.3e}, float32 fused through K5 rel_err="
+        f"{err_f32:.3e}; K5a/K5b launches (reference, bf16 unfused, bf16 fused, float32 fused) {gn_launches}"
+    )
+    want = [0, 0, PASSES_UNET_FUSED, PASSES_UNET_FUSED]
+    if gn_launches["group_norm_stats"] != want or gn_launches["group_norm_apply"] != want:
+        raise AssertionError(f"the UNet steps launched K5 {gn_launches} times, not {want}")
+    if not (torch.isfinite(fused).all() and err_fused <= 2 * err_plain):
+        raise AssertionError(f"the fused bf16 step is further from float32 than twice the unfused: {err_fused} > 2 × {err_plain}")
+    if not err_f32 <= F32_STEP_TOL:
+        raise AssertionError(f"the fused float32 step is {err_f32} from the float32 reference (> {F32_STEP_TOL})")
+    report["unet_step_rel_err"] = {"bf16_unfused": err_plain, "bf16_fused": err_fused, "f32_fused": err_f32}
+    del reference, plain, fused, f32_fused
+    _free()
+
+    decoded: list[torch.Tensor] = []
+    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
+    want_launches = {**{k: 0 for k in _counters()}, "flash_attention_packed": LAUNCHES_PER_REQUEST,
+                     "group_norm_stats": GROUP_NORM_LAUNCHES_PER_REQUEST,
+                     "group_norm_apply": GROUP_NORM_LAUNCHES_PER_REQUEST}  # fmt: skip
+
+    def request(seed: int, label: str) -> tuple[float, int, float | None]:
+        """One request; (seconds, peak memory, PSNR against phase 3's image of the same seed or None)."""
+        prompt, negative = PROMPTS[seed]
+        before = read_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        image = pipe(prompt, negative_prompt=negative, seed=seed, condition_scale=5.0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        after = read_launches()
+        launched = {k: after[k] - before[k] for k in after}
+        out, arr = decoded[-1], np.asarray(image)
+        peak = torch.cuda.max_memory_allocated(dev)
+        psnr = _psnr(arr, bf16_image) if seed == 0 else None
+        print(
+            f"passes {label} request {seed}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, launches {launched}, "
+            f"decoded mean {float(out.float().mean()):.4f} std {float(out.float().std()):.4f}"
+            + (f", PSNR against phase 3's bf16 image {psnr:.2f} dB" if psnr is not None else "")
+        )
+        if launched != want_launches:
+            raise AssertionError(f"{label} request {seed} launched {launched}, not {want_launches}")
+        if tuple(out.shape) != (1, 3, 1024, 1024) or not torch.isfinite(out).all():
+            raise AssertionError(f"{label} request {seed}: decoded image of shape {tuple(out.shape)} is not finite")
+        if float(out.float().std()) == 0.0 or arr.min() == arr.max():
+            raise AssertionError(f"{label} request {seed}: the image is constant")
+        return seconds, peak, psnr
+
+    # the fusion alone, for comparison: one request before quantizing
+    seconds, peak, psnr = request(0, "fused-only")
+    report["fused_only"] = {"seconds": seconds, "peak_memory_bytes": peak, "psnr_vs_bf16": psnr}
+
+    # (b) int8 quantization: the counts are set to 0 here and read after the requests
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    quantized = quantize_linears(sd.unet, min_features=256)
+    torch.cuda.synchronize()
+    report["quantize_seconds"] = time.perf_counter() - start
+    k6 = read_launches()["quantize_int8"]
+    print(f"passes: quantize_linears replaced {quantized} linears in {report['quantize_seconds']:.3f} s, {k6} K6 launches; "
+          f"UNet dtype {sd.unet.dtype}")  # fmt: skip
+    if quantized != PASSES_QUANTIZED or k6 != PASSES_QUANTIZED:
+        raise AssertionError(f"quantized {quantized} linears with {k6} launches, not {PASSES_QUANTIZED}")
+    if sd.unet.dtype != BF16:
+        raise AssertionError(f"the quantized UNet's dtype is {sd.unet.dtype}, not bf16")
+
+    # (c) requests under both passes
+    report["seconds"], report["peak_memory_bytes"] = [], []
+    for seed in range(2):
+        seconds, peak, psnr = request(seed, "int8 + fused")
+        report["seconds"].append(seconds)
+        report["peak_memory_bytes"].append(peak)
+        if psnr is not None:
+            report["psnr_vs_bf16"] = psnr
+    if not report["psnr_vs_bf16"] >= INT8_PSNR_FLOOR:
+        raise AssertionError(f"int8 + fused image at PSNR {report['psnr_vs_bf16']:.2f} < {INT8_PSNR_FLOOR} against bf16")
+    launches = read_launches()
+    hook.remove()
+    del sd, pipe, sdpa, decoded, emb, pooled, x
+    _free()
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -799,35 +1248,54 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
+    check_device_default()
     packed = check_packed_forward(dev)
     forward = check_forward(dev)
     dkv, dq = check_backward(dev)
     relpos = check_relpos(dev)
     _free()
-    sdxl_launches, seconds, sdxl_peak = run_sdxl(dev)
+    rows = attention_rows(dev)
+    gn_stats, gn_apply = check_group_norm(dev)
+    quantize = check_quantize(dev)
+    for first, label in ((packed, "K1"), (forward, "K2"), (relpos, "K3 global"), (dkv, "K4a"), (dq, "K4b")):
+        _print_row(label, first[0]["ms"], rows[label])
+    windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
+    _print_row("K3 windowed", windowed["ms"], rows["K3 windowed"])
+    for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6")):
+        _print_row(label, results[0]["ms"], results[0])
+    _free()
+    sdxl_launches, seconds, sdxl_peak, bf16_image = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
     sam_report, sam_launches = run_sam(dev)
+    passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
 
-    def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict]) -> dict[str, Any]:
+    def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
             "name": name, "route": "cuda", "source": f"refiners_tpu_torch/csrc/{source}",
-            "replaces": f"refiners_tpu/ops/flash_attention.py:{replaces}", "launches": launches,
+            "replaces": f"refiners_tpu/ops/{replaces}", "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in shapes), "ms": shapes[0]["ms"],
-            "plain_ms": shapes[0]["plain_ms"], "per_shape": shapes,
+            "plain_ms": shapes[0]["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
         }  # fmt: skip
 
     summary = {
         "kernels": [
-            kernel("flash_attention_packed", "flash_attention_forward.cu", "707",
-                   sdxl_launches["flash_attention_packed"], packed),
-            kernel("flash_attention", "flash_attention_forward.cu", "105", train_launches["flash_attention"], forward),
-            kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "521",
-                   train_launches["flash_attention_bwd_dkv"], dkv),
-            kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "553",
-                   train_launches["flash_attention_bwd_dq"], dq),
-            kernel("flash_attention_relpos", "flash_attention_forward.cu", "311",
-                   sam_launches["flash_attention_relpos"], relpos),
+            kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
+                   sdxl_launches["flash_attention_packed"], packed, rows["K1"]),
+            kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
+                   train_launches["flash_attention"], forward, rows["K2"]),
+            kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
+                   train_launches["flash_attention_bwd_dkv"], dkv, rows["K4a"]),
+            kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
+                   train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
+            kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
+                   sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
+            kernel("group_norm_stats", "group_norm.cu", "group_norm.py:55",
+                   passes_launches["group_norm_stats"], gn_stats, gn_stats[0]),
+            kernel("group_norm_apply", "group_norm.cu", "group_norm.py:82",
+                   passes_launches["group_norm_apply"], gn_apply, gn_apply[0]),
+            kernel("quantize_int8", "quant.cu", "quant.py:23", passes_launches["quantize_int8"], quantize, quantize[0]),
         ],  # fmt: skip
         "sdxl_seconds_per_request": seconds,
         "sdxl_peak_memory_bytes": sdxl_peak,
@@ -836,6 +1304,7 @@ def main() -> int:
         "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],
         "sd15_trainer_losses": [r["loss"] for r in train_records],
         "sam": sam_report,
+        "sdxl_passes": passes_report,
     }
     print(json.dumps(summary))
     print(smi)

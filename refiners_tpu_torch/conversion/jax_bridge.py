@@ -4,10 +4,14 @@ The reverse of ``refiners_tpu/conversion/refiners_compat.py``: the two
 packages share key paths and differ only in weight layouts, so the bridge
 renames nothing and transposes by the port module that owns each weight:
 
-- Linear: (in, out) → (out, in);
+- Linear, QuantizedLinear (int8) and FusedQKVProjection: (in, out) → (out, in);
 - Conv2d: HWIO → OIHW;
 - ConvTranspose2d: (kh, kw, in, out) → (in, out, kh, kw);
-- everything else is copied.
+- everything else is copied (a QuantizedLinear's (1, out) scales, a
+  FusedGroupNormSiLU's weight and bias).
+
+So a JAX model after ``quantize_linears``, ``fuse_qkv_projections`` or
+``fuse_group_norm_silu`` loads into the port after the same pass.
 
 It takes numpy arrays (``np.asarray`` of the JAX arrays) and imports no JAX.
 The NHWC ↔ NCHW helpers convert activations for comparisons between the two.
@@ -19,9 +23,12 @@ import numpy as np
 import torch
 
 import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.fluxion.optimization import FusedQKVProjection, QuantizedLinear
 
 _PERMUTATIONS = {
     fl.Linear: (1, 0),
+    QuantizedLinear: (1, 0),
+    FusedQKVProjection: (1, 0),
     fl.Conv2d: (3, 2, 0, 1),
     fl.ConvTranspose2d: (2, 3, 0, 1),
 }

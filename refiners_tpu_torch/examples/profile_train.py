@@ -51,6 +51,8 @@ requires_grad = true
 # kernel-name fragments → kind, first match wins
 KINDS = [
     ("attention (flash kernels)", ("flash_",)),
+    ("fused GroupNorm+SiLU (K5a, K5b)", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("int8 quantization (K6)", ("quantize_kernel",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("optimizer and other foreach", ("multi_tensor_apply", "foreach")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),

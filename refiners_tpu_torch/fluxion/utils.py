@@ -17,6 +17,7 @@ from PIL import Image
 from refiners_tpu_torch.fluxion.rng import manual_seed
 
 __all__ = [
+    "default_device",
     "manual_seed",
     "str_to_dtype",
     "synthesize_weights",
@@ -28,6 +29,13 @@ __all__ = [
     "tensor_to_image",
     "tensor_to_images",
 ]
+
+
+def default_device(device: Any = None) -> torch.device:
+    """The device a model facade builds on: `device` when given, else the
+    card. There is no fallback to the CPU: without CUDA, building on the
+    card raises, and CPU use passes ``device="cpu"``."""
+    return torch.device("cuda") if device is None else torch.device(device)
 
 
 def str_to_dtype(dtype: str) -> torch.dtype:

@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import Solver
 
@@ -32,6 +33,7 @@ class LatentDiffusionModel(fl.Module, ABC):
         dtype: Any = None,
     ) -> None:
         super().__init__()
+        device = default_device(device)
         self.unet = unet.to(device=device, dtype=dtype)
         self.lda = lda.to(device=device, dtype=dtype)
         self.clip_text_encoder = clip_text_encoder.to(device=device, dtype=dtype)

@@ -11,6 +11,7 @@ from typing import Any
 
 import torch
 
+from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import DDIM, Solver
@@ -25,7 +26,9 @@ class SDXLAutoencoder(LatentDiffusionAutoencoder):
 
 
 class StableDiffusion_XL(LatentDiffusionModel):
-    """SDXL: DoubleTextEncoder + SDXLUNet + VAE; default DDIM 30 steps, CFG 5.0."""
+    """SDXL: DoubleTextEncoder + SDXLUNet + VAE; default DDIM 30 steps, CFG 5.0.
+
+    Builds on the card unless `device` says otherwise (``device="cpu"``)."""
 
     unet: SDXLUNet
     clip_text_encoder: DoubleTextEncoder
@@ -40,6 +43,7 @@ class StableDiffusion_XL(LatentDiffusionModel):
         device: Any = None,
         dtype: Any = None,
     ) -> None:
+        device = default_device(device)
         super().__init__(
             unet=unet or SDXLUNet(in_channels=4, device=device, dtype=dtype),
             lda=lda or SDXLAutoencoder(device=device, dtype=dtype),

@@ -5,7 +5,8 @@ The JAX package compiles two programs, one that encodes an image and one
 that turns prompts into masks; here they are two eager functions with the
 same steps (`_encode_image`, `_predict_masks`). Image embeddings are NCHW,
 (1, 256, 64, 64); masks keep the public (N, M, H, W) layout, bool when
-binarized.
+binarized. The facades build on (or move their parts to) the card unless
+`device` says otherwise (``device="cpu"``).
 
 Neither function waits for the card: host data goes up with
 ``non_blocking=True`` copies and the point type mask stays on the host, so
@@ -22,6 +23,7 @@ import torch
 from PIL import Image
 
 import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.segment_anything.image_encoder import SAMViT, SAMViTH
 from refiners_tpu_torch.foundationals.segment_anything.mask_decoder import MaskDecoder
 from refiners_tpu_torch.foundationals.segment_anything.prompt_encoder import MaskEncoder, PointEncoder
@@ -143,8 +145,7 @@ class SegmentAnything(fl.Chain):
         dtype: Any = None,
     ) -> None:
         super().__init__(image_encoder, point_encoder, mask_encoder, mask_decoder)
-        if device is not None or dtype is not None:
-            self.to(device=device, dtype=dtype)
+        self.to(device=default_device(device), dtype=dtype)
 
     @property
     def image_encoder(self) -> SAMViT:
@@ -261,6 +262,7 @@ class SegmentAnythingH(SegmentAnything):
         device: Any = None,
         dtype: Any = None,
     ) -> None:
+        device = default_device(device)
         image_encoder = image_encoder or SAMViTH(device=device, dtype=dtype)
         point_encoder = point_encoder or PointEncoder(device=device, dtype=dtype)
         mask_encoder = mask_encoder or MaskEncoder(device=device, dtype=dtype)

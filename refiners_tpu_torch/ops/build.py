@@ -21,6 +21,8 @@ import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "refiners_tpu_torch"
 NVCC_FLAGS = [
@@ -29,7 +31,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]  # fmt: skip
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the element types the kernels take, numbered as the C entry points take them:
+# bfloat16 and float16 on tensor cores, float32 on FFMA
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+_P, _I, _LL, _ULL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_float
 # C entry point → (source stem, argument types); every entry returns a cudaError_t as int
 _ENTRIES = {
     "refiners_flash_attention_forward": (
@@ -48,6 +54,12 @@ _ENTRIES = {
         "flash_attention_backward",
         [_P] * 9 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
     ),
+    "refiners_group_norm_stats": ("group_norm", [_P, _P, _I, _LL, _LL, _I, _I, _P]),
+    "refiners_group_norm_apply": (
+        "group_norm",
+        [_P] * 5 + [_I, _I, _LL, _I, _LL, _LL, _I, _I, _I, _F, _I, _P],
+    ),
+    "refiners_quantize_int8": ("quant", [_P] * 3 + [_I] * 3 + [_ULL, _P]),
 }
 
 
@@ -129,3 +141,8 @@ def load_library() -> SimpleNamespace:
 def c_longlongs(values: list[int]) -> ctypes.Array:
     """A C array of long long, for the entry points' stride arguments."""
     return (_LL * len(values))(*values)
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of x's device, for the entry points."""
+    return torch.cuda.current_stream(x.device).cuda_stream

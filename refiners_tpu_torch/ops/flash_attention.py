@@ -45,9 +45,8 @@ import math
 import torch
 
 from refiners_tpu_torch.ops.attention import _attention, merge_heads, split_heads
+from refiners_tpu_torch.ops.build import DTYPE_CODES, c_longlongs, load_library, stream
 
-# the kernels' dtypes: bfloat16 and float16 on tensor cores, float32 on FFMA
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # score of a masked (query, key) pair, as in the JAX kernels; not -inf, so a
 # row with no admissible key gets uniform weights
 MASKED_SCORE = -1e30
@@ -159,7 +158,7 @@ def flash_attention_packed_plain(
 def _check_device_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"q, k, v must be on one CUDA device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"the kernels take bfloat16, float16 or float32 q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
         )
@@ -193,10 +192,6 @@ def _check_layout(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned with strides in multiples of 8, strides {x.stride()}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _head_strides(x: torch.Tensor, head_dim: int | None) -> tuple[int, int, int]:
     """(batch, head, row) strides of a (B, H, L, D) view, or, with `head_dim`,
     of a packed (B, L, H·D) tensor whose heads lie `head_dim` apart."""
@@ -221,8 +216,6 @@ def _launch_forward(
     place: no views are made, which keeps the host's share of a short
     launch small). `bias` is float32 broadcast to (B, H, Lq, Lk), `lse` a
     (B, H, Lq) float32 buffer."""
-    from refiners_tpu_torch.ops.build import c_longlongs, load_library
-
     if head_dim is None:
         b, h, lq, d = q.shape
         lk = k.shape[2]
@@ -235,8 +228,8 @@ def _launch_forward(
         err = load_library().refiners_flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bias.data_ptr() if bias is not None else None, lse.data_ptr() if lse is not None else None,
-            _DTYPE_CODES[q.dtype], b, h, d, lq, lk, c_longlongs(strides),
-            scale, int(is_causal), _stream(q),
+            DTYPE_CODES[q.dtype], b, h, d, lq, lk, c_longlongs(strides),
+            scale, int(is_causal), stream(q),
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError {err}")
@@ -256,8 +249,6 @@ def _launch_backward(
     is_causal: bool,
     scale: float,
 ) -> None:
-    from refiners_tpu_torch.ops.build import c_longlongs, load_library
-
     b, h, lq, d = q.shape
     grads = [x if x is not None else q for x in (dq, dk, dv)]  # strides of an unused output are not read
     strides = [s for x in (q, k, v, do, *grads) for s in x.stride()[:3]]
@@ -268,8 +259,8 @@ def _launch_backward(
     with torch.cuda.device(q.device):
         err = getattr(load_library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ptr(dq), ptr(dk), ptr(dv), _DTYPE_CODES[q.dtype], b, h, d, lq, k.shape[2], c_longlongs(strides),
-            scale, int(is_causal), _stream(q),
+            ptr(dq), ptr(dk), ptr(dv), DTYPE_CODES[q.dtype], b, h, d, lq, k.shape[2], c_longlongs(strides),
+            scale, int(is_causal), stream(q),
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel ({entry}) launch failed: cudaError {err}")
@@ -587,8 +578,6 @@ def flash_attention_relpos(
         raise NotImplementedError("the relative-position flash kernel is inference only: it has no backward")
     _check_operands(q, k, v)
     _check_relpos(q, k, v_rel, h_rel)
-    from refiners_tpu_torch.ops.build import c_longlongs, load_library
-
     b, h, lq, d = q.shape
     lk, kh, kw = k.shape[2], v_rel.shape[-1], h_rel.shape[-1]
     out = torch.empty((b, lq, h, d), device=q.device, dtype=q.dtype).transpose(1, 2)
@@ -596,7 +585,7 @@ def flash_attention_relpos(
     with torch.cuda.device(q.device):
         err = load_library().refiners_flash_attention_relpos_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), v_rel.data_ptr(), h_rel.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, d, lq, lk, kh, kw, c_longlongs(strides), _default_scale(q, scale), _stream(q),
+            DTYPE_CODES[q.dtype], b, h, d, lq, lk, kh, kw, c_longlongs(strides), _default_scale(q, scale), stream(q),
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"flash attention relpos kernel launch failed: cudaError {err}")

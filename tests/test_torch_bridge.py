@@ -93,6 +93,7 @@ sd = StableDiffusion_XL(
     unet=SDXLUNet(in_channels=4, base_channels=32),
     clip_text_encoder=DoubleTextEncoder(text_encoder_l=text_l, text_encoder_g=text_g),
     solver=DDIM(num_inference_steps=1),
+    device="cpu",
 )
 image = TextToImage(sd, size=(64, 64))("a cat", seed=0)
 print(json.dumps({

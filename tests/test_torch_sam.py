@@ -84,12 +84,13 @@ def _pair(build_jax: Callable[[], Any], build_port: Callable[[], torch.nn.Module
     return jax_module, port_module
 
 
-def _small_sam(package: Any) -> Any:
+def _small_sam(package: Any, **kwargs: Any) -> Any:
     return package.SegmentAnything(
         image_encoder=package.SAMViT(embedding_dim=64, num_layers=2, num_heads=4, global_attention_indices=(1,)),
         point_encoder=package.PointEncoder(),
         mask_encoder=package.MaskEncoder(),
         mask_decoder=package.MaskDecoder(multimask_output=False),
+        **kwargs,
     )
 
 
@@ -290,7 +291,7 @@ def test_batched_prompt_decode_matches_jax() -> None:
 
 @pytest.fixture(scope="module")
 def models() -> tuple[Any, Any]:
-    jax_model, model = _pair(lambda: _small_sam(jsam), lambda: _small_sam(sam), seed=11)
+    jax_model, model = _pair(lambda: _small_sam(jsam), lambda: _small_sam(sam, device="cpu"), seed=11)
     return jax_model, model
 
 
@@ -392,7 +393,7 @@ def test_hq_sam_matches_jax() -> None:
     jax_model = _small_sam(jsam)
     _randomize_relpos(jax_model, 17)
     jax_hq = jsam.HQSAMAdapter(jax_model).inject()
-    model = _small_sam(sam)
+    model = _small_sam(sam, device="cpu")
     hq = sam.HQSAMAdapter(model).inject()
     _bridge(jax_hq, hq)
     assert set(hq.state_dict()) == set(jax_hq.state_dict())
@@ -451,7 +452,7 @@ from refiners_tpu_torch.ops import build
 
 model = SegmentAnything(
     SAMViT(embedding_dim=32, num_layers=2, num_heads=2, global_attention_indices=(1,)),
-    PointEncoder(), MaskEncoder(), MaskDecoder(multimask_output=False),
+    PointEncoder(), MaskEncoder(), MaskDecoder(multimask_output=False), device="cpu",
 )
 HQSAMAdapter(model).inject()
 image = Image.fromarray(np.zeros((100, 150, 3), dtype=np.uint8))

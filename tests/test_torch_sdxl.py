@@ -73,6 +73,7 @@ def models() -> tuple[Any, StableDiffusion_XL]:
         lda=SDXLAutoencoder(),
         clip_text_encoder=_text_encoder(CLIPTextEncoder, CLIPTokenizer, DoubleTextEncoder),
         solver=DDIM(num_inference_steps=STEPS),
+        device="cpu",
     )
     for name in ("unet", "lda", "clip_text_encoder"):
         state = getattr(jax_sd, name).state_dict()
