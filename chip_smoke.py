@@ -15,9 +15,10 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    are medians over CUDA events. Float32 cases are held to 1e-5 against
    the float32 plain version.
    - the packed forward (``flash_attention_packed``) at the SDXL path's
-     shapes plus a ragged and a causal case: relative Frobenius error
-     ≤ 1e-2 against the plain version in float32; uniform weights on causal
-     rows that have no admissible key;
+     shapes (the UNet's d = 64 on mma.sync, the VAE's d = 512 on wgmma)
+     plus ragged, causal, d = 256, d = 200 and float16 cases: relative
+     Frobenius error ≤ 1e-2 against the plain version in float32; uniform
+     weights on causal rows that have no admissible key;
    - the forward with bias and logsumexp (``flash_attention``) at the
      SD1.5 shapes, a ragged, a causal and a biased case: out ≤ 1e-2, lse max
      abs ≤ 1e-3; a boolean mask with a fully masked row gives uniform
@@ -53,6 +54,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    1024², 30 DDIM steps, CFG 5.0. Each image must be finite and not
    constant, and each request must launch the packed kernel exactly
    70 × 30 + 1 times (70 UNet self-attention sites per step, one VAE site).
+   Each request's VAE decode is also timed alone (host clock between
+   synchronizes around the decoder).
 4. SD1.5 training: full-width ``SD1UNet`` with seeded synthetic weights,
    batch 2 of 64×64 latents.
    (a) one forward + backward of the DDPM noise-regression loss four ways:
@@ -140,7 +143,12 @@ ATTENTION_SHAPES = [
     (2, 1000, 1100, 5, 64, False, BF16),  # ragged
     (2, 1024, 1024, 10, 64, True, BF16),  # causal
     (1, 4096, 4096, 1, 512, False, F32),  # a float32 VAE mid-block at 64×64 latents
+    (2, 1024, 1024, 4, 256, False, BF16),  # the wgmma kernel's D = 256 template
+    (1, 1000, 1100, 3, 200, False, BF16),  # d = 200, padded to 256; ragged
+    (1, 2900, 3000, 1, 512, True, BF16),  # ragged and causal at d = 512
+    (1, 4096, 4096, 1, 512, False, torch.float16),  # a float16 VAE mid-block at 64×64 latents
 ]
+VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias, dtype)
     (2, 4096, 4096, 8, 40, False, False, BF16),  # SD1.5 UNet self-attention at 64×64 latents
@@ -523,15 +531,17 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     def randn(*shape: int) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev).to(BF16)
 
-    # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 self-attention
-    b, seq, h, d = 2, 4096, 10, 64
-    q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
-    heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
-    rows["K1"] = {
-        **_bound(4 * b * h * seq * seq * d, 4 * b * seq * h * d * 2, BF16),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), reps=10),
-        "library_call": "F.scaled_dot_product_attention on head views",
-    }
+    # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 self-attention, and at
+    # the VAE decoder's mid-block (one head of d = 512 over 128×128 latents)
+    for label, (b, seq, h, d) in (("K1", (2, 4096, 10, 64)), ("K1 VAE", (1, 16384, 1, 512))):
+        q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
+        heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
+        rows[label] = {
+            **_bound(4 * b * h * seq * seq * d, 4 * b * seq * h * d * 2, BF16),
+            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), reps=10),
+            "library_call": f"F.scaled_dot_product_attention on the {(b, h, seq, d)} head views",
+        }
+        del q, k, v
     # K2 and K4: (B, H, L, D) at the SD1.5 UNet's 64×64 self-attention
     b, h, seq, d = 2, 8, 4096, 40
     q, k, v = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
@@ -722,7 +732,7 @@ def check_device_default() -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int, np.ndarray]:
+def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, np.ndarray]:
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
@@ -769,8 +779,21 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int, np.nd
     if not (torch.isfinite(kernel_noise).all() and err_kernel <= 2 * err_plain):
         raise AssertionError(f"the kernel route is further from float32 than the plain route: {err_kernel} > 2 × {err_plain}")
 
+    # the VAE decode alone: host clock between synchronizes around the decoder
     decoded: list[torch.Tensor] = []
-    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
+    decode_seconds: list[float] = []
+    decode_start: list[float] = []
+
+    def before_decode(_module: Any, _inputs: Any) -> None:
+        torch.cuda.synchronize()
+        decode_start.append(time.perf_counter())
+
+    def after_decode(_module: Any, _inputs: Any, out: torch.Tensor) -> None:
+        torch.cuda.synchronize()
+        decode_seconds.append(time.perf_counter() - decode_start[-1])
+        decoded.append(out)
+
+    hooks = [sd.lda[1].register_forward_pre_hook(before_decode), sd.lda[1].register_forward_hook(after_decode)]
     seconds = []
     images = []
     reset_launches()
@@ -788,7 +811,8 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int, np.nd
         images.append(arr)
         peak = torch.cuda.max_memory_allocated(dev)
         print(
-            f"sdxl request {seed}: {seconds[-1]:.3f} s, kernel launches {launched}, image {image.size}, "
+            f"sdxl request {seed}: {seconds[-1]:.3f} s (VAE decode {decode_seconds[-1]:.4f} s), kernel launches "
+            f"{launched}, image {image.size}, "
             f"decoded mean {float(out.float().mean()):.4f} std {float(out.float().std()):.4f}, "
             f"peak memory {peak / 2**30:.2f} GiB"
         )
@@ -799,10 +823,11 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], int, np.nd
         if float(out.float().std()) == 0.0 or arr.min() == arr.max():
             raise AssertionError(f"request {seed}: the image is constant")
     launches = read_launches()
-    hook.remove()
+    for hook in hooks:
+        hook.remove()
     del sd, pipe, sdpa, decoded, emb, pooled, x, reference, plain_noise, kernel_noise
     _free()
-    return launches, seconds, peak, images[0]
+    return launches, seconds, decode_seconds, peak, images[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1259,12 +1284,14 @@ def main() -> int:
     quantize = check_quantize(dev)
     for first, label in ((packed, "K1"), (forward, "K2"), (relpos, "K3 global"), (dkv, "K4a"), (dq, "K4b")):
         _print_row(label, first[0]["ms"], rows[label])
+    vae = next(r for r in packed if r["shape"] == VAE_SHAPE and r["dtype"] == str(BF16))
+    _print_row("K1 VAE", vae["ms"], rows["K1 VAE"])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
     _print_row("K3 windowed", windowed["ms"], rows["K3 windowed"])
     for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6")):
         _print_row(label, results[0]["ms"], results[0])
     _free()
-    sdxl_launches, seconds, sdxl_peak, bf16_image = run_sdxl(dev)
+    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
     sam_report, sam_launches = run_sam(dev)
@@ -1279,10 +1306,16 @@ def main() -> int:
             "library_ms": row["library_ms"],
         }  # fmt: skip
 
+    # K1's two sites on the SDXL path: the UNet's d = 64 (mma.sync) and the VAE's d = 512 (wgmma)
+    sites = [
+        {"site": site, "shape": result["shape"], "ms": result["ms"], "plain_ms": result["plain_ms"],
+         "bound_ms": rows[label]["bound_ms"], "bound_by": rows[label]["bound_by"], "library_ms": rows[label]["library_ms"]}
+        for site, label, result in (("SDXL UNet, d = 64", "K1", packed[0]), ("SDXL VAE, d = 512", "K1 VAE", vae))
+    ]  # fmt: skip
     summary = {
         "kernels": [
-            kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
-                   sdxl_launches["flash_attention_packed"], packed, rows["K1"]),
+            {**kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
+                      sdxl_launches["flash_attention_packed"], packed, rows["K1"]), "sites": sites},
             kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
                    train_launches["flash_attention"], forward, rows["K2"]),
             kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
@@ -1298,6 +1331,7 @@ def main() -> int:
             kernel("quantize_int8", "quant.cu", "quant.py:23", passes_launches["quantize_int8"], quantize, quantize[0]),
         ],  # fmt: skip
         "sdxl_seconds_per_request": seconds,
+        "sdxl_vae_decode_seconds": decode_seconds,
         "sdxl_peak_memory_bytes": sdxl_peak,
         "sd15_training_step": step_check,
         "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],

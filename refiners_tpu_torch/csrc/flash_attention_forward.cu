@@ -37,50 +37,54 @@
 // m + log(l) per row, float32, laid out (batch*heads, q_len): the residual
 // the backward kernels recompute P from.
 //
-// What bounds it on the H100: at seq >= 1024 with d <= 128 the kernel is
-// bound by tensor-core throughput (4*L^2*d flops against 4*L*d bytes per
-// head); at the VAE's d = 512 site by registers and shared memory per block,
-// since a query tile's float32 accumulator (rows x 512) must live beside a
-// K/V tile. A dense bias adds a float32 read per score, which makes a biased
-// call bound by that read. The relative-position bias adds two cached reads,
-// an integer division and a remainder per score: instruction issue, not
-// memory.
+// What bounds it on the H100: at seq >= 1024 the work is 4*L^2*d flops
+// against 4*L*d bytes per head, so tensor-core throughput (989 TFLOP/s in
+// bf16); a dense bias adds a float32 read per score, which makes a biased
+// call bound by that read, and the relative-position bias adds two cached
+// reads, an integer division and a remainder per score: instruction throughput.
 //
 // Three kernels, picked by type and head_dim; each is one block per
-// (query tile, batch*head) with a loop over K/V tiles of 64 keys. For
-// bfloat16 and float16, 4 warps:
+// (query tile of 64 rows, batch*head) with a loop over K/V tiles of 64 keys:
 //
-// - head_dim <= 128 (the UNet's d = 40, 64 and 80 sites): FlashAttention-2's
-//   layout on mma.sync m16n8k16 tensor-core instructions, compiled for
-//   padded head dims 48, 64, 80 and 128. Each warp owns 16 query rows; its
-//   Q fragments, S tile, softmax statistics and O accumulator stay in
-//   registers, and P goes from the S accumulators straight into the A
-//   operand of the PV product. K and V tiles are double-buffered in shared
-//   memory with cp.async, read with ldmatrix (transposed for V).
-// - head_dim up to 512 (the VAE's site): WMMA 16x16x16 fragments, with S and
-//   the O accumulator in shared memory (a 32 x 512 float32 accumulator does
-//   not fit in registers), the online softmax with one warp per row. Tile
-//   sizes are chosen per head_dim to fit (32x64 at D = 512, about 180 KB of
-//   dynamic shared memory).
-//
-// For float32 (head_dim up to 512), 8 warps on plain FFMA, so the result
-// keeps float32 accuracy as the float32 plain version has it: Q, one K or V
-// tile and P in shared memory, the scores and the O accumulator in
-// registers, compiled for padded head dims 48, 64, 80, 128, 256 and 512.
-//
-// wgmma, TMA and warp specialization are later work.
+// - bfloat16 and float16, head_dim <= 128 (the UNet's d = 40, 64 and 80
+//   sites): FlashAttention-2's layout on mma.sync m16n8k16, 4 warps,
+//   compiled for padded head dims 48, 64, 80 and 128. Each warp owns 16
+//   query rows; its Q fragments, S tile, softmax statistics and O
+//   accumulator stay in registers, and P goes from the S accumulators
+//   straight into the A operand of the PV product. K and V tiles are
+//   double-buffered in shared memory with cp.async, read with ldmatrix
+//   (transposed for V).
+// - bfloat16 and float16, 128 < head_dim <= 512 (the SDXL VAE's mid-block
+//   site, one head of d = 512 over L = 16384): `flash_fwd_wgmma_kernel`,
+//   Hopper's warpgroup products, compiled for padded head dims 256 and 512
+//   (zero columns past d). It replaces `_flash_kernel_packed` and
+//   `_flash_kernel` of refiners_tpu/ops/flash_attention.py (:707, :105) at
+//   these widths. A 64-row O accumulator of 512 float32 columns is 256
+//   registers a thread for one warpgroup, more than it has, so the block is
+//   two warpgroups split along d: each owns O[:, half] in registers
+//   (m64n256, 128 a thread), loads its half of Q, K and V with TMA onto its
+//   own mbarriers (the next K half in flight during softmax and P V, the
+//   next V half during the next Q K^T), computes S over its half of d with
+//   wgmma from shared memory, and adds the other warpgroup's partial S
+//   through shared memory (the only exchange: both then run the same online
+//   softmax in registers). No accumulator is staged through shared memory
+//   across tiles. Beyond flops, what bounds it is re-reading K and V: every
+//   64-row block reads all of them (32 MiB at the VAE's site, L2-resident),
+//   about 8 GiB of L2 traffic per call; sharing K/V tiles across a cluster
+//   with TMA multicast is the next step.
+// - float32 (head_dim up to 512): 8 warps on plain FFMA, so the result
+//   keeps float32 accuracy as the float32 plain version has it: Q, one K or
+//   V tile and P in shared memory, the scores and the O accumulator in
+//   registers, compiled for padded head dims 48, 64, 80, 128, 256 and 512.
 
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace flash;
 
-constexpr int kMaxBlockK = 64;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on Hopper
 // widest key grid side of the relative-position bias (kh and kw each)
 constexpr int kMaxRelPosSide = 256;
@@ -105,7 +109,6 @@ struct Params {
   long long vrel_bs, vrel_hs, vrel_rs, hrel_bs, hrel_hs, hrel_rs;
   float scale;
   int causal;
-  int block_q, block_k;
 };
 
 __host__ __device__ inline int bias_mode(const Params& p) {
@@ -149,199 +152,243 @@ __device__ __forceinline__ float masked_score(const Params& p, const HeadBias<T>
 }
 
 // ---------------------------------------------------------------------------
-// head_dim up to 512: WMMA with shared-memory accumulators
+// 128 < head_dim <= 512: wgmma with register accumulators, TMA loads
 // ---------------------------------------------------------------------------
 
-// Byte offsets of the shared-memory sections; each starts 128-byte aligned,
-// which satisfies WMMA's 32-byte pointer alignment. Row pitches are padded
-// (+8 halves, +4 floats) against bank conflicts and stay valid WMMA strides.
-struct Layout {
-  size_t q, kv, s, p, o, m, l, alpha, total;
+constexpr int kWarpgroup = 128;
+constexpr int kWideThreads = 2 * kWarpgroup;
+// named barriers (0 is __syncthreads): both warpgroups' S partials are
+// written; warpgroup g's partial has been read (2 + g); warpgroup g is done
+// with its V half (4 + g)
+constexpr int kBarExchange = 1;
+constexpr int kBarPartialRead = 2;
+constexpr int kBarVRead = 4;
+
+// Shared memory of the wide kernel at padded head dim D, in bytes from a
+// 1024-byte-aligned base: Q, K and V tiles of 64 rows x D (D / 64 TMA boxes
+// each; warpgroup g reads boxes [g D / 128, (g + 1) D / 128)), the two
+// warpgroups' float32 S partials, six mbarriers (Q, K, V of each
+// warpgroup's half).
+template <int D>
+struct WideSmem {
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int q = 0;
+  static constexpr int k = kTileBytes;
+  static constexpr int v = 2 * kTileBytes;
+  static constexpr int partials = 3 * kTileBytes;
+  static constexpr int bars = partials + 2 * kTile * kTile * 4;
+  static constexpr int bytes = bars + 6 * 8 + hopper::kSwizzleAtomBytes;  // + room to align the base
+  static_assert(bytes <= int(kMaxSharedBytes), "wide forward tiles exceed shared memory");
 };
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline Layout make_layout(int bq, int bk, int dp) {
-  Layout L;
-  size_t off = 0;
-  L.q = off;
-  off = align128(off + size_t(bq) * (dp + 8) * 2);
-  L.kv = off;
-  off = align128(off + size_t(bk) * (dp + 8) * 2);
-  L.s = off;
-  off = align128(off + size_t(bq) * (bk + 4) * 4);
-  L.p = off;
-  off = align128(off + size_t(bq) * (bk + 8) * 2);
-  L.o = off;
-  off = align128(off + size_t(bq) * (dp + 4) * 4);
-  L.m = off;
-  off = align128(off + size_t(bq) * 4);
-  L.l = off;
-  off = align128(off + size_t(bq) * 4);
-  L.alpha = off;
-  off = align128(off + size_t(bq) * 4);
-  L.total = off;
-  return L;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copy rows [row0, row0 + rows) of one head into shared memory, 16 bytes per
-// thread and step; rows past `len` and columns past `d` are zero.
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const T* src, long long row_stride, int row0, int rows, int len, int d,
-                          int dp) {
-  const int chunks = dp / 8;
-  for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
-    const int r = c / chunks;
-    const int col = (c % chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len && col < d) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
+// Warpgroup g's half of one 64-row tile: D / 128 boxes from column g D / 2,
+// onto `bar` (one arrival plus the boxes' bytes).
+template <int D>
+__device__ __forceinline__ void load_half(const CUtensorMap* map, uint32_t bar, uint32_t dst, int g, int row, int h,
+                                          int b) {
+  constexpr int kBoxes = D / 2 / hopper::kBox;
+  hopper::mbar_expect_tx(bar, kBoxes * hopper::kBoxBytes);
+  #pragma unroll
+  for (int i = 0; i < kBoxes; ++i) {
+    hopper::tma_load_4d(dst + i * hopper::kBoxBytes, map, bar, (g * kBoxes + i) * hopper::kBox, row, h, b);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bq = p.block_q, bk = p.block_k, dp = p.dim_pad, d = p.head_dim;
-  const int ldq = dp + 8, lds = bk + 4, ldp = bk + 8, ldo = dp + 4;
-  const Layout L = make_layout(bq, bk, dp);
-  T* sQ = reinterpret_cast<T*>(smem + L.q);
-  T* sKV = reinterpret_cast<T*>(smem + L.kv);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  T* sP = reinterpret_cast<T*>(smem + L.p);
-  float* sO = reinterpret_cast<float*>(smem + L.o);
-  float* sM = reinterpret_cast<float*>(smem + L.m);
-  float* sL = reinterpret_cast<float*>(smem + L.l);
-  float* sAlpha = reinterpret_cast<float*>(smem + L.alpha);
+// One block of two warpgroups per (64 query rows, batch*head), a loop over
+// key tiles of 64. Warpgroup g owns columns [g D / 2, (g + 1) D / 2) of d:
+// it loads that half of the Q, K and V tiles itself (one thread starts the
+// TMA copies onto the warpgroup's mbarriers), computes the partial
+// S = Q K^T over its half with wgmma from shared memory, and keeps O[:, half]
+// in registers (m64n256: 128 floats a thread at D = 512). The two S
+// partials meet in shared memory; each warpgroup adds the other's, so both
+// hold the whole S in the same accumulator layout and run the same online
+// softmax (identical m and l, no second exchange). P goes from the S
+// accumulators into the A registers of O += P V[:, half] (V MN-major,
+// through the transpose bit: no transposed copy). The next K half is in
+// flight during softmax and P V, the next V half during the next Q K^T.
+template <typename T, int D, int kBias>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = WideSmem<D>;
+  constexpr int DH = D / 2;                                     // columns of d per warpgroup
+  constexpr int kHalfBytes = DH / hopper::kBox * hopper::kBoxBytes;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uintptr_t kAlign = hopper::kSwizzleAtomBytes;
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~(kAlign - 1));
+  float* partials = reinterpret_cast<float*>(smem + L::partials);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
 
+  const int g = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row_a = blockIdx.x * kTile + warp * 16 + lane / 4;  // this thread's accumulator rows
+  const int row_b = row_a + 8;
+  const int t = lane % 4;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * bq;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
-  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
   const HeadBias<T> hb = head_bias<T>(p, b, h);
-  const int mode = bias_mode(p);
+  const int causal_shift = p.kv_len - p.q_len;
+  const int n_tiles = (p.kv_len + kTile - 1) / kTile;
+  const bool leader = tid == 0;  // starts this warpgroup's copies
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  load_tile(sQ, ldq, qh, p.q_rs, q0, bq, p.q_len, d, dp);
-  for (int i = threadIdx.x; i < bq * ldo; i += kThreads) sO[i] = 0.f;
-  for (int r = threadIdx.x; r < bq; r += kThreads) {
-    sM[r] = kMaskedScore;
-    sL[r] = 0.f;
+  const uint32_t sq = hopper::smem_u32(smem + L::q) + g * kHalfBytes;
+  const uint32_t sk = hopper::smem_u32(smem + L::k) + g * kHalfBytes;
+  const uint32_t sv = hopper::smem_u32(smem + L::v) + g * kHalfBytes;
+  const uint32_t qbar = hopper::smem_u32(bars + g);
+  const uint32_t kbar = hopper::smem_u32(bars + 2 + g);
+  const uint32_t vbar = hopper::smem_u32(bars + 4 + g);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 6; ++i) hopper::mbar_init(hopper::smem_u32(bars + i), 1);
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-
-  const int causal_shift = p.kv_len - p.q_len;
-  const int s_cols = bk / 16;
-  const int o_cols = dp / 16;
-  for (int k0 = 0; k0 < p.kv_len; k0 += bk) {
-    load_tile(sKV, ldq, kh, p.k_rs, k0, bk, p.kv_len, d, dp);
-    __syncthreads();
-
-    // S = Q K^T (unscaled), float32 accumulation
-    for (int t = warp; t < (bq / 16) * s_cols; t += kWarps) {
-      const int ti = t / s_cols, tj = t % s_cols;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < dp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + ti * 16 * ldq + kk, ldq);
-        wmma::load_matrix_sync(bt, sKV + tj * 16 * ldq + kk, ldq);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(sS + ti * 16 * lds + tj * 16, acc, lds, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int r = warp; r < bq; r += kWarps) {
-      const int row = q0 + r;
-      const float m_prev = sM[r];
-      float s[kMaxBlockK / 32];
-      float m_cur = -INFINITY;
-      for (int i = 0; i < bk / 32; ++i) {
-        const float raw = sS[r * lds + lane + 32 * i];
-        const int col = k0 + lane + 32 * i;
-        const float x = mode == kRelPosBias ? masked_score<kRelPosBias>(p, hb, raw, row, col, causal_shift)
-                        : mode == kDenseBias ? masked_score<kDenseBias>(p, hb, raw, row, col, causal_shift)
-                                             : masked_score<kNoBias>(p, hb, raw, row, col, causal_shift);
-        s[i] = x;
-        m_cur = fmaxf(m_cur, x);
-      }
-      const float m_new = fmaxf(m_prev, warp_max(m_cur));
-      float sum = 0.f;
-      for (int i = 0; i < bk / 32; ++i) {
-        const float e = expf(s[i] - m_new);
-        sP[r * ldp + lane + 32 * i] = from_float<T>(e);
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sAlpha[r] = alpha;
-        sL[r] = alpha * sL[r] + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    load_tile(sKV, ldq, vh, p.v_rs, k0, bk, p.kv_len, d, dp);
-    for (int i = threadIdx.x; i < bq * dp; i += kThreads) {
-      const int r = i / dp;
-      sO[r * ldo + i % dp] *= sAlpha[r];
-    }
-    __syncthreads();
-
-    // O += P V
-    for (int t = warp; t < (bq / 16) * o_cols; t += kWarps) {
-      const int ti = t / o_cols, tj = t % o_cols;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + ti * 16 * ldo + tj * 16, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < bk; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vb;
-        wmma::load_matrix_sync(a, sP + ti * 16 * ldp + kk, ldp);
-        wmma::load_matrix_sync(vb, sKV + kk * ldq + tj * 16, ldq);
-        wmma::mma_sync(acc, a, vb, acc);
-      }
-      wmma::store_matrix_sync(sO + ti * 16 * ldo + tj * 16, acc, ldo, wmma::mem_row_major);
-    }
-    __syncthreads();
+  if (leader) {
+    load_half<D>(&tq, qbar, sq, g, blockIdx.x * kTile, h, b);
+    load_half<D>(&tk, kbar, sk, g, 0, h, b);
+    load_half<D>(&tv, vbar, sv, g, 0, h, b);
   }
 
-  // O / l, cast, 16-byte stores
-  const int chunks = d / 8;
-  for (int c = threadIdx.x; c < bq * chunks; c += kThreads) {
-    const int r = c / chunks;
-    const int col = (c % chunks) * 8;
-    if (q0 + r >= p.q_len) continue;
-    const float l = sL[r];
-    alignas(16) T out[8];
-    for (int j = 0; j < 8; ++j) out[j] = from_float<T>(sO[r * ldo + col + j] / l);
-    *reinterpret_cast<uint4*>(oh + (long long)(q0 + r) * p.o_rs + col) = *reinterpret_cast<const uint4*>(out);
-  }
-  if (p.lse != nullptr) {
-    for (int r = threadIdx.x; r < bq; r += kThreads) {
-      if (q0 + r < p.q_len) p.lse[(long long)blockIdx.y * p.q_len + q0 + r] = sM[r] + logf(sL[r]);
+  float o[DH / 2];
+  #pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMaskedScore, kMaskedScore};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float4* mine = reinterpret_cast<float4*>(partials + g * kTile * kTile) + tid;
+  const float4* theirs = reinterpret_cast<const float4*>(partials + (1 - g) * kTile * kTile) + tid;
+  hopper::mbar_wait(qbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t parity = j & 1;
+    const bool more = j + 1 < n_tiles;
+
+    // partial S = Q[:, half] K[:, half]^T
+    float s[32];
+    hopper::mbar_wait(kbar, parity);
+    hopper::wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk / 4) * hopper::kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<T>(s, hopper::kmajor_desc(sq + off), hopper::kmajor_desc(sk + off), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // exchange the partials: thread i of one warpgroup holds the same
+    // (row, column) entries as thread i of the other
+    if (j > 0) hopper::bar_sync(kBarPartialRead + g, kWideThreads);  // the other has read our last one
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) mine[i * kWarpgroup] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+    hopper::bar_sync(kBarExchange, kWideThreads);
+    if (leader && more) load_half<D>(&tk, kbar, sk, g, (j + 1) * kTile, h, b);  // our K half is free
+    __syncwarp();
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = theirs[i * kWarpgroup];
+      s[4 * i] += x.x;
+      s[4 * i + 1] += x.y;
+      s[4 * i + 2] += x.z;
+      s[4 * i + 3] += x.w;
+    }
+    if (more) hopper::bar_arrive(kBarPartialRead + (1 - g), kWideThreads);
+
+    // online softmax; a row's 64 scores are spread over the 4 lanes of a quad
+    float mx[2] = {-INFINITY, -INFINITY};
+    #pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * kTile + n * 8 + 2 * t + (e & 1);
+        const float x = masked_score<kBias>(p, hb, s[4 * n + e], e < 2 ? row_a : row_b, col, causal_shift);
+        s[4 * n + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+    #pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float pe = expf(s[i] - m[(i >> 1) & 1]);
+      s[i] = pe;
+      l[(i >> 1) & 1] += pe;
+    }
+    uint32_t pa[4][4];  // P as the A operand of each 16-key step
+    #pragma unroll
+    for (int kc = 0; kc < 4; ++kc) acc_to_a<T>(pa[kc], s + 8 * kc, s + 8 * kc + 4);
+    #pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O[:, half] += P V[:, half]
+    hopper::mbar_wait(vbar, parity);
+    hopper::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < 4; ++kc) hopper::wgmma_rs<T, DH>(o, pa[kc], hopper::mnmajor_desc(sv + kc * 16 * 128));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (more) {
+      hopper::bar_sync(kBarVRead + g, kWarpgroup);  // every warp of ours is done with V
+      if (leader) load_half<D>(&tv, vbar, sv, g, (j + 1) * kTile, h, b);
     }
   }
+
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
+  #pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const int col = g * DH + n * 8 + 2 * t;
+    if (col >= p.head_dim) continue;
+    if (row_a < p.q_len) {
+      *reinterpret_cast<uint32_t*>(oh + (long long)row_a * p.o_rs + col) =
+          pack2<T>(o[4 * n] / l[0], o[4 * n + 1] / l[0]);
+    }
+    if (row_b < p.q_len) {
+      *reinterpret_cast<uint32_t*>(oh + (long long)row_b * p.o_rs + col) =
+          pack2<T>(o[4 * n + 2] / l[1], o[4 * n + 3] / l[1]);
+    }
+  }
+  if (p.lse != nullptr && g == 0 && t == 0) {
+    float* lse = p.lse + (long long)blockIdx.y * p.q_len;
+    if (row_a < p.q_len) lse[row_a] = m[0] + logf(l[0]);
+    if (row_b < p.q_len) lse[row_b] = m[1] + logf(l[1]);
+  }
+}
+
+// The three tensor maps (q, k, v: columns, rows, heads, batch) and the launch.
+template <typename T, int D>
+int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_box_map(&tq, bf16, p.q, p.head_dim, p.q_len, p.heads, batch, p.q_rs, p.q_hs, p.q_bs) ||
+      !hopper::encode_box_map(&tk, bf16, p.k, p.head_dim, p.kv_len, p.heads, batch, p.k_rs, p.k_hs, p.k_bs) ||
+      !hopper::encode_box_map(&tv, bf16, p.v, p.head_dim, p.kv_len, p.heads, batch, p.v_rs, p.v_hs, p.v_bs)) {
+    return int(cudaErrorInvalidValue);
+  }
+  constexpr int bytes = WideSmem<D>::bytes;
+  const int mode = bias_mode(p);
+  auto kernel = mode == kRelPosBias ? flash_fwd_wgmma_kernel<T, D, kRelPosBias>
+                : mode == kDenseBias ? flash_fwd_wgmma_kernel<T, D, kDenseBias>
+                                     : flash_fwd_wgmma_kernel<T, D, kNoBias>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((p.q_len + kTile - 1) / kTile, batch * p.heads);
+  kernel<<<grid, kWideThreads, bytes, stream>>>(tq, tk, tv, p);
+  return int(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -652,22 +699,8 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
 // launch
 // ---------------------------------------------------------------------------
 
-bool choose_tiles(int dp, int* bq, int* bk, size_t* bytes) {
-  static const int candidates[][2] = {{64, 64}, {64, 32}, {32, 64}, {32, 32}, {16, 32}};
-  for (const auto& c : candidates) {
-    const size_t total = make_layout(c[0], c[1], dp).total;
-    if (total <= kMaxSharedBytes) {
-      *bq = c[0];
-      *bk = c[1];
-      *bytes = total;
-      return true;
-    }
-  }
-  return false;
-}
-
 template <typename T>
-int launch(Params p, int batch, cudaStream_t stream) {
+int launch(const Params& p, int batch, cudaStream_t stream) {
   switch (mma_template(p.dim_pad)) {
     case 48:
       return launch_mma<T, 48>(p, batch, stream);
@@ -680,16 +713,7 @@ int launch(Params p, int batch, cudaStream_t stream) {
     default:
       break;
   }
-  size_t bytes = 0;
-  if (!choose_tiles(p.dim_pad, &p.block_q, &p.block_k, &bytes)) return int(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wmma_kernel<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-    if (err != cudaSuccess) return int(err);
-  }
-  const dim3 grid((p.q_len + p.block_q - 1) / p.block_q, batch * p.heads);
-  flash_fwd_wmma_kernel<T><<<grid, kThreads, bytes, stream>>>(p);
-  return int(cudaGetLastError());
+  return p.dim_pad <= 256 ? launch_wgmma<T, 256>(p, batch, stream) : launch_wgmma<T, 512>(p, batch, stream);
 }
 
 // The fields every entry sets: operands, sizes, the (batch, head, row)

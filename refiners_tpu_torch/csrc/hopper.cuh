@@ -1,0 +1,280 @@
+// Hopper (sm_90a) building blocks for the port's kernels, in raw PTX: TMA
+// tensor maps and tile loads completed on mbarriers, named barriers, and
+// warpgroup matrix products (wgmma) with their shared-memory descriptors.
+//
+// Layout conventions (bfloat16 and float16 operands):
+// - A tile of 64 rows x 64 columns loaded by TMA with the 128-byte swizzle is
+//   one "box": 64 rows of 128 bytes, 8 KiB, whose 16-byte chunks are XOR-ed
+//   with the row index modulo 8. A box must start 1024-byte aligned. Wider
+//   tiles are boxes side by side, box b at byte 8192 * b.
+// - Read as a K-major wgmma operand (rows = M or N, columns = K), a box is
+//   the canonical SW128 layout: 8-row groups 1024 bytes apart (SBO); the
+//   product's 16-deep K step k starts 32 * k bytes into the box.
+// - Read as an MN-major operand (rows = K, columns = N, as V is in P V), N
+//   runs 64 columns within a box and then to the next box (LBO = 8192
+//   bytes), K runs 8 rows per 1024 bytes (SBO); the K step k starts 16
+//   rows, 2048 bytes, further on.
+// - Accumulators of wgmma.m64nN (float32, N / 2 registers a thread): thread
+//   t of the warpgroup, warp w = t / 32, lane l, g = l / 4, c = l % 4, holds
+//   d[4n + e] at row 16w + g + 8 * (e / 2), column 8n + 2c + e % 2.
+// - A from registers (m64nNk16): 4 registers of two values, the mma.sync
+//   m16n8k16 A fragment of warp w's 16 rows, so the accumulators of two
+//   neighbouring 8-column chunks, packed two by two, are the A operand of
+//   their 16 columns (see acc_to_a in flash_common.cuh).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace hopper {
+
+constexpr int kBox = 64;                  // rows and columns of a TMA box
+constexpr int kBoxBytes = kBox * kBox * 2;  // a box of 16-bit values: 8 KiB
+constexpr int kSwizzleAtomBytes = 1024;   // 8 rows of 128 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and named barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// makes the initialized barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival, and `bytes` more expected from async copies this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; called by whole
+// warps, which leave it converged (the warpgroup instructions need that)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+  __syncwarp();
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at named barrier `id` without waiting
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// Copy the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory at
+// `dst`; completes `bytes` of the transaction count of mbarrier `bar`.
+// Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand at byte
+// address `addr` (within a 1024-byte-aligned atom pattern): leading and
+// stride byte offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(1) << 62;
+}
+
+// a K-major operand of whole boxes (K step offsets added by the caller)
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return sw128_desc(addr, 16, kSwizzleAtomBytes); }
+
+// an MN-major operand whose N runs over boxes side by side
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, kBoxBytes, kSwizzleAtomBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+  #pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define HOPPER_F8(d, i)                                                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+      "+f"(d[i + 7])
+#define HOPPER_F32(d, i) HOPPER_F8(d, i), HOPPER_F8(d, i + 8), HOPPER_F8(d, i + 16), HOPPER_F8(d, i + 24)
+
+// d (64 x 64, float32) = (scale_d ? d : 0) + A B^T, A and B K-major in shared memory
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_F32(d, 0)
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_F32(d, 0)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+
+#define HOPPER_N128_REGS                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                           \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                           \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+#define HOPPER_N256_REGS                                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                           \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                           \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                           \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                           \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                           \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "                \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+
+// d (64 x N, float32) += A B, A (64 x 16) from registers, B (16 x N)
+// MN-major in shared memory (the transpose bit set): N = 128 or 256
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 128 || N == 256, "wgmma_rs is compiled for N = 128 and 256");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (N == 128 && bf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_N128_REGS
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : HOPPER_F32(d, 0), HOPPER_F32(d, 32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_N128_REGS
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : HOPPER_F32(d, 0), HOPPER_F32(d, 32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (bf16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_N256_REGS
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 " HOPPER_N256_REGS
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+
+#undef HOPPER_N128_REGS
+#undef HOPPER_N256_REGS
+#undef HOPPER_F32
+#undef HOPPER_F8
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (cudaGetDriverEntryPoint), so that the libraries need no link against libcuda
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(ptr)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D tensor map over 16-bit values (columns, rows, heads, batch), strides
+// in elements, for boxes of 64 columns x 64 rows of one head with the
+// 128-byte swizzle. Columns past `cols` and rows past `rows` read as zeros.
+// Returns false where the encoder refuses the map (strides not multiples of
+// 16 bytes, an unaligned base).
+inline bool encode_box_map(CUtensorMap* map, bool bf16, const void* base, int cols, int rows, int heads, int batch,
+                           long long row_stride, long long head_stride, long long batch_stride) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(heads), cuuint64_t(batch)};
+  const long long strides[3] = {row_stride, head_stride, batch_stride};
+  cuuint64_t bytes[3];
+  for (int i = 0; i < 3; ++i) {
+    // a dimension of size 1 is never stepped along: any valid stride will do
+    const bool unit = dims[i + 1] == 1 && (strides[i] <= 0 || strides[i] % 8 != 0);
+    bytes[i] = unit ? 16 : cuuint64_t(strides[i]) * 2;
+  }
+  const cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
+                              const_cast<void*>(base), dims, bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

@@ -53,6 +53,11 @@ def _qkv(batch: int, lq: int, lk: int, width: int, seed: int) -> list[np.ndarray
         (1, 200, 300, 8, 40, False),  # SD1.5 head width, ragged lengths
         (1, 256, 256, 1, 512, False),  # the VAE's single wide head
         (2, 256, 256, 4, 64, True),
+        # the widths the card's wide-head kernel pads: d = 256, d = 512 with
+        # a mask, d = 200 (pads to 256; the JAX entry takes its flat fallback)
+        (1, 192, 320, 1, 256, False),
+        (1, 256, 256, 1, 512, True),
+        (2, 130, 150, 2, 200, False),
     ],
 )
 def test_flash_attention_packed_matches_jax(batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool) -> None:

@@ -84,6 +84,7 @@ def _launches() -> list[int]:
         (2, 256, 256, 4, 64, True, torch.float32),
         (1, 130, 150, 2, 160, False, torch.float32),  # the D = 256 template
         (1, 256, 256, 1, 512, False, torch.float32),
+        (1, 4096, 4096, 1, 512, False, torch.bfloat16),  # the wgmma kernel at a VAE mid-block of 64×64 latents
     ],
 )
 def test_kernel_matches_plain(
@@ -115,6 +116,47 @@ def test_causal_rows_without_keys_get_uniform_weights(device: torch.device) -> N
     assert _rel(got[:, :100], uniform) <= TOL
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dim", [136, 200, 256, 384, 512])
+def test_wide_kernel_matches_plain(device: torch.device, dim: int, dtype: torch.dtype) -> None:
+    """128 < d <= 512, the wgmma kernel (padded to 256 or 512): ragged
+    lengths, two packed heads."""
+    q, k, v = _qkv(device, 1, 1000, 1100, 2 * dim, dtype)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, head_dim=dim)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=dim)
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("dim", [256, 512])
+def test_wide_kernel_causal_rows_without_keys_get_uniform_weights(device: torch.device, dim: int) -> None:
+    q, k, v = _qkv(device, 1, 300, 200, dim, torch.bfloat16)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, is_causal=True, head_dim=dim).float()
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    uniform = v.float().mean(dim=1, keepdim=True).expand(1, 100, dim)
+    assert _rel(got[:, :100], uniform) <= TOL
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=True, head_dim=dim)
+    assert _rel(got[:, 100:], want[:, 100:]) <= TOL
+
+
+def test_wide_kernel_reads_strided_heads(device: torch.device) -> None:
+    """Two 512-wide heads as column slices of one fused projection (row
+    stride 3·1024), read in place by the wgmma kernel's tensor maps."""
+    qkv = torch.randn((2, 300, 3 * 1024), generator=torch.Generator(device).manual_seed(3), device=device).bfloat16()
+    q, k, v = qkv[..., :1024], qkv[..., 1024:2048], qkv[..., 2048:]
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, head_dim=512)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=512)
+    assert _rel(got, want) <= TOL
+
+
 def test_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
     q, k, v = _qkv(device, 1, 64, 64, 256, torch.float64)
     with pytest.raises(TypeError):
@@ -134,7 +176,8 @@ def test_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
         (2, 256, 256, 4, 64, True, None),
         (1, 1024, 1024, 4, 64, False, (1, 4, 1024, 1024)),  # a full float32 bias
         (2, 300, 260, 3, 80, False, (2, 1, 1, 260)),  # a broadcast key bias (stride 0)
-        (1, 256, 256, 1, 512, True, (1, 1, 256, 256)),  # the WMMA kernel
+        (1, 256, 256, 1, 512, True, (1, 1, 256, 256)),  # the wgmma kernel: a dense bias, causal
+        (2, 1000, 1100, 2, 200, False, None),  # the wgmma kernel, padded to 256: ragged
     ],
 )
 def test_forward_with_bias_and_lse(
@@ -308,7 +351,8 @@ def _relpos_operands(
         (1, 10, 10, 1, 32, torch.bfloat16),  # where the TPU kernel falls back to a dense bias
         (2, 16, 16, 2, 64, torch.float16),
         (1, 8, 24, 2, 128, torch.bfloat16),  # a key grid that is not square
-        (1, 16, 16, 2, 160, torch.bfloat16),  # the WMMA kernel
+        (1, 16, 16, 2, 160, torch.bfloat16),  # the wgmma kernel, padded to 256
+        (1, 16, 16, 2, 256, torch.bfloat16),  # the wgmma kernel
         (1, 64, 64, 16, 80, torch.float32),
         (25, 14, 14, 16, 80, torch.float32),
         (1, 12, 20, 2, 160, torch.float32),
