@@ -15,10 +15,11 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    are medians over CUDA events. Float32 cases are held to 1e-5 against
    the float32 plain version.
    - the packed forward (``flash_attention_packed``) at the SDXL path's
-     shapes (the UNet's d = 64 on mma.sync, the VAE's d = 512 on wgmma)
-     plus ragged, causal, d = 256, d = 200 and float16 cases: relative
-     Frobenius error ≤ 1e-2 against the plain version in float32; uniform
-     weights on causal rows that have no admissible key;
+     shapes (the UNet's d = 64 on the narrow wgmma kernel, the VAE's
+     d = 512 on the wide one) plus ragged, causal, d = 40, d = 80, d = 128,
+     d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
+     against the plain version in float32; uniform weights on causal rows
+     that have no admissible key;
    - the forward with bias and logsumexp (``flash_attention``) at the
      SD1.5 shapes, a ragged, a causal and a biased case: out ≤ 1e-2, lse max
      abs ≤ 1e-3; a boolean mask with a fully masked row gives uniform
@@ -47,7 +48,11 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      bytes over 3.35 TB/s and the operations over 989 TFLOP/s in bf16, or
      67 TFLOP/s in float32 FFMA) and the time of one PyTorch call that
      computes the same function where there is one (``library_ms``, timed
-     here and used nowhere in the port).
+     here and used nowhere in the port); for K1's two UNet sites and K3's
+     two layers also the device time of calls queued behind a stream sleep,
+     of the kernel and of the library call, which leaves out the host's
+     share of a single launch; and the CUDA kernel that serves each entry
+     (``flash_attention.forward_kernel``).
 3. SDXL serving: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 with
    seeded synthetic weights, one UNet step through the kernel against the
    same step on the plain path, then 3 requests through ``TextToImage`` at
@@ -55,7 +60,9 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    constant, and each request must launch the packed kernel exactly
    70 × 30 + 1 times (70 UNet self-attention sites per step, one VAE site).
    Each request's VAE decode is also timed alone (host clock between
-   synchronizes around the decoder).
+   synchronizes around the decoder), and one bf16 UNet step through the
+   kernels is traced with ``torch.profiler``: its device time by kernel
+   kind and its idle share.
 4. SD1.5 training: full-width ``SD1UNet`` with seeded synthetic weights,
    batch 2 of 64×64 latents.
    (a) one forward + backward of the DDPM noise-regression loss four ways:
@@ -76,7 +83,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    reference), bf16 on the plain path and bf16 through the kernel (at most
    twice as far from the reference as the bf16 plain route); each kernel
    route launches ``flash_attention_relpos`` exactly 32 times, each plain
-   route never. (b) 3 requests (1024 × 768, 600 × 400 and 1024 × 1024
+   route never; the bf16 kernel route traced with ``torch.profiler``
+   (device time by kernel kind, idle share). (b) 3 requests (1024 × 768, 600 × 400 and 1024 × 1024
    images): one ``compute_image_embedding`` (exactly 32 launches), a
    ``predict`` with two foreground points and one background point and a
    ``predict`` with a box (no launch each), then ``predict_pipelined`` over
@@ -142,6 +150,9 @@ ATTENTION_SHAPES = [
     (1, 16384, 16384, 1, 512, False, BF16),  # SDXL VAE decoder mid-block at 128×128
     (2, 1000, 1100, 5, 64, False, BF16),  # ragged
     (2, 1024, 1024, 10, 64, True, BF16),  # causal
+    (2, 4096, 4096, 8, 40, False, BF16),  # SD1.5 self-attention at 64×64 latents, inference (narrow kernel)
+    (1, 1000, 1300, 4, 80, True, BF16),  # d = 80: a 64-column and a 16-column box; causal, ragged
+    (1, 900, 1000, 4, 128, False, torch.float16),  # d = 128: two 64-column boxes; ragged
     (1, 4096, 4096, 1, 512, False, F32),  # a float32 VAE mid-block at 64×64 latents
     (2, 1024, 1024, 4, 256, False, BF16),  # the wgmma kernel's D = 256 template
     (1, 1000, 1100, 3, 200, False, BF16),  # d = 200, padded to 256; ragged
@@ -149,6 +160,7 @@ ATTENTION_SHAPES = [
     (1, 4096, 4096, 1, 512, False, torch.float16),  # a float16 VAE mid-block at 64×64 latents
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
+UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias, dtype)
     (2, 4096, 4096, 8, 40, False, False, BF16),  # SD1.5 UNet self-attention at 64×64 latents
@@ -514,16 +526,27 @@ def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict[str, Any]:
 
 def _print_row(label: str, ms: float, row: dict[str, Any]) -> None:
     library = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none"
+    queued = (
+        f" queued device_ms={row['device_ms']:.4f} (share {row['bound_ms'] / row['device_ms']:.3f}), "
+        f"library {row['library_device_ms']:.4f}"
+        if "device_ms" in row
+        else ""
+    )
+    kernel = f" [{row['cuda_kernel']}]" if "cuda_kernel" in row else ""
     print(
-        f"row {label}: kernel_ms={ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-        f"share={row['bound_ms'] / ms:.3f} library_ms={library} ({row['library_call']})"
+        f"row {label}{kernel}: kernel_ms={ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"share={row['bound_ms'] / ms:.3f} library_ms={library} ({row['library_call']}){queued}"
     )
 
 
 def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     """Bound and library time of K1-K4 at their main-path shapes (bf16),
-    the rows of the kernel table. The library calls are timed here only."""
+    the rows of the kernel table, and the CUDA kernel that serves each; for
+    K1's UNet sites and K3's layers also the queued device time of the
+    kernel and of the library call. The library calls are timed here only."""
     import torch.nn.functional as F
+
+    from refiners_tpu_torch.ops import flash_attention as fa
 
     rows: dict[str, dict[str, Any]] = {}
     gen = torch.Generator(dev).manual_seed(5)
@@ -531,16 +554,22 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     def randn(*shape: int) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev).to(BF16)
 
-    # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 self-attention, and at
-    # the VAE decoder's mid-block (one head of d = 512 over 128×128 latents)
-    for label, (b, seq, h, d) in (("K1", (2, 4096, 10, 64)), ("K1 VAE", (1, 16384, 1, 512))):
+    # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 and 32×32
+    # self-attention, and at the VAE decoder's mid-block (one head of d = 512
+    # over 128×128 latents)
+    for label, (b, seq, h, d) in (("K1", (2, 4096, 10, 64)), ("K1 32²", (2, 1024, 20, 64)), ("K1 VAE", (1, 16384, 1, 512))):
         q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
         heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
         rows[label] = {
             **_bound(4 * b * h * seq * seq * d, 4 * b * seq * h * d * 2, BF16),
-            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)), reps=10),
+            "library_ms": _time_ms(library, reps=10),
             "library_call": f"F.scaled_dot_product_attention on the {(b, h, seq, d)} head views",
+            "cuda_kernel": fa.forward_kernel(BF16, d),
         }
+        if label != "K1 VAE":
+            rows[label]["device_ms"] = _device_ms(lambda: fa.flash_attention_packed(q, k, v, head_dim=d))
+            rows[label]["library_device_ms"] = _device_ms(library)
         del q, k, v
     # K2 and K4: (B, H, L, D) at the SD1.5 UNet's 64×64 self-attention
     b, h, seq, d = 2, 8, 4096, 40
@@ -550,6 +579,7 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
         **_bound(4 * b * h * seq * seq * d, 4 * n * 2 + b * h * seq * 4, BF16),
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10),
         "library_call": "F.scaled_dot_product_attention (no lse)",
+        "cuda_kernel": fa.forward_kernel(BF16, d, lse=True),
     }
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(q, k, v)
@@ -567,10 +597,14 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
         q, k, v = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
         v_rel, h_rel = randn(b, h, seq, kh), randn(b, h, seq, kh)
         bias = (v_rel[..., :, None] + h_rel[..., None, :]).reshape(b, h, seq, seq)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)  # noqa: E731
         rows[label] = {
             **_bound(4 * b * h * seq * seq * d, 4 * b * h * seq * d * 2 + 2 * b * h * seq * kh * 2, BF16),
-            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10),
+            "library_ms": _time_ms(library, reps=10),
             "library_call": "F.scaled_dot_product_attention with the dense bias as attn_mask",
+            "cuda_kernel": fa.forward_kernel(BF16, d),
+            "device_ms": _device_ms(lambda: fa.flash_attention_relpos(q, k, v, v_rel, h_rel)),
+            "library_device_ms": _device_ms(library),
         }
         del q, k, v, v_rel, h_rel, bias
         _free()
@@ -732,7 +766,25 @@ def check_device_default() -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, np.ndarray]:
+def _profile(label: str, fn: Callable[[], Any], unit: str) -> dict[str, Any]:
+    """`fn` once to warm up, its host-clock milliseconds (median of 3), then
+    once under ``torch.profiler``: device time by kernel kind and idle share."""
+    from refiners_tpu_torch.examples.profile_sam import _profiled
+    from refiners_tpu_torch.examples.profile_train import device_breakdown
+
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    wall = statistics.median(walls)
+    return {"wall_ms": wall * 1e3, **device_breakdown(_profiled(fn), wall, label=label, unit=unit, top=4)}
+
+
+def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, np.ndarray, dict[str, Any]]:
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
@@ -778,6 +830,14 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
     )
     if not (torch.isfinite(kernel_noise).all() and err_kernel <= 2 * err_plain):
         raise AssertionError(f"the kernel route is further from float32 than the plain route: {err_kernel} > 2 × {err_plain}")
+
+    # one bf16 UNet step through the kernels, warm: host clock, then traced
+    with torch.inference_mode():
+        inputs = dict(clip_text_embedding=emb.to(BF16), pooled_text_embedding=pooled.to(BF16),
+                      time_ids=sd.default_time_ids, condition_scale=5.0)  # fmt: skip
+        x16 = x.to(BF16)
+        unet_profile = _profile("sdxl: one UNet step (1024², CFG batch 2, bf16, kernels)",
+                                lambda: sd.predict_noise(x16, 0, **inputs), unit="step")  # fmt: skip
 
     # the VAE decode alone: host clock between synchronizes around the decoder
     decoded: list[torch.Tensor] = []
@@ -825,9 +885,9 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
     launches = read_launches()
     for hook in hooks:
         hook.remove()
-    del sd, pipe, sdpa, decoded, emb, pooled, x, reference, plain_noise, kernel_noise
+    del sd, pipe, sdpa, decoded, emb, pooled, x, x16, reference, plain_noise, kernel_noise
     _free()
-    return launches, seconds, decode_seconds, peak, images[0]
+    return launches, seconds, decode_seconds, peak, images[0], unet_profile
 
 
 # ---------------------------------------------------------------------------
@@ -1178,10 +1238,14 @@ def run_sam(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
         raise AssertionError(f"the bf16 kernel route is further from float32 than twice the plain route: {err_kernel} > 2 × {err_plain}")
     del reference, f32_kernel, plain, kernel
     _free()
+    with torch.inference_mode():
+        embedding_profile = _profile("sam: one ViT-H image embedding (bf16, kernels)",
+                                     lambda: sam.compute_image_embedding(images[0]), unit="embedding")  # fmt: skip
 
     # (b) serving
     fg_bg = [((0.3, 0.4), (0.6, 0.5)), ((0.1, 0.1),)]  # foreground and background points, as fractions of the size
-    report: dict[str, Any] = {"embedding_seconds": [], "predict_ms": [], "pipelined_ms": None}
+    report: dict[str, Any] = {"embedding_seconds": [], "predict_ms": [], "pipelined_ms": None,
+                              "embedding_profile": embedding_profile}  # fmt: skip
     embeddings, prompts, serial = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1286,12 +1350,14 @@ def main() -> int:
         _print_row(label, first[0]["ms"], rows[label])
     vae = next(r for r in packed if r["shape"] == VAE_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 VAE", vae["ms"], rows["K1 VAE"])
+    unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
+    _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
     _print_row("K3 windowed", windowed["ms"], rows["K3 windowed"])
     for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6")):
         _print_row(label, results[0]["ms"], results[0])
     _free()
-    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image = run_sdxl(dev)
+    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image, unet_profile = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
     sam_report, sam_launches = run_sam(dev)
@@ -1306,24 +1372,32 @@ def main() -> int:
             "library_ms": row["library_ms"],
         }  # fmt: skip
 
-    # K1's two sites on the SDXL path: the UNet's d = 64 (mma.sync) and the VAE's d = 512 (wgmma)
+    # K1's three sites on the SDXL path: the UNet's d = 64 at 64×64 and 32×32 latents (the narrow
+    # wgmma kernel) and the VAE's d = 512 (the wide wgmma kernel)
     sites = [
         {"site": site, "shape": result["shape"], "ms": result["ms"], "plain_ms": result["plain_ms"],
-         "bound_ms": rows[label]["bound_ms"], "bound_by": rows[label]["bound_by"], "library_ms": rows[label]["library_ms"]}
-        for site, label, result in (("SDXL UNet, d = 64", "K1", packed[0]), ("SDXL VAE, d = 512", "K1 VAE", vae))
+         **{key: rows[label][key] for key in ("bound_ms", "bound_by", "library_ms", "cuda_kernel", "device_ms",
+                                              "library_device_ms") if key in rows[label]}}
+        for site, label, result in (("SDXL UNet 64², d = 64", "K1", packed[0]), ("SDXL UNet 32², d = 64", "K1 32²", unet32),
+                                    ("SDXL VAE, d = 512", "K1 VAE", vae))
     ]  # fmt: skip
+    windowed_row = {"shape": windowed["shape"], "ms": windowed["ms"], "plain_ms": windowed["plain_ms"],
+                    **{key: rows["K3 windowed"][key] for key in ("bound_ms", "bound_by", "library_ms", "device_ms",
+                                                                 "library_device_ms")}}  # fmt: skip
     summary = {
         "kernels": [
             {**kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
                       sdxl_launches["flash_attention_packed"], packed, rows["K1"]), "sites": sites},
-            kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
-                   train_launches["flash_attention"], forward, rows["K2"]),
+            {**kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
+                      train_launches["flash_attention"], forward, rows["K2"]), "cuda_kernel": rows["K2"]["cuda_kernel"]},
             kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
                    train_launches["flash_attention_bwd_dkv"], dkv, rows["K4a"]),
             kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
                    train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
-            kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
-                   sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
+            {**kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
+                      sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
+             "cuda_kernel": rows["K3 global"]["cuda_kernel"], "device_ms": rows["K3 global"]["device_ms"],
+             "library_device_ms": rows["K3 global"]["library_device_ms"], "windowed": windowed_row},
             kernel("group_norm_stats", "group_norm.cu", "group_norm.py:55",
                    passes_launches["group_norm_stats"], gn_stats, gn_stats[0]),
             kernel("group_norm_apply", "group_norm.cu", "group_norm.py:82",
@@ -1333,6 +1407,7 @@ def main() -> int:
         "sdxl_seconds_per_request": seconds,
         "sdxl_vae_decode_seconds": decode_seconds,
         "sdxl_peak_memory_bytes": sdxl_peak,
+        "sdxl_unet_step_profile": unet_profile,
         "sd15_training_step": step_check,
         "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],
         "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],

@@ -16,8 +16,8 @@
 // Same contract as the TPU kernels: per (batch, head),
 // O = softmax(scale * Q K^T + bias + mask) V with an online softmax; running
 // max and sum and the output accumulator in float32; P cast to the input
-// type before the PV product; output cast to the input type. The bias takes
-// one of three compile-time modes:
+// type before the PV product; O divided by the row sum at the end, cast to
+// the input type. The bias takes one of three compile-time modes:
 // - none;
 // - dense: float32, read through four strides (a stride of 0 broadcasts, as
 //   torch.broadcast_to gives);
@@ -29,8 +29,7 @@
 //   place of a 1 GiB float32 bias. The TPU kernel rebuilds the bias tile with
 //   two 0/1 expansion matmuls and needs every key tile to share one kw phase
 //   (else it falls back to `_flash_kernel` with a materialized bias); here
-//   each score computes k / kw and k % kw, so any kw is taken and there is no
-//   fallback. The two rows of a query are read through L1.
+//   any kw is taken and there is no fallback.
 // Masked scores are -1e30 (not -inf), so a causal row with no admissible key
 // gets uniform weights over the keys, as the TPU kernel does; keys past the
 // sequence end do not take part. With an lse pointer the kernel also writes
@@ -39,21 +38,53 @@
 //
 // What bounds it on the H100: at seq >= 1024 the work is 4*L^2*d flops
 // against 4*L*d bytes per head, so tensor-core throughput (989 TFLOP/s in
-// bf16); a dense bias adds a float32 read per score, which makes a biased
-// call bound by that read, and the relative-position bias adds two cached
-// reads, an integer division and a remainder per score: instruction throughput.
+// bf16), and beside it the softmax: one exp2 per score on the SM's 16
+// MUFU lanes a clock, which at d = 64 takes as long as the two products.
+// A dense bias adds a float32 read per score, which makes a biased call bound
+// by that read; the relative-position bias adds two reads per score from
+// shared memory.
 //
-// Three kernels, picked by type and head_dim; each is one block per
-// (query tile of 64 rows, batch*head) with a loop over K/V tiles of 64 keys:
+// Four kernels, picked by what the call carries (`forward_kernel`):
 //
-// - bfloat16 and float16, head_dim <= 128 (the UNet's d = 40, 64 and 80
-//   sites): FlashAttention-2's layout on mma.sync m16n8k16, 4 warps,
-//   compiled for padded head dims 48, 64, 80 and 128. Each warp owns 16
-//   query rows; its Q fragments, S tile, softmax statistics and O
-//   accumulator stay in registers, and P goes from the S accumulators
-//   straight into the A operand of the PV product. K and V tiles are
-//   double-buffered in shared memory with cp.async, read with ldmatrix
-//   (transposed for V).
+// - bfloat16 and float16, head_dim <= 128, no dense bias, no lse (K1 at the
+//   SDXL UNet's d = 64 and SD1.5's d = 40/80 inference sites, every K3
+//   call): `flash_fwd_narrow_kernel`, compiled for padded head dims 64, 80
+//   and 128. A block is 128 query rows: two warpgroups of 64 rows, each
+//   holding its O (m64nD, float32) and softmax statistics in registers. K
+//   and V tiles of 64 or 128 keys (kNarrowKeys) arrive by TMA in a
+//   three-stage ring ("full" mbarriers with transaction counts), shared by
+//   both warpgroups, so every K/V byte read from L2 serves 128 rows; the
+//   last warp done with a stage starts its refill, so there is no producer
+//   warp and 256 threads may use up to 255 registers each. Each warpgroup
+//   runs tile j's softmax while tile j - 1's P V is on the tensor cores,
+//   and the two take turns to issue their products (ping-pong), so one's
+//   softmax overlaps the other's products. S = Q K^T runs on wgmma from
+//   shared memory (K-major) over ceil(d / 16) steps of 16, so the zero
+//   columns past d cost nothing there; O += P V on wgmma with P from the S
+//   accumulators in registers and V MN-major through the transpose bit (no
+//   transposed copy). The softmax is in base 2: scale * log2(e) is folded
+//   into one multiply-add per score, exp2 is the MUFU instruction, and O is
+//   rescaled only when a row's maximum moved. d = 80 (SAM-H) is not a whole
+//   64-column box: its tile is a 64-column box with the 128-byte swizzle
+//   plus a 16-column box with the 32-byte swizzle, and P V is two products
+//   (n64 and n16) into two accumulators, so no product runs over zero
+//   columns (padding to 128 would cost 60 % more P V work). The
+//   relative-position bias: each block stages its 128 rows of v_rel and
+//   h_rel in shared memory as float32 times log2(e) (odd row pitch: the 8
+//   rows a warp reads at one column fall in distinct banks), 65 KiB at
+//   SAM-H's 64 x 64 grid; for each accumulator column the thread keeps its
+//   key's offset (o / kw, o % kw) in the grid, computed once, and the
+//   tile's first key as counters that advance by (64 / kw, 64 % kw) per
+//   tile, so the inner loop has one compare and no division or remainder
+//   per score. Grids whose tables exceed 96 KiB (kh + kw past about 190)
+//   read v_rel and h_rel in place through L1 with the same counters.
+// - bfloat16 and float16, head_dim <= 128, with a dense bias or an lse (K2):
+//   FlashAttention-2's layout on mma.sync m16n8k16, 4 warps, compiled for
+//   padded head dims 48, 64, 80 and 128. Each warp owns 16 query rows; its
+//   Q fragments, S tile, softmax statistics and O accumulator stay in
+//   registers, and P goes from the S accumulators straight into the A
+//   operand of the PV product. K and V tiles are double-buffered in shared
+//   memory with cp.async, read with ldmatrix (transposed for V).
 // - bfloat16 and float16, 128 < head_dim <= 512 (the SDXL VAE's mid-block
 //   site, one head of d = 512 over L = 16384): `flash_fwd_wgmma_kernel`,
 //   Hopper's warpgroup products, compiled for padded head dims 256 and 512
@@ -271,7 +302,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t off = (kk / 4) * hopper::kBoxBytes + (kk % 4) * 32;
-      hopper::wgmma_m64n64k16_ss<T>(s, hopper::kmajor_desc(sq + off), hopper::kmajor_desc(sk + off), kk > 0);
+      hopper::wgmma_ss<T, 64>(s, hopper::kmajor_desc(sq + off), hopper::kmajor_desc(sk + off), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -374,9 +405,9 @@ template <typename T, int D>
 int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   CUtensorMap tq, tk, tv;
-  if (!hopper::encode_box_map(&tq, bf16, p.q, p.head_dim, p.q_len, p.heads, batch, p.q_rs, p.q_hs, p.q_bs) ||
-      !hopper::encode_box_map(&tk, bf16, p.k, p.head_dim, p.kv_len, p.heads, batch, p.k_rs, p.k_hs, p.k_bs) ||
-      !hopper::encode_box_map(&tv, bf16, p.v, p.head_dim, p.kv_len, p.heads, batch, p.v_rs, p.v_hs, p.v_bs)) {
+  if (!hopper::encode_map(&tq, bf16, p.q, p.head_dim, p.q_len, p.heads, batch, p.q_rs, p.q_hs, p.q_bs, hopper::kBox) ||
+      !hopper::encode_map(&tk, bf16, p.k, p.head_dim, p.kv_len, p.heads, batch, p.k_rs, p.k_hs, p.k_bs, hopper::kBox) ||
+      !hopper::encode_map(&tv, bf16, p.v, p.head_dim, p.kv_len, p.heads, batch, p.v_rs, p.v_hs, p.v_bs, hopper::kBox)) {
     return int(cudaErrorInvalidValue);
   }
   constexpr int bytes = WideSmem<D>::bytes;
@@ -392,7 +423,543 @@ int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// head_dim <= 128: register-resident FlashAttention-2 on mma.sync
+// head_dim <= 128, no dense bias, no lse: wgmma and TMA, two consumer
+// warpgroups fed by a producer warp
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowRows = 2 * kTile;          // query rows per block, 64 per warpgroup
+constexpr int kNarrowThreads = 2 * kWarpgroup;  // two warpgroups
+constexpr int kNarrowWarps = kNarrowThreads / 32;
+constexpr int kNarrowStages = 3;                // depth of the K/V ring
+// bytes of the block's two relative-position tables (128 rows of v_rel and
+// of h_rel, float32) that shared memory holds; wider key grids read them
+// through L1
+constexpr int kMaxRelPosTableBytes = 96 * 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+// named barriers: 1 + g, warpgroup g's rows of the tables are staged; 3 + g,
+// warpgroup g's turn to issue its products
+constexpr int kBarTables = 1;
+constexpr int kBarTurn = 3;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keys per tile of the narrow kernel: 128 at D = 80 and 128 without a bias,
+// so that S is one m64n128 product per 16 columns, which reads its two
+// shared-memory operands at 96 bytes a clock at full rate where m64n64
+// needs 128, all the SM has; 64 at D = 64, where the 128-key tile measured
+// slower on the H100, and with the relative-position bias, whose per-column
+// offsets and bias reads need the registers.
+template <int D, int kBias>
+constexpr int kNarrowKeys = kBias == kNoBias && D > 64 ? 128 : 64;
+
+// A tile of R rows (64 or 128) at padded head dim D (64, 80 or 128): for
+// each 64-column box (128-byte swizzle) its R / 64 row boxes of 8 KiB one
+// after another, R * 128 bytes; then, at D = 80, the R / 64 row boxes of the
+// narrow box of 16 columns (32-byte swizzle), 2 KiB each. Rows run on
+// across row boxes, so R rows are one wgmma operand.
+template <int D, int R>
+struct NarrowTile {
+  static_assert(D == 64 || D == 80 || D == 128, "the narrow kernel is compiled for D = 64, 80 and 128");
+  static constexpr int kBoxes = D / hopper::kBox;
+  static constexpr bool kRem = D % hopper::kBox != 0;
+  static constexpr int kBoxStride = R * 128;  // bytes from one 64-column box to the next
+  static constexpr int kNarrow = kBoxes * kBoxStride;  // offset of the narrow box
+  static constexpr int kBytes = kNarrow + (kRem ? R * 32 : 0);
+};
+
+// Shared memory of the narrow kernel, in bytes from a 1024-byte-aligned
+// base: Q as two 64-row tiles, one per warpgroup; the BK-row K tiles and V
+// tiles of the ring; the mbarriers (Q; then K full and V full for each
+// stage) and each stage's running count of warps done with it; the
+// relative-position tables.
+template <int D, int BK>
+struct NarrowSmem {
+  using QTile = NarrowTile<D, kTile>;
+  using KVTile = NarrowTile<D, BK>;
+  static constexpr int q = 0;
+  static constexpr int k = 2 * QTile::kBytes;
+  static constexpr int v = k + kNarrowStages * KVTile::kBytes;
+  static constexpr int bars = v + kNarrowStages * KVTile::kBytes;
+  static constexpr int done = bars + (1 + 2 * kNarrowStages) * 8;
+  static constexpr int tables = done + kNarrowStages * 4;
+  static constexpr int bytes = tables + hopper::kSwizzleAtomBytes;  // + room to align the base
+  static_assert(bytes + (BK == 64 ? kMaxRelPosTableBytes : 0) <= int(kMaxSharedBytes),
+                "narrow forward tiles exceed shared memory");
+};
+
+// Rows [row, row + R) of one head onto `bar`, laid out as NarrowTile<D, R>.
+template <int D, int R>
+__device__ __forceinline__ void load_narrow_tile(const CUtensorMap* map, const CUtensorMap* narrow, uint32_t bar,
+                                                 uint32_t dst, int row, int h, int b) {
+  using Tile = NarrowTile<D, R>;
+  #pragma unroll
+  for (int r = 0; r < R / hopper::kBox; ++r) {
+    #pragma unroll
+    for (int i = 0; i < Tile::kBoxes; ++i) {
+      hopper::tma_load_4d(dst + i * Tile::kBoxStride + r * hopper::kBoxBytes, map, bar, i * hopper::kBox,
+                          row + r * hopper::kBox, h, b);
+    }
+    if constexpr (Tile::kRem) {
+      hopper::tma_load_4d(dst + Tile::kNarrow + r * hopper::kNarrowBoxBytes, narrow, bar,
+                          Tile::kBoxes * hopper::kBox, row + r * hopper::kBox, h, b);
+    }
+  }
+}
+
+// The relative-position bias's key grid as the kernel walks it: a key tile
+// is step_q grid rows and step_r columns (computed once on the host); the
+// tables' row pitches in shared memory, in floats (odd, so the 8 rows a warp
+// reads at one column fall in distinct banks), or in_smem = 0 to read v_rel
+// and h_rel in place.
+struct RelPosGrid {
+  int kh, step_q, step_r, pitch_v, pitch_h, in_smem;
+};
+
+// Copy rows [row0, row0 + 64) of a relative-position table (`cols` values a
+// row, row stride `stride`) into shared memory as float32 times log2(e), at
+// row pitch `pitch`, by one warpgroup, eight loads in flight a thread; rows
+// past `rows` are zeros.
+template <typename T>
+__device__ __forceinline__ void stage_table(float* dst, int pitch, const T* src, long long stride, int cols, int row0,
+                                            int rows, int tid) {
+  const int n = kTile * cols;
+  for (int i0 = tid; i0 < n; i0 += 8 * kWarpgroup) {
+    float x[8];
+    #pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kWarpgroup, r = i / cols;
+      x[u] = i < n && row0 + r < rows ? to_float(__ldg(src + (long long)(row0 + r) * stride + i - r * cols)) : 0.f;
+    }
+    #pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kWarpgroup, r = i / cols;
+      if (i < n) dst[r * pitch + i - r * cols] = x[u] * kLog2e;
+    }
+  }
+}
+
+// One block of 256 threads per (128 query rows, batch*head), a loop over key
+// tiles of BK: two warpgroups of 64 query rows each, reading the same K and
+// V tiles from a ring of kNarrowStages stages. Thread 0 loads Q and the
+// first tiles with TMA, each tile onto its stage's "full" mbarriers; after
+// that, the last of the 8 warps to be done with a stage (a count in shared
+// memory) starts the loads of the tile it holds next, so no warp waits for
+// another and none is set aside to load. Each warpgroup computes S = Q K^T
+// with wgmma from shared memory (K-major, ceil(d / 16) steps of 16; m64n128
+// without a bias), runs
+// the online softmax in registers in base 2 (scale and log2(e) folded into
+// one multiply-add), adds the relative-position bias from shared memory
+// through counters that advance with the tile (no division or remainder per
+// score), and accumulates O += P V with wgmma, P from registers, V MN-major
+// through the transpose bit: n64 or n128 over the 64-column boxes, plus n16
+// over the narrow box at D = 80. Tile j's softmax runs while tile j - 1's
+// P V is on the tensor cores, so a stage is free one tile later than it
+// would be without the overlap: the ring has three stages.
+template <typename T, int D, int kBias>
+__global__ void __launch_bounds__(kNarrowThreads, 1)
+    flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tq16,
+                            const __grid_constant__ CUtensorMap tk16, const __grid_constant__ CUtensorMap tv16,
+                            const Params p, const RelPosGrid grid) {
+  constexpr int BK = kNarrowKeys<D, kBias>;
+  using L = NarrowSmem<D, BK>;
+  using QTile = typename L::QTile;
+  using KVTile = typename L::KVTile;
+  constexpr int kMainN = KVTile::kBoxes * hopper::kBox;  // O columns of the n64/n128 accumulator
+  constexpr int kSteps = D / 16;
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by an offset from the array, so that the compiler knows every
+  // pointer below to be shared memory (the tables are read with ld.shared)
+  constexpr uint32_t kAlign = hopper::kSwizzleAtomBytes;
+  unsigned char* smem = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  int* done = reinterpret_cast<int*>(smem + L::done);
+  const uint32_t qbar = hopper::smem_u32(bars);
+  const uint32_t kfull0 = hopper::smem_u32(bars + 1);
+  const uint32_t vfull0 = hopper::smem_u32(bars + 1 + kNarrowStages);
+  const uint32_t sq0 = hopper::smem_u32(smem + L::q);
+  const uint32_t sk0 = hopper::smem_u32(smem + L::k);
+  const uint32_t sv0 = hopper::smem_u32(smem + L::v);
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int q0 = blockIdx.x * kNarrowRows;
+  const int n_tiles = (p.kv_len + BK - 1) / BK;
+
+  // K_j and V_j into stage j % kNarrowStages, each onto its full mbarrier
+  auto load_kv = [&](int j) {
+    const int s = j % kNarrowStages;
+    hopper::mbar_expect_tx(kfull0 + 8 * s, KVTile::kBytes);
+    load_narrow_tile<D, BK>(&tk, &tk16, kfull0 + 8 * s, sk0 + s * KVTile::kBytes, j * BK, h, b);
+    hopper::mbar_expect_tx(vfull0 + 8 * s, KVTile::kBytes);
+    load_narrow_tile<D, BK>(&tv, &tv16, vfull0 + 8 * s, sv0 + s * KVTile::kBytes, j * BK, h, b);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < kNarrowStages; ++s) {
+      hopper::mbar_init(kfull0 + 8 * s, 1);
+      hopper::mbar_init(vfull0 + 8 * s, 1);
+      done[s] = 0;
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(qbar, 2 * QTile::kBytes);
+    load_narrow_tile<D, kTile>(&tq, &tq16, qbar, sq0, q0, h, b);
+    load_narrow_tile<D, kTile>(&tq, &tq16, qbar, sq0 + QTile::kBytes, q0 + kTile, h, b);
+    for (int j = 0; j < kNarrowStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncthreads();
+
+  const int g = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+  const int local_a = g * kTile + warp * 16 + lane / 4;  // this thread's accumulator rows in the block
+  const int row_a = q0 + local_a;
+  const int row_b = row_a + 8;
+  const int causal_shift = p.kv_len - p.q_len;
+  const float scale_log2 = p.scale * kLog2e;
+  const int ksteps = (p.head_dim + 15) / 16;
+  const uint32_t sq = sq0 + g * QTile::kBytes;
+
+  // relative-position bias: the rows of the tables this thread reads, in
+  // shared memory (offsets into `tables`) or in place (pointers), and each
+  // accumulator column's offset in the key grid, (o / kw) << 16 | o % kw for
+  // o = 8n + 2t + c, computed once; (bq, br) is the tile's first key
+  const float* tables = reinterpret_cast<const float*>(smem + L::tables);
+  int va = 0, vb = 0, ha = 0, hb = 0;
+  const T* gva = nullptr;
+  const T* gvb = nullptr;
+  const T* gha = nullptr;
+  const T* ghb = nullptr;
+  int offset[BK / 8][2];
+  int bq = 0, br = 0;
+  if constexpr (kBias == kRelPosBias) {
+    const HeadBias<T> rel = head_bias<T>(p, b, h);
+    if (grid.in_smem) {
+      float* sv = reinterpret_cast<float*>(smem + L::tables);
+      float* sh = sv + kNarrowRows * grid.pitch_v;
+      // this warpgroup's 64 rows
+      const int row0 = q0 + g * kTile;
+      stage_table(sv + g * kTile * grid.pitch_v, grid.pitch_v, rel.vrel, p.vrel_rs, grid.kh, row0, p.q_len, tid);
+      stage_table(sh + g * kTile * grid.pitch_h, grid.pitch_h, rel.hrel, p.hrel_rs, p.kw, row0, p.q_len, tid);
+      hopper::bar_sync(kBarTables + g, kWarpgroup);
+      va = local_a * grid.pitch_v;
+      vb = va + 8 * grid.pitch_v;
+      ha = kNarrowRows * grid.pitch_v + local_a * grid.pitch_h;
+      hb = ha + 8 * grid.pitch_h;
+    } else {
+      const long long ra = min(row_a, p.q_len - 1), rb = min(row_b, p.q_len - 1);
+      gva = rel.vrel + ra * p.vrel_rs;
+      gvb = rel.vrel + rb * p.vrel_rs;
+      gha = rel.hrel + ra * p.hrel_rs;
+      ghb = rel.hrel + rb * p.hrel_rs;
+    }
+    #pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      #pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int o = n * 8 + 2 * t + c;
+        offset[n][c] = (o / p.kw) << 16 | o % p.kw;
+      }
+    }
+  }
+
+  float o[kMainN / 2];
+  float orem[KVTile::kRem ? 8 : 1];
+  #pragma unroll
+  for (int i = 0; i < kMainN / 2; ++i) o[i] = 0.f;
+  #pragma unroll
+  for (int i = 0; i < (KVTile::kRem ? 8 : 1); ++i) orem[i] = 0.f;
+  float m[2] = {kMaskedScore, kMaskedScore};  // running maxima, in base-2 units
+  float l[2] = {0.f, 0.f};                    // this thread's share of the row sums
+
+  // S = Q K_j^T over the 16-column steps that hold head columns, issued
+  // once K_j has landed; not waited for
+  auto issue_qk = [&](float (&s)[BK / 2], int j) {
+    const int stage = j % kNarrowStages;
+    const uint32_t sk = sk0 + stage * KVTile::kBytes;
+    hopper::mbar_wait(kfull0 + 8 * stage, (j / kNarrowStages) & 1);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk > 0 && kk >= ksteps) break;
+      if (kk < 4 * KVTile::kBoxes) {
+        const uint32_t qoff = (kk / 4) * QTile::kBoxStride + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * KVTile::kBoxStride + (kk % 4) * 32;
+        hopper::wgmma_ss<T, BK>(s, hopper::kmajor_desc(sq + qoff), hopper::kmajor_desc(sk + koff), kk > 0);
+      } else {
+        hopper::wgmma_ss<T, BK>(s, hopper::narrow_kmajor_desc(sq + QTile::kNarrow),
+                                hopper::narrow_kmajor_desc(sk + KVTile::kNarrow), 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(s);
+  };
+
+  // O += P V_j, issued once V_j has landed; not waited for
+  auto issue_pv = [&](const uint32_t (&pa)[BK / 16][4], int j) {
+    const int stage = j % kNarrowStages;
+    const uint32_t sv = sv0 + stage * KVTile::kBytes;
+    hopper::mbar_wait(vfull0 + 8 * stage, (j / kNarrowStages) & 1);
+    hopper::fence_regs(o);
+    hopper::fence_regs(orem);
+    hopper::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      hopper::wgmma_rs<T, kMainN>(o, pa[kc], hopper::mnmajor_desc(sv + kc * 16 * 128, KVTile::kBoxStride));
+      if constexpr (KVTile::kRem) {
+        hopper::wgmma_rs<T, 16>(orem, pa[kc], hopper::narrow_mnmajor_desc(sv + KVTile::kNarrow + kc * 16 * 32));
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(o);
+    hopper::fence_regs(orem);
+  };
+
+  // tile j's scores in s → its P in pa (the A operand of each 16-key step),
+  // the running maxima and sums updated, alpha the factor that rescales O
+  auto softmax = [&](float (&s)[BK / 2], int j, uint32_t (&pa)[BK / 16][4], float (&alpha)[2]) {
+    // scores in base 2 with the bias and the masks; a row's BK scores are
+    // spread over the 4 lanes of a quad. Maxima and sums run in two
+    // independent chains a row (by column parity c), which halves their
+    // dependent latency
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+    auto score_tile = [&](auto masked, auto from_smem) {
+      #pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        #pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = j * BK + n * 8 + 2 * t + c;
+          const bool valid = !decltype(masked)::value || col < p.kv_len;
+          float bias_a = 0.f, bias_b = 0.f;
+          if constexpr (kBias == kRelPosBias) {
+            if (valid) {
+              int kq = bq + (offset[n][c] >> 16), kr = br + (offset[n][c] & 0xffff);
+              if (kr >= p.kw) {
+                kr -= p.kw;
+                ++kq;
+              }
+              if constexpr (decltype(from_smem)::value) {
+                bias_a = tables[va + kq] + tables[ha + kr];
+                bias_b = tables[vb + kq] + tables[hb + kr];
+              } else {
+                bias_a = (to_float(__ldg(gva + kq)) + to_float(__ldg(gha + kr))) * kLog2e;
+                bias_b = (to_float(__ldg(gvb + kq)) + to_float(__ldg(ghb + kr))) * kLog2e;
+              }
+            }
+          }
+          float xa = fmaf(s[4 * n + c], scale_log2, bias_a);
+          float xb = fmaf(s[4 * n + 2 + c], scale_log2, bias_b);
+          if constexpr (decltype(masked)::value) {
+            if (!valid) {
+              xa = xb = -INFINITY;
+            } else if (p.causal) {
+              if (col > row_a + causal_shift) xa = kMaskedScore;
+              if (col > row_b + causal_shift) xb = kMaskedScore;
+            }
+          }
+          s[4 * n + c] = xa;
+          s[4 * n + 2 + c] = xb;
+          mx[0][c] = fmaxf(mx[0][c], xa);
+          mx[1][c] = fmaxf(mx[1][c], xb);
+        }
+      }
+    };
+    auto score = [&](auto masked) {
+      if constexpr (kBias == kRelPosBias) {
+        if (grid.in_smem) {
+          score_tile(masked, std::true_type{});
+        } else {
+          score_tile(masked, std::false_type{});
+        }
+      } else {
+        score_tile(masked, std::false_type{});
+      }
+    };
+    if (!p.causal && (j + 1) * BK <= p.kv_len) {
+      score(std::false_type{});
+    } else {
+      score(std::true_type{});
+    }
+    if constexpr (kBias == kRelPosBias) {
+      bq += grid.step_q;
+      br += grid.step_r;
+      if (br >= p.kw) {
+        br -= p.kw;
+        ++bq;
+      }
+    }
+
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(mx[r][0], mx[r][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    #pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float pe = fast_exp2(s[i] - m[(i >> 1) & 1]);
+      s[i] = pe;
+      sum[(i >> 1) & 1][i & 1] += pe;
+    }
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], sum[r][0] + sum[r][1]);
+    #pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) acc_to_a<T>(pa[kc], s + 8 * kc, s + 8 * kc + 4);
+  };
+
+  // this warp is done with tile j's stage; the last of the 8 refills it
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(done + j % kNarrowStages, 1) % kNarrowWarps == kNarrowWarps - 1 &&
+        j + kNarrowStages < n_tiles) {
+      load_kv(j + kNarrowStages);
+    }
+  };
+
+  // Each warpgroup overlaps tile j's softmax with tile j - 1's P V: S_j and
+  // P_{j-1} V_{j-1} are issued together, the softmax waits for S_j only,
+  // and O is rescaled once P_{j-1} V_{j-1} has landed (not at all when no
+  // row's maximum moved: the factor is then exactly 1). P alternates between
+  // two register arrays (no copy lands between two products, where ptxas
+  // would serialize them). The two warpgroups take turns to issue their
+  // products (named barriers 3 and 4), so that one's softmax runs while the
+  // other's products hold the tensor cores.
+  auto turn = [&] { hopper::bar_sync(kBarTurn + g, kNarrowThreads); };
+  auto pass = [&](bool last) {
+    if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kNarrowThreads);
+  };
+  float s[BK / 2];
+  float alpha[2];
+  uint32_t pa[2][BK / 16][4];
+  auto step = [&](int j, const uint32_t (&prev)[BK / 16][4], uint32_t (&cur)[BK / 16][4]) {
+    turn();
+    issue_qk(s, j);
+    issue_pv(prev, j - 1);
+    pass(false);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    softmax(s, j, cur, alpha);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(orem);
+    release(j - 1);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+      #pragma unroll
+      for (int i = 0; i < kMainN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      #pragma unroll
+      for (int i = 0; i < (KVTile::kRem ? 8 : 1); ++i) orem[i] *= alpha[(i >> 1) & 1];
+    }
+  };
+  if (g == 1) hopper::bar_arrive(kBarTurn, kNarrowThreads);  // warpgroup 0 issues first
+  hopper::mbar_wait(qbar, 0);
+  turn();
+  issue_qk(s, 0);
+  pass(false);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  softmax(s, 0, pa[0], alpha);
+  for (int j = 1; j < n_tiles; j += 2) {
+    step(j, pa[0], pa[1]);
+    if (j + 1 < n_tiles) step(j + 1, pa[1], pa[0]);
+  }
+  turn();
+  if (n_tiles & 1) {
+    issue_pv(pa[0], n_tiles - 1);
+  } else {
+    issue_pv(pa[1], n_tiles - 1);
+  }
+  pass(true);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  hopper::fence_regs(orem);
+
+  #pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
+  auto store = [&](int col, float a0, float a1, float b0, float b1) {
+    if (col >= p.head_dim) return;
+    if (row_a < p.q_len) {
+      *reinterpret_cast<uint32_t*>(oh + (long long)row_a * p.o_rs + col) = pack2<T>(a0 / l[0], a1 / l[0]);
+    }
+    if (row_b < p.q_len) {
+      *reinterpret_cast<uint32_t*>(oh + (long long)row_b * p.o_rs + col) = pack2<T>(b0 / l[1], b1 / l[1]);
+    }
+  };
+  #pragma unroll
+  for (int n = 0; n < kMainN / 8; ++n) store(n * 8 + 2 * t, o[4 * n], o[4 * n + 1], o[4 * n + 2], o[4 * n + 3]);
+  if constexpr (KVTile::kRem) {
+    #pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      store(kMainN + n * 8 + 2 * t, orem[4 * n], orem[4 * n + 1], orem[4 * n + 2], orem[4 * n + 3]);
+    }
+  }
+}
+
+// Row pitch of a float32 relative-position table of n columns: odd, so that
+// 8 rows at one column fall in 8 distinct banks.
+inline int table_pitch(int n) { return n | 1; }
+
+// The six tensor maps (q, k, v: 64-column boxes, then 16-column boxes),
+// the relative-position grid, and the launch of mode kBias.
+template <typename T, int D, int kBias>
+int launch_narrow_mode(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int BK = kNarrowKeys<D, kBias>;
+  using L = NarrowSmem<D, BK>;
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const void* bases[3] = {p.q, p.k, p.v};
+  const int rows[3] = {p.q_len, p.kv_len, p.kv_len};
+  const long long strides[3][3] = {{p.q_rs, p.q_hs, p.q_bs}, {p.k_rs, p.k_hs, p.k_bs}, {p.v_rs, p.v_hs, p.v_bs}};
+  CUtensorMap maps[6];
+  for (int i = 0; i < 3; ++i) {
+    for (int narrow = 0; narrow < 2; ++narrow) {
+      const int box = narrow && L::KVTile::kRem ? hopper::kNarrowBox : hopper::kBox;
+      if (!hopper::encode_map(&maps[3 * narrow + i], bf16, bases[i], p.head_dim, rows[i], p.heads, batch,
+                              strides[i][0], strides[i][1], strides[i][2], box)) {
+        return int(cudaErrorInvalidValue);
+      }
+    }
+  }
+  RelPosGrid grid = {};
+  int bytes = L::bytes;
+  if (kBias == kRelPosBias) {
+    grid.kh = p.kv_len / p.kw;
+    grid.step_q = BK / p.kw;
+    grid.step_r = BK % p.kw;
+    grid.pitch_v = table_pitch(grid.kh);
+    grid.pitch_h = table_pitch(p.kw);
+    const int table_bytes = kNarrowRows * (grid.pitch_v + grid.pitch_h) * int(sizeof(float));
+    grid.in_smem = table_bytes <= kMaxRelPosTableBytes;
+    if (grid.in_smem) bytes += table_bytes;
+  }
+  auto kernel = flash_fwd_narrow_kernel<T, D, kBias>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return int(err);
+  const dim3 blocks((p.q_len + kNarrowRows - 1) / kNarrowRows, batch * p.heads);
+  kernel<<<blocks, kNarrowThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p, grid);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_narrow(const Params& p, int batch, cudaStream_t stream) {
+  return p.vrel != nullptr ? launch_narrow_mode<T, D, kRelPosBias>(p, batch, stream)
+                           : launch_narrow_mode<T, D, kNoBias>(p, batch, stream);
+}
+
+// ---------------------------------------------------------------------------
+// head_dim <= 128 with a dense bias or an lse: FlashAttention-2 on mma.sync
 // ---------------------------------------------------------------------------
 
 template <typename T, int D, int kBias>
@@ -550,10 +1117,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p)
 template <typename T, int D>
 int launch_mma(const Params& p, int batch, cudaStream_t stream) {
   const int bytes = 5 * kTile * (D + 8) * int(sizeof(T));  // Q + 2 x K + 2 x V
-  const int mode = bias_mode(p);
-  auto kernel = mode == kRelPosBias ? flash_fwd_mma_kernel<T, D, kRelPosBias>
-                : mode == kDenseBias ? flash_fwd_mma_kernel<T, D, kDenseBias>
-                                     : flash_fwd_mma_kernel<T, D, kNoBias>;
+  auto kernel =
+      bias_mode(p) == kDenseBias ? flash_fwd_mma_kernel<T, D, kDenseBias> : flash_fwd_mma_kernel<T, D, kNoBias>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
@@ -699,21 +1264,39 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
 // launch
 // ---------------------------------------------------------------------------
 
+// The kernel that serves a call: float32 on FFMA; bfloat16 and float16 with
+// d > 128 on the wide wgmma kernel; with d <= 128, the narrow wgmma kernel,
+// unless the call carries a dense bias or an lse output (mma.sync).
+enum ForwardKernel { kNarrowKernel = 0, kMmaKernel = 1, kWideKernel = 2, kF32Kernel = 3 };
+
+int forward_kernel(int dtype, int dim_pad, bool dense_bias, bool lse) {
+  if (dtype == 2) return kF32Kernel;
+  if (dim_pad > 128) return kWideKernel;
+  return dense_bias || lse ? kMmaKernel : kNarrowKernel;
+}
+
 template <typename T>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  switch (mma_template(p.dim_pad)) {
-    case 48:
-      return launch_mma<T, 48>(p, batch, stream);
-    case 64:
-      return launch_mma<T, 64>(p, batch, stream);
-    case 80:
-      return launch_mma<T, 80>(p, batch, stream);
-    case 128:
-      return launch_mma<T, 128>(p, batch, stream);
+  constexpr int kDtype = std::is_same<T, __nv_bfloat16>::value ? 0 : 1;
+  switch (forward_kernel(kDtype, p.dim_pad, p.bias != nullptr, p.lse != nullptr)) {
+    case kNarrowKernel:
+      if (p.dim_pad <= 64) return launch_narrow<T, 64>(p, batch, stream);
+      if (p.dim_pad <= 80) return launch_narrow<T, 80>(p, batch, stream);
+      return launch_narrow<T, 128>(p, batch, stream);
+    case kMmaKernel:
+      switch (mma_template(p.dim_pad)) {
+        case 48:
+          return launch_mma<T, 48>(p, batch, stream);
+        case 64:
+          return launch_mma<T, 64>(p, batch, stream);
+        case 80:
+          return launch_mma<T, 80>(p, batch, stream);
+        default:
+          return launch_mma<T, 128>(p, batch, stream);
+      }
     default:
-      break;
+      return p.dim_pad <= 256 ? launch_wgmma<T, 256>(p, batch, stream) : launch_wgmma<T, 512>(p, batch, stream);
   }
-  return p.dim_pad <= 256 ? launch_wgmma<T, 256>(p, batch, stream) : launch_wgmma<T, 512>(p, batch, stream);
 }
 
 // The fields every entry sets: operands, sizes, the (batch, head, row)
@@ -780,6 +1363,14 @@ extern "C" int refiners_flash_attention_forward(const void* q, const void* k, co
   p.bias_cs = strides[15];
   p.causal = causal;
   return run(p, dtype, batch, stream);
+}
+
+// Which kernel a call of the entries above launches (see ForwardKernel):
+// 0 the narrow wgmma kernel, 1 mma.sync, 2 the wide wgmma kernel, 3 float32
+// FFMA; -1 for sizes the entries refuse.
+extern "C" int refiners_flash_attention_forward_kernel(int dtype, int head_dim, int dense_bias, int lse) {
+  if (!valid_sizes(1, 1, head_dim, 1) || dtype < 0 || dtype > 2) return -1;
+  return forward_kernel(dtype, (head_dim + 15) / 16 * 16, dense_bias != 0, lse != 0);
 }
 
 // K3: the relative-position bias of a kh x kw key grid (kh * kw = kv_len,

@@ -21,6 +21,11 @@
 //   m16n8k16 A fragment of warp w's 16 rows, so the accumulators of two
 //   neighbouring 8-column chunks, packed two by two, are the A operand of
 //   their 16 columns (see acc_to_a in flash_common.cuh).
+// - A narrow box of 16 columns x 64 rows with the 32-byte swizzle (2 KiB,
+//   256-byte aligned) holds the 16 columns past a whole box (d = 80): read
+//   K-major it is one 16-deep K step with 8-row groups 256 bytes apart;
+//   read MN-major (N = 16) its K step k starts 16 rows, 512 bytes, further
+//   on.
 
 #pragma once
 
@@ -37,6 +42,9 @@ namespace hopper {
 constexpr int kBox = 64;                  // rows and columns of a TMA box
 constexpr int kBoxBytes = kBox * kBox * 2;  // a box of 16-bit values: 8 KiB
 constexpr int kSwizzleAtomBytes = 1024;   // 8 rows of 128 bytes
+constexpr int kNarrowBox = 16;            // columns of a 32-byte-swizzled box
+constexpr int kNarrowBoxBytes = kNarrowBox * kBox * 2;  // 2 KiB
+constexpr int kNarrowAtomBytes = 256;     // 8 rows of 32 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -108,20 +116,28 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 // wgmma
 // ---------------------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand at byte
-// address `addr` (within a 1024-byte-aligned atom pattern): leading and
-// stride byte offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled operand at byte address
+// `addr` (within an atom pattern aligned to its repeat): leading and stride
+// byte offsets in bytes; `layout` 1 for the 128-byte swizzle, 3 for 32 bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint32_t layout) {
   return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
-         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(1) << 62;
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(layout) << 62;
 }
 
 // a K-major operand of whole boxes (K step offsets added by the caller)
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return sw128_desc(addr, 16, kSwizzleAtomBytes); }
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return smem_desc(addr, 16, kSwizzleAtomBytes, 1); }
 
-// an MN-major operand whose N runs over boxes side by side
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, kBoxBytes, kSwizzleAtomBytes);
+// an MN-major operand whose N runs over boxes `box_stride` bytes apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t box_stride = kBoxBytes) {
+  return smem_desc(addr, box_stride, kSwizzleAtomBytes, 1);
+}
+
+// a narrow box read K-major (one 16-deep K step) or MN-major (N = 16)
+__device__ __forceinline__ uint64_t narrow_kmajor_desc(uint32_t addr) {
+  return smem_desc(addr, 16, kNarrowAtomBytes, 3);
+}
+__device__ __forceinline__ uint64_t narrow_mnmajor_desc(uint32_t addr) {
+  return smem_desc(addr, kNarrowBoxBytes, kNarrowAtomBytes, 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -144,30 +160,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
       "+f"(d[i + 7])
 #define HOPPER_F32(d, i) HOPPER_F8(d, i), HOPPER_F8(d, i + 8), HOPPER_F8(d, i + 16), HOPPER_F8(d, i + 24)
 
-// d (64 x 64, float32) = (scale_d ? d : 0) + A B^T, A and B K-major in shared memory
-template <typename T>
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : HOPPER_F32(d, 0)
-        : "l"(a), "l"(b), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : HOPPER_F32(d, 0)
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-}
-
+#define HOPPER_N16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+#define HOPPER_N64_REGS                                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
 #define HOPPER_N128_REGS                                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                           \
@@ -182,44 +178,79 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
   "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                           \
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "                \
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-
-// d (64 x N, float32) += A B, A (64 x 16) from registers, B (16 x N)
-// MN-major in shared memory (the transpose bit set): N = 128 or 256
+// d (64 x N, float32) = (scale_d ? d : 0) + A B^T, A and B K-major in
+// shared memory: N = 64 or 128
 template <typename T, int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  static_assert(N == 128 || N == 256, "wgmma_rs is compiled for N = 128 and 256");
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss is compiled for N = 64 and 128");
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 128 && bf16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_N128_REGS
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : HOPPER_F32(d, 0), HOPPER_F32(d, 32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_N128_REGS
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : HOPPER_F32(d, 0), HOPPER_F32(d, 32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (N == 64 && bf16) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_N64_REGS "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F32(d, 0) : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HOPPER_N64_REGS "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F32(d, 0) : "l"(a), "l"(b), "r"(scale_d));
   } else if constexpr (bf16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_N256_REGS
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_N128_REGS
+                 "%64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32) : "l"(a), "l"(b), "r"(scale_d));
   } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 " HOPPER_N256_REGS
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_N128_REGS
+                 "%64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32) : "l"(a), "l"(b), "r"(scale_d));
   }
 }
 
+// an RS product: A in operands I0..I3, the B descriptor in I4, scale-d in P
+#define HOPPER_RS_TAIL(I0, I1, I2, I3, I4) \
+  "{%" #I0 ", %" #I1 ", %" #I2 ", %" #I3 "}, %" #I4 ", p, 1, 1, 1;\n}\n"
+#define HOPPER_RS(SHAPE, TYPE, REGS, P, I0, I1, I2, I3, I4)                                           \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                                               \
+  "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE " " REGS HOPPER_RS_TAIL(I0, I1, I2, I3, I4)
+
+// d (64 x N, float32) += A B, A (64 x 16) from registers, B (16 x N)
+// MN-major in shared memory (the transpose bit set): N = 16, 64, 128 or 256
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 16 || N == 64 || N == 128 || N == 256, "wgmma_rs is compiled for N = 16, 64, 128 and 256");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+#define HOPPER_RS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+  if constexpr (N == 16 && bf16) {
+    asm volatile(HOPPER_RS("m64n16k16", "bf16", HOPPER_N16_REGS, 13, 8, 9, 10, 11, 12)
+                 : HOPPER_F8(d, 0) : HOPPER_RS_IN);
+  } else if constexpr (N == 16) {
+    asm volatile(HOPPER_RS("m64n16k16", "f16", HOPPER_N16_REGS, 13, 8, 9, 10, 11, 12)
+                 : HOPPER_F8(d, 0) : HOPPER_RS_IN);
+  } else if constexpr (N == 64 && bf16) {
+    asm volatile(HOPPER_RS("m64n64k16", "bf16", HOPPER_N64_REGS, 37, 32, 33, 34, 35, 36)
+                 : HOPPER_F32(d, 0) : HOPPER_RS_IN);
+  } else if constexpr (N == 64) {
+    asm volatile(HOPPER_RS("m64n64k16", "f16", HOPPER_N64_REGS, 37, 32, 33, 34, 35, 36)
+                 : HOPPER_F32(d, 0) : HOPPER_RS_IN);
+  } else if constexpr (N == 128 && bf16) {
+    asm volatile(HOPPER_RS("m64n128k16", "bf16", HOPPER_N128_REGS, 69, 64, 65, 66, 67, 68)
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32) : HOPPER_RS_IN);
+  } else if constexpr (N == 128) {
+    asm volatile(HOPPER_RS("m64n128k16", "f16", HOPPER_N128_REGS, 69, 64, 65, 66, 67, 68)
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32) : HOPPER_RS_IN);
+  } else if constexpr (bf16) {
+    asm volatile(HOPPER_RS("m64n256k16", "bf16", HOPPER_N256_REGS, 133, 128, 129, 130, 131, 132)
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96) : HOPPER_RS_IN);
+  } else {
+    asm volatile(HOPPER_RS("m64n256k16", "f16", HOPPER_N256_REGS, 133, 128, 129, 130, 131, 132)
+                 : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64), HOPPER_F32(d, 96) : HOPPER_RS_IN);
+  }
+#undef HOPPER_RS_IN
+}
+
+#undef HOPPER_RS
+#undef HOPPER_RS_TAIL
+#undef HOPPER_N16_REGS
+#undef HOPPER_N64_REGS
 #undef HOPPER_N128_REGS
 #undef HOPPER_N256_REGS
 #undef HOPPER_F32
@@ -252,14 +283,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D tensor map over 16-bit values (columns, rows, heads, batch), strides
-// in elements, for boxes of 64 columns x 64 rows of one head with the
-// 128-byte swizzle. Columns past `cols` and rows past `rows` read as zeros.
-// Returns false where the encoder refuses the map (strides not multiples of
-// 16 bytes, an unaligned base).
-inline bool encode_box_map(CUtensorMap* map, bool bf16, const void* base, int cols, int rows, int heads, int batch,
-                           long long row_stride, long long head_stride, long long batch_stride) {
+// in elements, for boxes of `box_cols` columns x 64 rows of one head: 64
+// columns with the 128-byte swizzle, or 16 (`kNarrowBox`) with the 32-byte
+// swizzle. Columns past `cols` and rows past `rows` read as zeros. Returns
+// false where the encoder refuses the map (strides not multiples of 16
+// bytes, an unaligned base).
+inline bool encode_map(CUtensorMap* map, bool bf16, const void* base, int cols, int rows, int heads, int batch,
+                       long long row_stride, long long head_stride, long long batch_stride, int box_cols) {
   const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
+  if (encode == nullptr || (box_cols != kBox && box_cols != kNarrowBox)) return false;
   const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(heads), cuuint64_t(batch)};
   const long long strides[3] = {row_stride, head_stride, batch_stride};
   cuuint64_t bytes[3];
@@ -268,12 +300,12 @@ inline bool encode_box_map(CUtensorMap* map, bool bf16, const void* base, int co
     const bool unit = dims[i + 1] == 1 && (strides[i] <= 0 || strides[i] % 8 != 0);
     bytes[i] = unit ? 16 : cuuint64_t(strides[i]) * 2;
   }
-  const cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), kBox, 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == kBox ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
                               const_cast<void*>(base), dims, bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS;
 }
 

@@ -104,10 +104,11 @@ def _kind(name: str) -> str:
 
 def device_breakdown(
     prof: torch.profiler.profile, wall: float, label: str = "warm steps", unit: str = "two steps", top: int = 0
-) -> None:
+) -> dict[str, Any]:
     """Device time by kernel kind of a traced run (and its `top` kernels by
     name), and its idle share; `wall` is the host-clock seconds of the same
-    work unprofiled."""
+    work unprofiled. Printed, and returned: summed device milliseconds, by
+    kind, and the idle share of the traced window."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -138,6 +139,7 @@ def device_breakdown(
         f"  traced window {window / 1e3:.1f} ms from the first kernel's start to the last one's end, device busy "
         f"{busy / 1e3:.1f} ms, idle share {1 - busy / window:.3f}; the same {unit} unprofiled: {wall * 1e3:.1f} ms"
     )
+    return {"device_ms": total, "by_kind_ms": {k: v[0] for k, v in by_kind.items()}, "idle_share": 1 - busy / window}
 
 
 def main() -> None:

@@ -17,8 +17,12 @@ Replaces the TPU kernels of ``refiners_tpu/ops/flash_attention.py``:
 The TPU's lane-width head grouping (``_packed_n_sub`` and its flat fallback)
 does not exist here: both entries view their operands as (B, H, L, D) through
 strides and launch the same kernels, with no split/merge-heads copies. Each
-source holds a tensor-core version for bfloat16 and float16 and an FFMA
-version for float32 (which keeps float32 accuracy), picked by dtype.
+source holds tensor-core versions for bfloat16 and float16 and an FFMA
+version for float32 (which keeps float32 accuracy). The forward source picks
+its kernel by what a call carries (`forward_kernel` names it): float32 on
+FFMA; d > 128 on the wide wgmma kernel; d ≤ 128 on the narrow wgmma kernel
+(TMA, two consumer warpgroups), unless the call has a dense bias or an lse
+output, which take the mma.sync kernel.
 
 Entries and their launch counters (a plain integer on each wrapper, one per
 launch of its kernel):
@@ -54,6 +58,9 @@ MASKED_SCORE = -1e30
 MAX_BACKWARD_HEAD_DIM = 128
 # widest key grid side (kh and kw each) of the relative-position kernel
 MAX_RELPOS_SIDE = 256
+# the CUDA kernels of csrc/flash_attention_forward.cu, numbered as its
+# `refiners_flash_attention_forward_kernel` entry numbers them
+FORWARD_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_mma_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +240,18 @@ def _launch_forward(
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError {err}")
+
+
+def forward_kernel(dtype: torch.dtype, head_dim: int, dense_bias: bool = False, lse: bool = False) -> str:
+    """The CUDA kernel that a forward call on the card launches, as the C
+    entry routes it (a relative-position call carries no dense bias and no
+    lse). Builds the kernels if needed."""
+    code = load_library().refiners_flash_attention_forward_kernel(
+        DTYPE_CODES[dtype], head_dim, int(dense_bias), int(lse)
+    )
+    if code < 0:
+        raise ValueError(f"the forward kernels do not take head_dim={head_dim}")
+    return FORWARD_KERNELS[code]
 
 
 def _launch_backward(

@@ -58,6 +58,10 @@ def _qkv(batch: int, lq: int, lk: int, width: int, seed: int) -> list[np.ndarray
         (1, 192, 320, 1, 256, False),
         (1, 256, 256, 1, 512, True),
         (2, 130, 150, 2, 200, False),
+        # the card's narrow kernel: d = 80 (a 64-column box and a 16-column
+        # box) causal with Lq != Lk, neither a multiple of 128; d = 128 ragged
+        (1, 200, 330, 3, 80, True),
+        (2, 300, 260, 2, 128, False),
     ],
 )
 def test_flash_attention_packed_matches_jax(batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool) -> None:

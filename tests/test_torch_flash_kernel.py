@@ -100,20 +100,43 @@ def test_kernel_matches_plain(
     assert _rel(got, want) <= (F32_TOL if dtype == torch.float32 else TOL)
 
 
-def test_kernel_reads_strided_heads(device: torch.device) -> None:
-    """q, k, v as column slices of one fused projection (row stride 3·H·D)."""
-    qkv = torch.randn((2, 512, 3 * 256), device=device).bfloat16()
-    q, k, v = qkv[..., :256], qkv[..., 256:512], qkv[..., 512:]
-    got = flash_attention_packed(q, k, v, head_dim=64)
-    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=64)
+# every padded head dim of the narrow kernel (64, 80, 128) and the widths
+# that pad into each: d = 8 and 40 run one or three of its four 16-column
+# steps of Q K^T, d = 72 and 80 the 16-column box, d = 96 six of eight steps
+NARROW_DIMS = [8, 40, 64, 72, 80, 96, 128]
+
+
+@pytest.mark.parametrize("dim", [40, 64, 80, 128])
+def test_kernel_reads_strided_heads(device: torch.device, dim: int) -> None:
+    """Four heads as column slices of one fused projection (row stride
+    3·4·d), read in place by the narrow kernel's tensor maps; TOL (1e-2)."""
+    width = 4 * dim
+    qkv = torch.randn((2, 512, 3 * width), generator=torch.Generator(device).manual_seed(dim), device=device).bfloat16()
+    q, k, v = qkv[..., :width], qkv[..., width : 2 * width], qkv[..., 2 * width :]
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, head_dim=dim)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=dim)
     assert _rel(got, want) <= TOL
 
 
-def test_causal_rows_without_keys_get_uniform_weights(device: torch.device) -> None:
-    q, k, v = _qkv(device, 1, 300, 200, 128, torch.bfloat16)
-    got = flash_attention_packed(q, k, v, is_causal=True, head_dim=64).float()
-    uniform = v.float().mean(dim=1, keepdim=True).expand(1, 100, 128)
+@pytest.mark.parametrize("dim", NARROW_DIMS)
+def test_causal_rows_without_keys_get_uniform_weights(device: torch.device, dim: int) -> None:
+    """Causal with Lq > Lk: the first Lq - Lk rows have no admissible key and
+    get uniform weights, the rest match the plain version; and causal with
+    Lq < Lk. All within TOL (1e-2)."""
+    q, k, v = _qkv(device, 1, 300, 200, 2 * dim, torch.bfloat16)
+    got = flash_attention_packed(q, k, v, is_causal=True, head_dim=dim).float()
+    torch.cuda.synchronize()
+    uniform = v.float().mean(dim=1, keepdim=True).expand(1, 100, 2 * dim)
     assert _rel(got[:, :100], uniform) <= TOL
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=True, head_dim=dim)
+    assert _rel(got[:, 100:], want[:, 100:]) <= TOL
+    q, k, v = _qkv(device, 2, 450, 700, 2 * dim, torch.bfloat16)
+    got = flash_attention_packed(q, k, v, is_causal=True, head_dim=dim)
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), is_causal=True, head_dim=dim)
+    assert _rel(got, want) <= TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -154,6 +177,36 @@ def test_wide_kernel_reads_strided_heads(device: torch.device) -> None:
     torch.cuda.synchronize()
     assert flash_attention_packed.launches == before + 1
     want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=512)
+    assert _rel(got, want) <= TOL
+
+
+def test_forward_routes_by_what_the_call_carries(device: torch.device) -> None:
+    """d <= 128 without a dense bias or an lse takes the narrow wgmma kernel;
+    a dense bias or an lse keeps mma.sync; d > 128 the wide wgmma kernel;
+    float32 the FFMA kernel."""
+    for dim in NARROW_DIMS:
+        for dtype in (torch.bfloat16, torch.float16):
+            assert fa.forward_kernel(dtype, dim) == "flash_fwd_narrow_kernel"
+    assert fa.forward_kernel(torch.bfloat16, 40, lse=True) == "flash_fwd_mma_kernel"
+    assert fa.forward_kernel(torch.bfloat16, 64, dense_bias=True) == "flash_fwd_mma_kernel"
+    assert fa.forward_kernel(torch.bfloat16, 136) == "flash_fwd_wgmma_kernel"
+    assert fa.forward_kernel(torch.float32, 64) == "flash_fwd_f32_kernel"
+    with pytest.raises(ValueError):
+        fa.forward_kernel(torch.bfloat16, 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dim", NARROW_DIMS)
+def test_narrow_kernel_matches_plain(device: torch.device, dim: int, dtype: torch.dtype) -> None:
+    """Ragged lengths (neither a multiple of 64), Lq != Lk, three packed
+    heads: within TOL (1e-2) of the float32 plain version."""
+    q, k, v = _qkv(device, 2, 1000, 1100, 3 * dim, dtype)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, head_dim=dim)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=dim)
     assert _rel(got, want) <= TOL
 
 
@@ -351,6 +404,10 @@ def _relpos_operands(
         (1, 10, 10, 1, 32, torch.bfloat16),  # where the TPU kernel falls back to a dense bias
         (2, 16, 16, 2, 64, torch.float16),
         (1, 8, 24, 2, 128, torch.bfloat16),  # a key grid that is not square
+        (2, 12, 20, 2, 80, torch.bfloat16),  # kw does not divide 64: the counters wrap inside a tile
+        (1, 20, 12, 3, 72, torch.float16),  # and the transpose, at d = 72
+        (1, 130, 130, 1, 64, torch.bfloat16),  # tables past 64 KiB: v_rel and h_rel read through L1
+        (1, 256, 3, 2, 40, torch.bfloat16),  # the tallest grid, at d = 40
         (1, 16, 16, 2, 160, torch.bfloat16),  # the wgmma kernel, padded to 256
         (1, 16, 16, 2, 256, torch.bfloat16),  # the wgmma kernel
         (1, 64, 64, 16, 80, torch.float32),
@@ -362,6 +419,8 @@ def test_relpos_kernel_matches_plain(
     device: torch.device, batch: int, kh: int, kw: int, heads: int, dim: int, dtype: torch.dtype
 ) -> None:
     q, k, v, v_rel, h_rel = _relpos_operands(device, batch, kh, kw, heads, dim, dtype)
+    if dtype != torch.float32 and dim <= 128:
+        assert fa.forward_kernel(dtype, dim) == "flash_fwd_narrow_kernel"
     before = fa.flash_attention_relpos.launches
     got = fa.flash_attention_relpos(q, k, v, v_rel, h_rel)
     torch.cuda.synchronize()

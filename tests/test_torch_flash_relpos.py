@@ -55,6 +55,7 @@ def _operands(kh: int, kw: int, heads: int, d: int, seed: int) -> list[np.ndarra
         (16, 16, 2, 64),  # the JAX kernel's whole-rows-per-tile branch
         (14, 14, 3, 80),  # SAM's windowed layers: one padded key block
         (10, 10, 1, 32),  # the JAX package falls back to its dense-bias kernel
+        (12, 20, 2, 80),  # rectangular, kw does not divide 64: the card's counters wrap mid-tile
     ],
 )
 def test_relpos_plain_matches_jax(kh: int, kw: int, heads: int, d: int) -> None:
