@@ -20,14 +20,17 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
      against the plain version in float32; uniform weights on causal rows
      that have no admissible key;
-   - the forward with bias and logsumexp (``flash_attention``) at the
-     SD1.5 shapes, a ragged, a causal and a biased case: out ≤ 1e-2, lse max
+   - the forward with bias and logsumexp (``flash_attention``, K2, on the
+     narrow kernel) at the SD1.5 shapes, a ragged, two causal (one with
+     Lq > Lk) and four biased cases (full, broadcast over heads, a key bias
+     broadcast over batch, heads and rows, d = 128): out ≤ 1e-2, lse max
      abs ≤ 1e-3; a boolean mask with a fully masked row gives uniform
      weights;
-   - the backward kernels (``flash_attention_bwd_dkv``,
-     ``flash_attention_bwd_dq``) at the SD1.5 shapes and a causal case, and
-     through strided heads of a packed fused projection: dq, dk, dv each
-     ≤ 2e-2 against ``flash_attention_backward_plain`` in float32;
+   - the backward kernels (``flash_attention_bwd_dkv``, K4a on wgmma, and
+     ``flash_attention_bwd_dq``, K4b) at the SD1.5 shapes, causal cases at
+     d = 80, d = 128 and d = 40 with Lq > Lk, and through strided heads of
+     a packed fused projection: dq, dk, dv each ≤ 2e-2 against
+     ``flash_attention_backward_plain`` in float32;
    - the forward with SAM's decomposed relative-position bias
      (``flash_attention_relpos``) at the SAM-H global and windowed layers'
      shapes and at a 10 × 10 key grid, in bf16 and float32, against
@@ -52,7 +55,10 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      two layers also the device time of calls queued behind a stream sleep,
      of the kernel and of the library call, which leaves out the host's
      share of a single launch; and the CUDA kernel that serves each entry
-     (``flash_attention.forward_kernel``).
+     (``flash_attention.forward_kernel``). K2 and K4 at both SD1.5 sites
+     (64×64 and 32×32 latents) queued and single, against
+     ``aten._scaled_dot_product_flash_attention`` (which returns the lse, as
+     K2 does) and its backward (against the delta reduction + K4a + K4b).
 3. SDXL serving: full-width SDXL (UNet, CLIP-L + CLIP-G, VAE) in bf16 with
    seeded synthetic weights, one UNet step through the kernel against the
    same step on the plain path, then 3 requests through ``TextToImage`` at
@@ -114,6 +120,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -161,16 +168,21 @@ ATTENTION_SHAPES = [
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
+TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
-    # (batch, q_len, kv_len, heads, head_dim, causal, bias, dtype)
-    (2, 4096, 4096, 8, 40, False, False, BF16),  # SD1.5 UNet self-attention at 64×64 latents
-    (2, 1024, 1024, 8, 80, False, False, BF16),  # SD1.5 UNet self-attention at 32×32 latents
-    (2, 1000, 1100, 5, 64, False, False, BF16),  # ragged
-    (2, 1024, 1024, 8, 80, True, False, BF16),  # causal
-    (1, 1024, 1024, 4, 64, False, True, BF16),  # a float32 bias (B, H, Lq, Lk)
-    (2, 4096, 4096, 8, 40, False, False, F32),
-    (2, 1024, 1024, 8, 80, False, False, F32),
-    (2, 1000, 1100, 5, 64, True, True, F32),  # ragged, causal and biased
+    # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
+    (2, 4096, 4096, 8, 40, False, None, BF16),  # SD1.5 UNet self-attention at 64×64 latents
+    (2, 1024, 1024, 8, 80, False, None, BF16),  # SD1.5 UNet self-attention at 32×32 latents
+    (2, 1000, 1100, 5, 64, False, None, BF16),  # ragged
+    (2, 1024, 1024, 8, 80, True, None, BF16),  # causal
+    (2, 1200, 1000, 8, 40, True, None, BF16),  # causal, Lq > Lk: 200 rows without a key
+    (1, 1024, 1024, 4, 64, False, (1, 4, 1024, 1024), BF16),  # a float32 bias (B, H, Lq, Lk)
+    (2, 1024, 1024, 8, 40, False, (2, 1, 1024, 1024), BF16),  # broadcast over heads (stride 0)
+    (2, 4096, 4096, 8, 40, False, (1, 1, 1, 4096), BF16),  # a key bias broadcast over B, H and rows
+    (1, 1000, 1100, 4, 128, False, (1, 4, 1000, 1100), BF16),  # d = 128, ragged, biased
+    (2, 4096, 4096, 8, 40, False, None, F32),
+    (2, 1024, 1024, 8, 80, False, None, F32),
+    (2, 1000, 1100, 5, 64, True, (2, 5, 1000, 1100), F32),  # ragged, causal and biased
 ]
 RELPOS_SHAPES = [
     # (batch, kh, kw, heads, head_dim, dtype); q_len = kv_len = kh·kw
@@ -214,9 +226,12 @@ INT8_PSNR_FLOOR = 20.0  # tests/tpu/test_bf16_tpu.py: the int8 image against the
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
 BACKWARD_SHAPES = [
-    (2, 4096, 4096, 8, 40, False, BF16),
-    (2, 1024, 1024, 8, 80, False, BF16),
+    # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
+    (2, 4096, 4096, 8, 40, False, BF16),  # SD1.5 UNet self-attention at 64×64 latents
+    (2, 1024, 1024, 8, 80, False, BF16),  # at 32×32 latents
     (2, 1024, 1024, 8, 80, True, BF16),
+    (2, 1024, 1024, 8, 128, True, BF16),  # the D = 128 instance
+    (2, 1200, 1000, 8, 40, True, BF16),  # Lq > Lk: 200 query rows without a key
     (2, 4096, 4096, 8, 40, False, F32),
     (2, 1024, 1024, 8, 80, False, F32),
     (2, 1000, 1100, 5, 64, True, F32),
@@ -257,6 +272,25 @@ def _smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )  # fmt: skip
     return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(ptxas_line: str) -> str:
+    """`flash_bwd_dkv_wgmma_kernel<bf16, 128>` from the ptxas line that names
+    a kernel of this repository's sources: the last scope of its mangled
+    name (each scope is its length, then its name) and the template's type
+    and integer arguments."""
+    mangled = ptxas_line.split("'")[1] if "'" in ptxas_line else ptxas_line.strip()
+    pos, name = 3, mangled
+    while mangled.startswith("_ZN") and pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        start = pos + len(digits)
+        name, pos = mangled[start : start + int(digits)], start + int(digits)
+    template = re.match(r"I(\w*?)EE?v", mangled[pos:])
+    if template is None:
+        return name
+    types = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "float32"}
+    args = [types.get(tok, tok) for tok in re.findall(r"13__nv_bfloat16|6__half|^f|(?<=Li)\d+", template.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def _time_ms(fn: Callable[[], Any], reps: int, warmup: int = 2) -> float:
@@ -386,9 +420,9 @@ def check_forward(dev: torch.device) -> list[dict]:
 
     results = []
     gen = torch.Generator(dev).manual_seed(1)
-    for b, lq, lk, h, d, causal, with_bias, dtype in FORWARD_SHAPES:
+    for b, lq, lk, h, d, causal, bias_shape, dtype in FORWARD_SHAPES:
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device=dev).to(dtype) for n in (lq, lk, lk))
-        bias = torch.randn((b, h, lq, lk), generator=gen, device=dev) if with_bias else None
+        bias = torch.randn(bias_shape, generator=gen, device=dev) if bias_shape else None
         out, lse = fa.flash_attention_forward(q, k, v, bias, is_causal=causal, with_lse=True)
         torch.cuda.synchronize()
         ref, ref_lse = fa._plain_forward(q.float(), k.float(), v.float(), bias, causal, None)
@@ -397,7 +431,7 @@ def check_forward(dev: torch.device) -> list[dict]:
         plain_ms = _time_ms(lambda: fa._plain_forward(q, k, v, bias, causal, None), reps=3, warmup=1)
         flops = 4 * b * h * lq * lk * d / (2 if causal else 1)
         print(
-            f"forward+lse (B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal}, bias={with_bias}, {dtype}): "
+            f"forward+lse (B={b}, Lq={lq}, Lk={lk}, H={h}, d={d}, causal={causal}, bias={bias_shape}, {dtype}): "
             f"rel_err={rel:.3e} max_abs_err={max_abs:.3e} lse_max_abs_err={lse_err:.3e} kernel_ms={ms:.3f} "
             f"plain_ms={plain_ms:.3f} kernel_TFLOP/s={flops / ms / 1e9:.1f}"
         )
@@ -405,7 +439,7 @@ def check_forward(dev: torch.device) -> list[dict]:
         if not (rel <= tol and lse_err <= lse_tol):
             raise AssertionError(f"forward kernel disagrees: rel_err={rel} (≤ {tol}), lse {lse_err} (≤ {lse_tol})")
         results.append(
-            {"shape": [b, lq, lk, h, d], "causal": causal, "bias": with_bias, "dtype": str(dtype), "rel_err": rel,
+            {"shape": [b, lq, lk, h, d], "causal": causal, "bias": bias_shape, "dtype": str(dtype), "rel_err": rel,
              "max_abs_err": max_abs, "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms}
         )  # fmt: skip
         del q, k, v, bias, out, lse, ref, ref_lse
@@ -571,26 +605,50 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
             rows[label]["device_ms"] = _device_ms(lambda: fa.flash_attention_packed(q, k, v, head_dim=d))
             rows[label]["library_device_ms"] = _device_ms(library)
         del q, k, v
-    # K2 and K4: (B, H, L, D) at the SD1.5 UNet's 64×64 self-attention
-    b, h, seq, d = 2, 8, 4096, 40
-    q, k, v = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
-    n = b * h * seq * d
-    rows["K2"] = {
-        **_bound(4 * b * h * seq * seq * d, 4 * n * 2 + b * h * seq * 4, BF16),
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10),
-        "library_call": "F.scaled_dot_product_attention (no lse)",
-        "cuda_kernel": fa.forward_kernel(BF16, d, lse=True),
-    }
-    q, k, v = (t.requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q, k, v)
-    do = randn(b, h, seq, d)
-    backward_ms = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), reps=10)
-    backward_call = "the backward of F.scaled_dot_product_attention (dq, dk, dv), against K4a + K4b"
-    rows["K4a"] = {**_bound(8 * b * h * seq * seq * d, 6 * n * 2 + 2 * b * h * seq * 4, BF16),
-                   "library_ms": backward_ms, "library_call": backward_call}  # fmt: skip
-    rows["K4b"] = {**_bound(6 * b * h * seq * seq * d, 5 * n * 2 + 2 * b * h * seq * 4, BF16),
-                   "library_ms": backward_ms, "library_call": backward_call}  # fmt: skip
-    del q, k, v, out, do
+    # K2 and K4 at the SD1.5 UNet's self-attention sites, (B, H, L, D) at
+    # 64×64 and 32×32 latents (5 launches each per training step), against
+    # the flash-attention calls of PyTorch that return and take the lse
+    aten = torch.ops.aten
+    for label, (b, h, seq, d) in (("", (2, 8, 4096, 40)), (" 32²", (2, 8, 1024, 80))):
+        q, k, v, do = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
+        n, scale = b * h * seq * d, 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_forward(q, k, v, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        library = lambda: aten._scaled_dot_product_flash_attention(q, k, v, scale=scale)  # noqa: E731
+        lib = library()
+        library_backward = lambda: aten._scaled_dot_product_flash_attention_backward(  # noqa: E731
+            do, q, k, v, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5], 0.0, False, lib[6], lib[7], scale=scale
+        )
+        backward = lambda: fa.flash_attention_backward(q, k, v, out, lse, do)  # noqa: E731
+        dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False, scale)  # noqa: E731
+        dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False, scale)  # noqa: E731
+        backward_call = (
+            "aten._scaled_dot_product_flash_attention_backward (dq, dk, dv), against flash_attention_backward "
+            "(the delta reduction + K4a + K4b)"
+        )
+        library_backward_ms, library_backward_device_ms = _time_ms(library_backward, reps=10), _device_ms(library_backward)
+        backward_ms, backward_device_ms = _time_ms(backward, reps=10), _device_ms(backward)
+        together = {"backward_ms": backward_ms, "backward_device_ms": backward_device_ms}
+        rows["K2" + label] = {
+            **_bound(4 * b * h * seq * seq * d, 4 * n * 2 + b * h * seq * 4, BF16),
+            "library_ms": _time_ms(library, reps=10),
+            "library_call": "aten._scaled_dot_product_flash_attention (out and lse)",
+            "cuda_kernel": fa.forward_kernel(BF16, d),
+            "device_ms": _device_ms(lambda: fa.flash_attention_forward(q, k, v, with_lse=True)),
+            "library_device_ms": _device_ms(library),
+        }
+        rows["K4a" + label] = {
+            **_bound(8 * b * h * seq * seq * d, 6 * n * 2 + 2 * b * h * seq * 4, BF16),
+            "library_ms": library_backward_ms, "library_call": backward_call, "cuda_kernel": fa.BACKWARD_KERNELS[BF16][0],
+            "device_ms": _device_ms(dkv), "library_device_ms": library_backward_device_ms, **together,
+        }  # fmt: skip
+        rows["K4b" + label] = {
+            **_bound(6 * b * h * seq * seq * d, 5 * n * 2 + 2 * b * h * seq * 4, BF16),
+            "library_ms": library_backward_ms, "library_call": backward_call, "cuda_kernel": fa.BACKWARD_KERNELS[BF16][1],
+            "device_ms": _device_ms(dq), "library_device_ms": library_backward_device_ms, **together,
+        }  # fmt: skip
+        del q, k, v, do, out, lse, delta, lib
+        _free()
     # K3: SAM-H's global and windowed layers; the dense bias is built outside the timed call
     for label, (b, kh, h, d) in (("K3 global", (1, 64, 16, 80)), ("K3 windowed", (25, 14, 16, 80))):
         seq = kh * kh
@@ -1333,9 +1391,12 @@ def main() -> int:
     paths, log = build.build_libraries()
     build.load_library()
     print(f"build: {', '.join(p.name for p in paths.values())} in {time.perf_counter() - start:.1f} s")
+    entry = ""
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = _kernel_name(line)
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas: {entry}: {line.split('info    :')[-1].strip()}")
 
     check_device_default()
     packed = check_packed_forward(dev)
@@ -1348,6 +1409,17 @@ def main() -> int:
     quantize = check_quantize(dev)
     for first, label in ((packed, "K1"), (forward, "K2"), (relpos, "K3 global"), (dkv, "K4a"), (dq, "K4b")):
         _print_row(label, first[0]["ms"], rows[label])
+    # the SD1.5 UNet's 32×32 site: the first bf16 case at its shape in each list
+    train32 = {label: next(r for r in results if r["shape"] == TRAIN32_SHAPE and r["dtype"] == str(BF16))
+               for results, label in ((forward, "K2 32²"), (dkv, "K4a 32²"), (dq, "K4b 32²"))}  # fmt: skip
+    for label, result in train32.items():
+        _print_row(label, result["ms"], rows[label])
+    for label in ("K4a", "K4a 32²"):
+        print(
+            f"row {label}: delta + K4a + K4b {rows[label]['backward_ms']:.4f} ms single, "
+            f"{rows[label]['backward_device_ms']:.4f} queued; library {rows[label]['library_ms']:.4f} / "
+            f"{rows[label]['library_device_ms']:.4f}"
+        )
     vae = next(r for r in packed if r["shape"] == VAE_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 VAE", vae["ms"], rows["K1 VAE"])
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
@@ -1381,6 +1453,18 @@ def main() -> int:
         for site, label, result in (("SDXL UNet 64², d = 64", "K1", packed[0]), ("SDXL UNet 32², d = 64", "K1 32²", unet32),
                                     ("SDXL VAE, d = 512", "K1 VAE", vae))
     ]  # fmt: skip
+    # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
+    train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
+                  "backward_device_ms")  # fmt: skip
+
+    def train_sites(label: str, first: dict) -> list[dict]:
+        return [
+            {"site": site, "shape": result["shape"], "ms": result["ms"], "plain_ms": result["plain_ms"],
+             **{key: rows[row][key] for key in train_keys if key in rows[row]}}
+            for site, row, result in (("SD1.5 UNet 64², d = 40", label, first),
+                                      ("SD1.5 UNet 32², d = 80", f"{label} 32²", train32[f"{label} 32²"]))
+        ]  # fmt: skip
+
     windowed_row = {"shape": windowed["shape"], "ms": windowed["ms"], "plain_ms": windowed["plain_ms"],
                     **{key: rows["K3 windowed"][key] for key in ("bound_ms", "bound_by", "library_ms", "device_ms",
                                                                  "library_device_ms")}}  # fmt: skip
@@ -1389,11 +1473,14 @@ def main() -> int:
             {**kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
                       sdxl_launches["flash_attention_packed"], packed, rows["K1"]), "sites": sites},
             {**kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
-                      train_launches["flash_attention"], forward, rows["K2"]), "cuda_kernel": rows["K2"]["cuda_kernel"]},
-            kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
-                   train_launches["flash_attention_bwd_dkv"], dkv, rows["K4a"]),
-            kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
-                   train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
+                      train_launches["flash_attention"], forward, rows["K2"]), "cuda_kernel": rows["K2"]["cuda_kernel"],
+             "sites": train_sites("K2", forward[0])},
+            {**kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
+                      train_launches["flash_attention_bwd_dkv"], dkv, rows["K4a"]),
+             "cuda_kernel": rows["K4a"]["cuda_kernel"], "sites": train_sites("K4a", dkv[0])},
+            {**kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
+                      train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
+             "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0])},
             {**kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
                       sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
              "cuda_kernel": rows["K3 global"]["cuda_kernel"], "device_ms": rows["K3 global"]["device_ms"],

@@ -19,28 +19,42 @@
 // causal row with no admissible key has P = 0 everywhere, so it gets a zero
 // gradient, as the TPU kernel gives it.
 //
-// As on the TPU there are two kernels and no atomics: the dK/dV kernel owns
-// a tile of 64 keys (16 per warp) and loops over the query tiles; the dQ
-// kernel owns a tile of 64 queries and loops over the key tiles. Each
-// recomputes S, P, dP and dS for its tile pairs on mma.sync m16n8k16. In
-// the dK/dV kernel a warp's products run transposed (S^T = K Q^T,
-// dP^T = V dO^T), so that P^T and dS^T come out as accumulators that feed
-// the next products (P^T dO, dS^T Q) from registers, as P feeds PV in the
-// forward. The streamed tiles (Q, dO, lse, delta for dK/dV; K and V for dQ)
-// are double-buffered in shared memory with cp.async. With `causal`, tiles
-// that lie wholly above the diagonal are skipped.
+// As on the TPU there are two kernels and no atomics, so the gradients are
+// deterministic: the dK/dV kernel owns a tile of keys and loops over the
+// query tiles; the dQ kernel owns a tile of 64 queries and loops over the
+// key tiles. With `causal`, tiles that lie wholly above the diagonal are
+// skipped. Heads are read through (batch, head, row) strides, so the packed
+// (B, L, H*D) layout, the flat (B, H, L, D) layout and column slices of a
+// fused projection all run in place. head_dim <= 128.
 //
-// Heads are read through (batch, head, row) strides, so the packed
-// (B, L, H*D) layout and the flat (B, H, L, D) layout both run in place.
-// head_dim <= 128, compiled for padded head dims 48, 64, 80 and 128.
-//
-// For float32 the same two kernels run on plain FFMA with 8 warps (P and dS
-// unrounded, float32 throughout), so the gradients keep float32 accuracy.
+// - dK/dV, bfloat16 and float16 (K4a): `flash_bwd_dkv_wgmma_kernel`,
+//   compiled for padded head dims 64, 80 and 128 (hopper::Tile: whole
+//   64-column boxes with the 128-byte swizzle plus a 16-column box with the
+//   32-byte swizzle, so d = 80 pays for 80 columns; d <= 64 runs the D = 64
+//   instance). A block is 128
+//   keys, two warpgroups of 64, with K and V loaded once by TMA; Q and dO
+//   stream through a three-stage TMA ring, lse and delta beside them by
+//   cp.async onto the same mbarriers. Every product is a warpgroup wgmma:
+//   S^T = K Q^T and dP^T = V dO^T from shared memory, so P^T and dS^T come
+//   out as accumulators whose rows are keys, and feed dV += P^T dO and
+//   dK += dS^T Q as register A operands (dO and Q read MN-major through the
+//   transpose bit). Neither P nor dS goes through shared memory, every Q
+//   and dO byte read from L2 serves 128 keys, and the two warpgroups take
+//   turns on the tensor cores, as the forward's narrow kernel does.
+// - dQ, bfloat16 and float16 (K4b): `flash_bwd_dq_kernel`, FlashAttention-2
+//   on mma.sync m16n8k16, 4 warps of 16 query rows, K and V tiles double-
+//   buffered with cp.async, compiled for padded head dims 48, 64, 80 and
+//   128.
+// - float32: the same two kernels on plain FFMA with 8 warps (P and dS
+//   unrounded, float32 throughout), so the gradients keep float32 accuracy.
 //
 // What bounds it on the H100: tensor-core throughput, as in the forward
 // (the dK/dV kernel does 8*L^2*d flops per head, the dQ kernel 6*L^2*d),
-// with register pressure at d = 128 (two float32 accumulators of 16 x d per
-// warp in the dK/dV kernel).
+// and beside it the exp2 of every P entry on the MUFU; with 64 keys a
+// warpgroup, the dK/dV kernel holds 64 x D float32 of dK and of dV per
+// warpgroup in registers (D floats a thread), two 64 x 64 score tiles and
+// their packed A operands: 224 values at D = 128, which ptxas fits in 254
+// of the 255 registers a thread of a 256-thread block may use.
 
 #include <math.h>
 
@@ -71,161 +85,339 @@ __device__ __forceinline__ bool admissible(const BwdParams& p, int row, int col)
   return row < p.q_len && col < p.kv_len && (!p.causal || col <= row + (p.kv_len - p.q_len));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int kTileElems = kTile * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTileElems;
-  T* sQ = sV + kTileElems;       // two buffers
-  T* sdO = sQ + 2 * kTileElems;  // two buffers
-  float* sLse = reinterpret_cast<float*>(sdO + 2 * kTileElems);  // two buffers
-  float* sDelta = sLse + 2 * kTile;                              // two buffers
+// ---------------------------------------------------------------------------
+// dK and dV, bfloat16 and float16: wgmma and TMA
+// ---------------------------------------------------------------------------
 
-  const int d = p.head_dim;
+constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on Hopper
+constexpr int kWarpgroup = 128;
+constexpr int kDkvThreads = 2 * kWarpgroup;  // two warpgroups of 64 keys
+constexpr int kDkvWarps = kDkvThreads / 32;
+constexpr int kDkvKeys = 2 * kTile;  // keys per block
+constexpr int kDkvStages = 3;        // depth of the Q/dO ring
+// named barriers: 1 + g, warpgroup g's turn to issue its products
+constexpr int kBarTurn = 1;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of the dK/dV kernel at padded head dim D, in bytes from a
+// 1024-byte-aligned base: K and V as two 64-row tiles each (one per
+// warpgroup, loaded once); the ring's Q tiles, then its dO tiles; each
+// stage's 64 lse values and 64 delta values (float32); the mbarriers (K and
+// V; then each stage's full barrier) and each stage's running count of
+// warps done with it.
+template <int D>
+struct DkvSmem {
+  using Tile = hopper::Tile<D, kTile>;
+  static constexpr int k = 0;
+  static constexpr int v = 2 * Tile::kBytes;
+  static constexpr int q = 4 * Tile::kBytes;
+  static constexpr int dout = q + kDkvStages * Tile::kBytes;
+  static constexpr int rows = dout + kDkvStages * Tile::kBytes;
+  static constexpr int kRowBytes = 2 * kTile * 4;  // a stage's lse and delta
+  static constexpr int bars = rows + kDkvStages * kRowBytes;
+  static constexpr int done = bars + (1 + kDkvStages) * 8;
+  static constexpr int bytes = done + kDkvStages * 4 + hopper::kSwizzleAtomBytes;  // + room to align the base
+  static_assert(bytes <= int(kMaxSharedBytes), "dK/dV tiles exceed shared memory");
+};
+
+// One block of 256 threads per (128 keys, batch*head), a loop over the
+// query tiles of 64 that see any of its keys. Warpgroup g owns keys
+// [64g, 64g + 64) of the block: its K and V rows stay in shared memory
+// (K-major A operands) and its dK and dV accumulators (64 x D, float32) in
+// registers. Q and dO of each query tile arrive by TMA in a ring of
+// kDkvStages stages, lse and delta beside them by cp.async, one full
+// mbarrier a stage, shared by both warpgroups; the last of the 8 warps done
+// with a stage starts the loads of the tile it holds next. Per tile i, a
+// warpgroup issues in one turn
+//   S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared memory,
+//     K-major, ceil(d / 16) steps of 16), then tile i - 1's
+//   dV += P^T dO and dK += dS^T Q (wgmma, A from registers, B the stage's
+//     dO or Q tile MN-major through the transpose bit),
+// computes P^T = exp2(S^T scale log2(e) - lse log2(e)) and
+// dS^T = P^T (dP^T - delta) (lse and delta per accumulator column, from
+// shared memory) in the S^T and dP^T accumulators once those have landed,
+// while tile i - 1's products run, and packs them to the input type in the
+// layout of a register A operand once those have landed too: neither P nor
+// dS is ever written to shared memory, and no extra registers hold a second
+// copy. The two warpgroups take turns to issue (ping-pong), so that one's
+// P and dS run while the other's products hold the tensor cores. Masks are
+// applied only on tiles that need them (the ragged last tile, the causal
+// diagonal); query rows past the end and zero-filled K rows past the end
+// contribute nothing, and rows past the end are never stored.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tq16, const __grid_constant__ CUtensorMap tk16,
+                               const __grid_constant__ CUtensorMap tv16, const __grid_constant__ CUtensorMap tdo16,
+                               const BwdParams p) {
+  using L = DkvSmem<D>;
+  using Tile = typename L::Tile;
+  constexpr int kMainN = Tile::kMainN;  // gradient columns in the whole boxes
+  constexpr int kRemN = Tile::kRemN;    // in the narrow boxes
+  constexpr int kAcc = kMainN > 0 ? kMainN / 2 : 1;
+  constexpr int kAccRem = kRemN > 0 ? kRemN / 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kAlign = hopper::kSwizzleAtomBytes;
+  unsigned char* smem = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  int* done = reinterpret_cast<int*>(smem + L::done);
+  float* stage_rows = reinterpret_cast<float*>(smem + L::rows);
+  const uint32_t kvbar = hopper::smem_u32(bars);
+  const uint32_t full0 = hopper::smem_u32(bars + 1);
+  const uint32_t sk0 = hopper::smem_u32(smem + L::k);
+  const uint32_t sv0 = hopper::smem_u32(smem + L::v);
+  const uint32_t sq0 = hopper::smem_u32(smem + L::q);
+  const uint32_t sdo0 = hopper::smem_u32(smem + L::dout);
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int k0 = blockIdx.x * kTile;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
-  const T* doh = static_cast<const T*>(p.dout) + b * p.do_bs + h * p.do_hs;
-  const float* lse = p.lse + (long long)blockIdx.y * p.q_len;
-  const float* delta = p.delta + (long long)blockIdx.y * p.q_len;
-  T* dkh = static_cast<T*>(p.dk) + b * p.dk_bs + h * p.dk_hs;
-  T* dvh = static_cast<T*>(p.dv) + b * p.dv_bs + h * p.dv_hs;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key_a = k0 + warp * 16 + g;  // this thread's accumulator rows are keys
-  const int key_b = key_a + 8;
+  const int k0 = blockIdx.x * kDkvKeys;
+  const int shift = p.kv_len - p.q_len;  // causal: key k sees queries q >= k - shift
   const int n_q = (p.q_len + kTile - 1) / kTile;
-  // causal: queries before k0 - (kv_len - q_len) see none of these keys
-  const int first_row = p.causal ? k0 - (p.kv_len - p.q_len) : 0;
-  const int j0 = first_row > 0 ? first_row / kTile : 0;
+  const int first_row = p.causal ? k0 - shift : 0;
+  const int j0 = first_row > 0 ? min(first_row / kTile, n_q) : 0;
+  const int n_tiles = n_q - j0;
+  const float* lse_head = p.lse + (long long)blockIdx.y * p.q_len;
+  const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
+  const int lane = threadIdx.x % 32;
 
-  load_tile_async<T, D>(sK, kh, p.k_rs, k0, p.kv_len, d);
-  load_tile_async<T, D>(sV, vh, p.v_rs, k0, p.kv_len, d);
-  cp_async_commit();
+  // query tile j0 + i into stage i % kDkvStages, by one whole warp: lane 0
+  // starts the TMA loads of Q and dO; every lane copies 2 of the tile's 64
+  // lse values and 2 of its delta values with cp.async, which arrive on the
+  // same full mbarrier (one arrival a lane), zeros past q_len. A head's lse
+  // and delta start wherever q_len puts them, where a TMA copy would need
+  // its start 16-byte aligned.
+  auto load_q = [&](int i) {
+    const int s = i % kDkvStages;
+    const int q0 = (j0 + i) * kTile;
+    const uint32_t bar = full0 + 8 * s;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(bar, 2 * Tile::kBytes);
+      hopper::load_tile<D, kTile>(&tq, &tq16, bar, sq0 + s * Tile::kBytes, q0, h, b);
+      hopper::load_tile<D, kTile>(&tdo, &tdo16, bar, sdo0 + s * Tile::kBytes, q0, h, b);
+    }
+    float* rows = stage_rows + s * 2 * kTile;
+    #pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = lane + 32 * u;
+      const bool in = q0 + r < p.q_len;
+      cp_async4(rows + r, lse_head + (in ? q0 + r : 0), in);
+      cp_async4(rows + kTile + r, delta_head + (in ? q0 + r : 0), in);
+    }
+    hopper::cp_async_mbar_arrive(bar);
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1 + 32);  // lane 0's expect_tx, then every lane's copies
+      done[s] = 0;
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(kvbar, 4 * Tile::kBytes);
+    for (int w = 0; w < 2; ++w) {
+      hopper::load_tile<D, kTile>(&tk, &tk16, kvbar, sk0 + w * Tile::kBytes, k0 + w * kTile, h, b);
+      hopper::load_tile<D, kTile>(&tv, &tv16, kvbar, sv0 + w * Tile::kBytes, k0 + w * kTile, h, b);
+    }
+  }
+  if (threadIdx.x < 32) {
+    __syncwarp();  // the barriers are initialized
+    for (int i = 0; i < kDkvStages && i < n_tiles; ++i) load_q(i);
+  }
+  __syncthreads();
 
-  auto load_q_tile = [&](int j, int buf) {
-    const int q0 = j * kTile;
-    load_tile_async<T, D>(sQ + buf * kTileElems, qh, p.q_rs, q0, p.q_len, d);
-    load_tile_async<T, D>(sdO + buf * kTileElems, doh, p.do_rs, q0, p.q_len, d);
-    const int i = threadIdx.x % kTile;
-    const bool valid = q0 + i < p.q_len;
-    if (threadIdx.x < kTile) {
-      cp_async4(sLse + buf * kTile + i, valid ? lse + q0 + i : lse, valid);
-    } else {
-      cp_async4(sDelta + buf * kTile + i, valid ? delta + q0 + i : delta, valid);
+  const int g = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int t = lane % 4;
+  const int key_a = k0 + g * kTile + (tid / 32) * 16 + lane / 4;  // this thread's accumulator rows are keys
+  const int key_b = key_a + 8;
+  const uint32_t sk = sk0 + g * Tile::kBytes;
+  const uint32_t sv = sv0 + g * Tile::kBytes;
+  const float scale_log2 = p.scale * kLog2e;
+  const int ksteps = (p.head_dim + 15) / 16;
+
+  float dk[kAcc], dkr[kAccRem], dv[kAcc], dvr[kAccRem];
+  #pragma unroll
+  for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.f;
+  #pragma unroll
+  for (int i = 0; i < kAccRem; ++i) dkr[i] = dvr[i] = 0.f;
+  float s[kTile / 2];   // S^T, then P^T
+  float dp[kTile / 2];  // dP^T, then dS^T
+  uint32_t pa[kTile / 16][4], da[kTile / 16][4];  // P^T and dS^T as A operands of 16 queries each
+
+  // acc (64 keys x 64 queries) = A B^T over the head's 16-column steps, A
+  // this warpgroup's K or V rows, B the stage's Q or dO tile; not committed
+  auto issue_ss = [&](float (&acc)[kTile / 2], uint32_t a, uint32_t bt) {
+    #pragma unroll
+    for (int kk = 0; kk < Tile::kSteps; ++kk) {
+      if (kk > 0 && kk >= ksteps) break;
+      hopper::wgmma_ss<T, kTile>(acc, Tile::kmajor(a, kk), Tile::kmajor(bt, kk), kk > 0);
     }
   };
-
-  float dk[D / 8][4];
-  float dv[D / 8][4];
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-
-  if (j0 < n_q) {
-    load_q_tile(j0, 0);
-    cp_async_commit();
-  }
-  for (int j = j0; j < n_q; ++j) {
-    const int buf = (j - j0) & 1;
-    if (j + 1 < n_q) {
-      load_q_tile(j + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* qb = sQ + buf * kTileElems;
-    const T* dob = sdO + buf * kTileElems;
-    const float* lb = sLse + buf * kTile;
-    const float* db = sDelta + buf * kTile;
-    const int q0 = j * kTile;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 64 queries
-    float s[kTile / 8][4];
-    float dp[kTile / 8][4];
-    #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, sK, warp * 16, kk, lane);
-      load_a<LD>(va, sV, warp * 16, kk, lane);
-      #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t f[4];
-        load_b_rows<LD>(f, qb, np, kk, lane);
-        mma_16816<T>(s[2 * np], ka, f[0], f[1]);
-        mma_16816<T>(s[2 * np + 1], ka, f[2], f[3]);
-        load_b_rows<LD>(f, dob, np, kk, lane);
-        mma_16816<T>(dp[2 * np], va, f[0], f[1]);
-        mma_16816<T>(dp[2 * np + 1], va, f[2], f[3]);
-      }
-    }
-
-    // P^T (into s) and dS^T (into dp)
-    #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        const bool keep = admissible(p, q0 + qi, e < 2 ? key_a : key_b);
-        const float pe = keep ? expf(s[nt][e] * p.scale - lb[qi]) : 0.f;
-        s[nt][e] = pe;
-        dp[nt][e] = pe * (dp[nt][e] - db[qi]);
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over the 64 queries, 16 at a time
+  // (acc, acc_rem) (64 keys x D) += X B, X (64 keys x 64 queries) from
+  // registers, B the stage's dO or Q tile; not committed
+  auto issue_rs = [&](float (&acc)[kAcc], float (&acc_rem)[kAccRem], const uint32_t (&x)[kTile / 16][4],
+                      uint32_t bt) {
     #pragma unroll
     for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4], dsa[4];
-      acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);
-      acc_to_a<T>(dsa, dp[2 * kc], dp[2 * kc + 1]);
+      if constexpr (kMainN > 0) hopper::wgmma_rs<T, kMainN>(acc, x[kc], Tile::mn_main(bt, kc));
+      if constexpr (kRemN > 0) hopper::wgmma_rs<T, kRemN>(acc_rem, x[kc], Tile::mn_rem(bt, kc));
+    }
+  };
+  auto fence_grads = [&] {
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dkr);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dvr);
+  };
+  // dV += P^T dO and dK += dS^T Q of tile i, from pa and da; not committed
+  auto issue_grads = [&](int i) {
+    const int stage = i % kDkvStages;
+    issue_rs(dv, dvr, pa, sdo0 + stage * Tile::kBytes);
+    issue_rs(dk, dkr, da, sq0 + stage * Tile::kBytes);
+  };
+  // this warp is done with tile i's stage; the last of the 8 refills it
+  auto release = [&](int i) {
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) last = atomicAdd(done + i % kDkvStages, 1) % kDkvWarps == kDkvWarps - 1;
+    if (__shfl_sync(0xffffffffu, last, 0) && i + kDkvStages < n_tiles) load_q(i + kDkvStages);
+  };
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2), so that one's P and dS run while the other's products hold
+  // the tensor cores.
+  auto turn = [&] { hopper::bar_sync(kBarTurn + g, kDkvThreads); };
+  auto pass = [&](bool last) {
+    if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kDkvThreads);
+  };
+
+  // Per tile i, one turn issues S^T_i = K Q_i^T and dP^T_i = V dO_i^T, then
+  // tile i - 1's dV and dK products; P^T_i and dS^T_i are computed (as
+  // floats, in the S^T and dP^T accumulators) once S^T_i and dP^T_i have
+  // landed, while tile i - 1's products run, and packed into the A
+  // operands once those have landed too.
+  hopper::mbar_wait(kvbar, 0);
+  if (n_tiles > 0) {
+    if (g == 1) hopper::bar_arrive(kBarTurn, kDkvThreads);  // warpgroup 0 issues first
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % kDkvStages;
+      const int q0 = (j0 + i) * kTile;
+      const float* lse = stage_rows + stage * 2 * kTile;
+      const float* delta = lse + kTile;
+      hopper::mbar_wait(full0 + 8 * stage, (i / kDkvStages) & 1);
+      turn();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      fence_grads();
+      hopper::wgmma_fence();
+      issue_ss(s, sk, sq0 + stage * Tile::kBytes);    // S^T = K Q^T
+      issue_ss(dp, sv, sdo0 + stage * Tile::kBytes);  // dP^T = V dO^T
+      hopper::wgmma_commit();
+      if (i > 0) {
+        issue_grads(i - 1);
+        hopper::wgmma_commit();
+      }
+      pass(false);
+      if (i > 0) {
+        hopper::wgmma_wait<1>();  // S^T and dP^T have landed; tile i - 1's products may run on
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P^T and dS^T; accumulator entry 4n + e is (key e < 2 ? key_a :
+      // key_b, query q0 + 8n + 2t + (e & 1))
+      const bool masked = q0 + kTile > p.q_len || (p.causal && k0 + kDkvKeys - 1 > q0 + shift);
       #pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        uint32_t f[4];
-        load_b_cols<LD>(f, dob, kc, dpi, lane);
-        mma_16816<T>(dv[2 * dpi], pa, f[0], f[1]);
-        mma_16816<T>(dv[2 * dpi + 1], pa, f[2], f[3]);
-        load_b_cols<LD>(f, qb, kc, dpi, lane);
-        mma_16816<T>(dk[2 * dpi], dsa, f[0], f[1]);
-        mma_16816<T>(dk[2 * dpi + 1], dsa, f[2], f[3]);
+      for (int n = 0; n < kTile / 8; ++n) {
+        const float2 lv = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * n + 2 * t);
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1;
+          float pe = fast_exp2(fmaf(s[4 * n + e], scale_log2, -(c ? lv.y : lv.x) * kLog2e));
+          if (masked) {
+            const int q = q0 + 8 * n + 2 * t + c;
+            if (q >= p.q_len || (p.causal && (e < 2 ? key_a : key_b) > q + shift)) pe = 0.f;
+          }
+          s[4 * n + e] = pe;
+          dp[4 * n + e] = pe * (dp[4 * n + e] - (c ? dl.y : dl.x));
+        }
+      }
+      hopper::wgmma_wait<0>();  // tile i - 1's products have landed: its stage, pa and da are free
+      fence_grads();
+      if (i > 0) release(i - 1);
+      #pragma unroll
+      for (int kc = 0; kc < kTile / 16; ++kc) {
+        acc_to_a<T>(pa[kc], s + 8 * kc, s + 8 * kc + 4);
+        acc_to_a<T>(da[kc], dp + 8 * kc, dp + 8 * kc + 4);
       }
     }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+    turn();
+    fence_grads();
+    hopper::wgmma_fence();
+    issue_grads(n_tiles - 1);
+    hopper::wgmma_commit();
+    pass(true);
+    hopper::wgmma_wait<0>();
+    fence_grads();
   }
 
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (col >= d) continue;
+  T* dkh = static_cast<T*>(p.dk) + b * p.dk_bs + h * p.dk_hs;
+  T* dvh = static_cast<T*>(p.dv) + b * p.dv_bs + h * p.dv_hs;
+  auto store = [&](int col, const float* k4, const float* v4) {
+    if (col >= p.head_dim) return;
     if (key_a < p.kv_len) {
-      *reinterpret_cast<uint32_t*>(dkh + (long long)key_a * p.dk_rs + col) =
-          pack2<T>(dk[i][0] * p.scale, dk[i][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvh + (long long)key_a * p.dv_rs + col) = pack2<T>(dv[i][0], dv[i][1]);
+      *reinterpret_cast<uint32_t*>(dkh + (long long)key_a * p.dk_rs + col) = pack2<T>(k4[0] * p.scale, k4[1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvh + (long long)key_a * p.dv_rs + col) = pack2<T>(v4[0], v4[1]);
     }
     if (key_b < p.kv_len) {
-      *reinterpret_cast<uint32_t*>(dkh + (long long)key_b * p.dk_rs + col) =
-          pack2<T>(dk[i][2] * p.scale, dk[i][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvh + (long long)key_b * p.dv_rs + col) = pack2<T>(dv[i][2], dv[i][3]);
+      *reinterpret_cast<uint32_t*>(dkh + (long long)key_b * p.dk_rs + col) = pack2<T>(k4[2] * p.scale, k4[3] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvh + (long long)key_b * p.dv_rs + col) = pack2<T>(v4[2], v4[3]);
+    }
+  };
+  #pragma unroll
+  for (int n = 0; n < kMainN / 8; ++n) store(n * 8 + 2 * t, dk + 4 * n, dv + 4 * n);
+  #pragma unroll
+  for (int n = 0; n < kRemN / 8; ++n) store(kMainN + n * 8 + 2 * t, dkr + 4 * n, dvr + 4 * n);
+}
+
+// The eight tile maps (q, k, v, dout: 64-column and 16-column boxes) and
+// the launch.
+template <typename T, int D>
+int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const void* bases[4] = {p.q, p.k, p.v, p.dout};
+  const int rows[4] = {p.q_len, p.kv_len, p.kv_len, p.q_len};
+  const long long strides[4][3] = {
+      {p.q_rs, p.q_hs, p.q_bs}, {p.k_rs, p.k_hs, p.k_bs}, {p.v_rs, p.v_hs, p.v_bs}, {p.do_rs, p.do_hs, p.do_bs}};
+  CUtensorMap maps[4][2];
+  for (int i = 0; i < 4; ++i) {
+    if (!hopper::encode_tile_maps(maps[i], bf16, bases[i], p.head_dim, rows[i], p.heads, batch, strides[i][0],
+                                  strides[i][1], strides[i][2])) {
+      return int(cudaErrorInvalidValue);
     }
   }
+  constexpr int bytes = DkvSmem<D>::bytes;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<T, D>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((p.kv_len + kDkvKeys - 1) / kDkvKeys, batch * p.heads);
+  kernel<<<grid, kDkvThreads, bytes, stream>>>(maps[0][0], maps[1][0], maps[2][0], maps[3][0], maps[0][1],
+                                               maps[1][1], maps[2][1], maps[3][1], p);
+  return int(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// dQ, bfloat16 and float16: mma.sync
+// ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
@@ -582,34 +774,42 @@ int launch_f32(const BwdParams& p, int batch, cudaStream_t stream) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kDkv>
-int launch_one(const BwdParams& p, int batch, cudaStream_t stream) {
-  const int tiles = 6 * kTile * (D + 8) * int(sizeof(T));
-  const int bytes = kDkv ? tiles + 4 * kTile * int(sizeof(float)) : tiles;
-  auto kernel = kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+template <typename T, int D>
+int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int bytes = 6 * kTile * (D + 8) * int(sizeof(T));
+  auto kernel = flash_bwd_dq_kernel<T, D>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
   }
-  const int len = kDkv ? p.kv_len : p.q_len;
-  const dim3 grid((len + kTile - 1) / kTile, batch * p.heads);
+  const dim3 grid((p.q_len + kTile - 1) / kTile, batch * p.heads);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return int(cudaGetLastError());
 }
 
+// bfloat16 and float16: each kernel at the smallest of its instances that
+// holds the head
 template <typename T, bool kDkv>
 int launch(const BwdParams& p, int batch, cudaStream_t stream) {
-  switch (mma_template((p.head_dim + 15) / 16 * 16)) {
+  if constexpr (kDkv) {
+    switch (narrow_template(pad16(p.head_dim))) {
+      case 64:
+        return launch_dkv<T, 64>(p, batch, stream);
+      case 80:
+        return launch_dkv<T, 80>(p, batch, stream);
+      default:
+        return launch_dkv<T, 128>(p, batch, stream);
+    }
+  }
+  switch (mma_template(pad16(p.head_dim))) {
     case 48:
-      return launch_one<T, 48, kDkv>(p, batch, stream);
+      return launch_dq<T, 48>(p, batch, stream);
     case 64:
-      return launch_one<T, 64, kDkv>(p, batch, stream);
+      return launch_dq<T, 64>(p, batch, stream);
     case 80:
-      return launch_one<T, 80, kDkv>(p, batch, stream);
-    case 128:
-      return launch_one<T, 128, kDkv>(p, batch, stream);
+      return launch_dq<T, 80>(p, batch, stream);
     default:
-      return int(cudaErrorInvalidValue);
+      return launch_dq<T, 128>(p, batch, stream);
   }
 }
 

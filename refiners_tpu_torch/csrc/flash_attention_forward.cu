@@ -44,47 +44,52 @@
 // by that read; the relative-position bias adds two reads per score from
 // shared memory.
 //
-// Four kernels, picked by what the call carries (`forward_kernel`):
+// Three kernels, picked by the dtype and the head dim (`forward_kernel`);
+// a bias of either kind and the lse output are modes of each:
 //
-// - bfloat16 and float16, head_dim <= 128, no dense bias, no lse (K1 at the
-//   SDXL UNet's d = 64 and SD1.5's d = 40/80 inference sites, every K3
-//   call): `flash_fwd_narrow_kernel`, compiled for padded head dims 64, 80
-//   and 128. A block is 128 query rows: two warpgroups of 64 rows, each
-//   holding its O (m64nD, float32) and softmax statistics in registers. K
-//   and V tiles of 64 or 128 keys (kNarrowKeys) arrive by TMA in a
-//   three-stage ring ("full" mbarriers with transaction counts), shared by
-//   both warpgroups, so every K/V byte read from L2 serves 128 rows; the
-//   last warp done with a stage starts its refill, so there is no producer
-//   warp and 256 threads may use up to 255 registers each. Each warpgroup
-//   runs tile j's softmax while tile j - 1's P V is on the tensor cores,
-//   and the two take turns to issue their products (ping-pong), so one's
-//   softmax overlaps the other's products. S = Q K^T runs on wgmma from
-//   shared memory (K-major) over ceil(d / 16) steps of 16, so the zero
-//   columns past d cost nothing there; O += P V on wgmma with P from the S
-//   accumulators in registers and V MN-major through the transpose bit (no
-//   transposed copy). The softmax is in base 2: scale * log2(e) is folded
-//   into one multiply-add per score, exp2 is the MUFU instruction, and O is
-//   rescaled only when a row's maximum moved. d = 80 (SAM-H) is not a whole
-//   64-column box: its tile is a 64-column box with the 128-byte swizzle
-//   plus a 16-column box with the 32-byte swizzle, and P V is two products
-//   (n64 and n16) into two accumulators, so no product runs over zero
-//   columns (padding to 128 would cost 60 % more P V work). The
-//   relative-position bias: each block stages its 128 rows of v_rel and
-//   h_rel in shared memory as float32 times log2(e) (odd row pitch: the 8
-//   rows a warp reads at one column fall in distinct banks), 65 KiB at
-//   SAM-H's 64 x 64 grid; for each accumulator column the thread keeps its
-//   key's offset (o / kw, o % kw) in the grid, computed once, and the
-//   tile's first key as counters that advance by (64 / kw, 64 % kw) per
-//   tile, so the inner loop has one compare and no division or remainder
-//   per score. Grids whose tables exceed 96 KiB (kh + kw past about 190)
-//   read v_rel and h_rel in place through L1 with the same counters.
-// - bfloat16 and float16, head_dim <= 128, with a dense bias or an lse (K2):
-//   FlashAttention-2's layout on mma.sync m16n8k16, 4 warps, compiled for
-//   padded head dims 48, 64, 80 and 128. Each warp owns 16 query rows; its
-//   Q fragments, S tile, softmax statistics and O accumulator stay in
-//   registers, and P goes from the S accumulators straight into the A
-//   operand of the PV product. K and V tiles are double-buffered in shared
-//   memory with cp.async, read with ldmatrix (transposed for V).
+// - bfloat16 and float16, head_dim <= 128 (K1 at the SDXL UNet's d = 64 and
+//   SD1.5's d = 40/80 inference sites, K2 at SD1.5's training sites with
+//   the lse, every K3 call): `flash_fwd_narrow_kernel`, compiled for padded
+//   head dims 64, 80 and 128. A block is 128 query rows: two
+//   warpgroups of 64 rows, each holding its O (m64nD, float32) and softmax
+//   statistics in registers. K and V tiles of 64 or 128 keys (kNarrowKeys)
+//   arrive by TMA in a three-stage ring ("full" mbarriers with transaction
+//   counts), shared by both warpgroups, so every K/V byte read from L2
+//   serves 128 rows; the last warp done with a stage starts its refill, so
+//   there is no producer warp and 256 threads may use up to 255 registers
+//   each. Each warpgroup runs tile j's softmax while tile j - 1's P V is on
+//   the tensor cores, and the two take turns to issue their products
+//   (ping-pong), so one's softmax overlaps the other's products. S = Q K^T
+//   runs on wgmma from shared memory (K-major) over ceil(d / 16) steps of
+//   16, so the zero columns past d cost nothing there; O += P V on wgmma
+//   with P from the S accumulators in registers and V MN-major through the
+//   transpose bit (no transposed copy). The softmax is in base 2: scale *
+//   log2(e) is folded into one multiply-add per score, exp2 is the MUFU
+//   instruction, and O is rescaled only when a row's maximum moved. Tiles
+//   are whole 64-column boxes with the 128-byte swizzle plus 16-column
+//   boxes with the 32-byte swizzle (hopper::Tile): d = 80 (SAM-H, SD1.5's
+//   32x32 site) is one of each, P V two products (n64 and n16). d <= 64
+//   (SD1.5's d = 40 at its 64x64 site) runs the D = 64 instance. The bias
+//   modes:
+//   - dense (K2): each thread reads its own entries in place through L1, 8
+//     bytes (a column pair) a load where the strides allow, issued before
+//     it waits for S so that the read overlaps the product; a stride of 0
+//     (torch.broadcast_to) reads one value for many. The bias is folded in
+//     times log2(e) before the row maximum, raised to -1e30 first (a
+//     float32 mask value such as -3.4e38 would overflow to -inf times
+//     log2(e)), and causally masked pairs are -1e30 log2(e): -1e30 in
+//     natural units, as a -1e30 bias is.
+//   - relative position (K3): each block stages its 128 rows of v_rel and
+//     h_rel in shared memory as float32 times log2(e) (odd row pitch: the
+//     8 rows a warp reads at one column fall in distinct banks), 65 KiB at
+//     SAM-H's 64 x 64 grid; for each accumulator column the thread keeps
+//     its key's offset (o / kw, o % kw) in the grid, computed once, and the
+//     tile's first key as counters that advance by (64 / kw, 64 % kw) per
+//     tile, so the inner loop has one compare and no division or remainder
+//     per score. Grids whose tables exceed 96 KiB (kh + kw past about 190)
+//     read v_rel and h_rel in place through L1 with the same counters.
+//   The lse is the row's base-2 max and sum turned to natural-log units,
+//   written once per row at the end.
 // - bfloat16 and float16, 128 < head_dim <= 512 (the SDXL VAE's mid-block
 //   site, one head of d = 512 over L = 16384): `flash_fwd_wgmma_kernel`,
 //   Hopper's warpgroup products, compiled for padded head dims 256 and 512
@@ -423,8 +428,7 @@ int launch_wgmma(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// head_dim <= 128, no dense bias, no lse: wgmma and TMA, two consumer
-// warpgroups fed by a producer warp
+// head_dim <= 128: wgmma and TMA, two consumer warpgroups sharing a K/V ring
 // ---------------------------------------------------------------------------
 
 constexpr int kNarrowRows = 2 * kTile;          // query rows per block, 64 per warpgroup
@@ -436,6 +440,11 @@ constexpr int kNarrowStages = 3;                // depth of the K/V ring
 // through L1
 constexpr int kMaxRelPosTableBytes = 96 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// a masked score in base-2 units: -1e30 in natural ones, as a -1e30 bias
+// also lands, so that a row whose keys are all masked by either gets the
+// plain version's uniform weights and lse
+constexpr float kMaskedScore2 = kMaskedScore * kLog2e;
 // named barriers: 1 + g, warpgroup g's rows of the tables are staged; 3 + g,
 // warpgroup g's turn to issue its products
 constexpr int kBarTables = 1;
@@ -450,26 +459,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // Keys per tile of the narrow kernel: 128 at D = 80 and 128 without a bias,
 // so that S is one m64n128 product per 16 columns, which reads its two
 // shared-memory operands at 96 bytes a clock at full rate where m64n64
-// needs 128, all the SM has; 64 at D = 64, where the 128-key tile measured
-// slower on the H100, and with the relative-position bias, whose per-column
-// offsets and bias reads need the registers.
+// needs 128, all the SM has; 64 at D = 64, where the 128-key tile
+// measured slower on the H100 (at D = 64), and with a bias, whose reads
+// (and, for the relative position, per-column offsets) need the registers.
 template <int D, int kBias>
 constexpr int kNarrowKeys = kBias == kNoBias && D > 64 ? 128 : 64;
-
-// A tile of R rows (64 or 128) at padded head dim D (64, 80 or 128): for
-// each 64-column box (128-byte swizzle) its R / 64 row boxes of 8 KiB one
-// after another, R * 128 bytes; then, at D = 80, the R / 64 row boxes of the
-// narrow box of 16 columns (32-byte swizzle), 2 KiB each. Rows run on
-// across row boxes, so R rows are one wgmma operand.
-template <int D, int R>
-struct NarrowTile {
-  static_assert(D == 64 || D == 80 || D == 128, "the narrow kernel is compiled for D = 64, 80 and 128");
-  static constexpr int kBoxes = D / hopper::kBox;
-  static constexpr bool kRem = D % hopper::kBox != 0;
-  static constexpr int kBoxStride = R * 128;  // bytes from one 64-column box to the next
-  static constexpr int kNarrow = kBoxes * kBoxStride;  // offset of the narrow box
-  static constexpr int kBytes = kNarrow + (kRem ? R * 32 : 0);
-};
 
 // Shared memory of the narrow kernel, in bytes from a 1024-byte-aligned
 // base: Q as two 64-row tiles, one per warpgroup; the BK-row K tiles and V
@@ -478,8 +472,8 @@ struct NarrowTile {
 // relative-position tables.
 template <int D, int BK>
 struct NarrowSmem {
-  using QTile = NarrowTile<D, kTile>;
-  using KVTile = NarrowTile<D, BK>;
+  using QTile = hopper::Tile<D, kTile>;
+  using KVTile = hopper::Tile<D, BK>;
   static constexpr int q = 0;
   static constexpr int k = 2 * QTile::kBytes;
   static constexpr int v = k + kNarrowStages * KVTile::kBytes;
@@ -491,32 +485,15 @@ struct NarrowSmem {
                 "narrow forward tiles exceed shared memory");
 };
 
-// Rows [row, row + R) of one head onto `bar`, laid out as NarrowTile<D, R>.
-template <int D, int R>
-__device__ __forceinline__ void load_narrow_tile(const CUtensorMap* map, const CUtensorMap* narrow, uint32_t bar,
-                                                 uint32_t dst, int row, int h, int b) {
-  using Tile = NarrowTile<D, R>;
-  #pragma unroll
-  for (int r = 0; r < R / hopper::kBox; ++r) {
-    #pragma unroll
-    for (int i = 0; i < Tile::kBoxes; ++i) {
-      hopper::tma_load_4d(dst + i * Tile::kBoxStride + r * hopper::kBoxBytes, map, bar, i * hopper::kBox,
-                          row + r * hopper::kBox, h, b);
-    }
-    if constexpr (Tile::kRem) {
-      hopper::tma_load_4d(dst + Tile::kNarrow + r * hopper::kNarrowBoxBytes, narrow, bar,
-                          Tile::kBoxes * hopper::kBox, row + r * hopper::kBox, h, b);
-    }
-  }
-}
-
-// The relative-position bias's key grid as the kernel walks it: a key tile
-// is step_q grid rows and step_r columns (computed once on the host); the
-// tables' row pitches in shared memory, in floats (odd, so the 8 rows a warp
-// reads at one column fall in distinct banks), or in_smem = 0 to read v_rel
-// and h_rel in place.
-struct RelPosGrid {
-  int kh, step_q, step_r, pitch_v, pitch_h, in_smem;
+// How the narrow kernel walks its bias, computed once on the host. The
+// relative-position bias's key grid: a key tile is step_q grid rows and
+// step_r columns; the tables' row pitches in shared memory, in floats (odd,
+// so the 8 rows a warp reads at one column fall in distinct banks), or
+// in_smem = 0 to read v_rel and h_rel in place. The dense bias: pairs = 1
+// when each thread's column pair is one aligned 8-byte load (unit column
+// stride, even row, head and batch strides, an even key count).
+struct BiasWalk {
+  int kh, step_q, step_r, pitch_v, pitch_h, in_smem, pairs;
 };
 
 // Copy rows [row0, row0 + 64) of a relative-position table (`cols` values a
@@ -550,27 +527,35 @@ __device__ __forceinline__ void stage_table(float* dst, int pitch, const T* src,
 // memory) starts the loads of the tile it holds next, so no warp waits for
 // another and none is set aside to load. Each warpgroup computes S = Q K^T
 // with wgmma from shared memory (K-major, ceil(d / 16) steps of 16; m64n128
-// without a bias), runs
-// the online softmax in registers in base 2 (scale and log2(e) folded into
-// one multiply-add), adds the relative-position bias from shared memory
-// through counters that advance with the tile (no division or remainder per
-// score), and accumulates O += P V with wgmma, P from registers, V MN-major
-// through the transpose bit: n64 or n128 over the 64-column boxes, plus n16
-// over the narrow box at D = 80. Tile j's softmax runs while tile j - 1's
-// P V is on the tensor cores, so a stage is free one tile later than it
-// would be without the overlap: the ring has three stages.
+// without a bias at D = 80 and 128), runs the online softmax in registers
+// in base 2 (scale and log2(e) folded into one multiply-add), adds the bias
+// of its mode, and accumulates O += P V with wgmma, P from registers, V
+// MN-major through the transpose bit: n64 or n128 over the whole boxes,
+// n16 (D = 80) over the narrow one. Tile j's softmax runs
+// while tile j - 1's P V is on the tensor cores, so a stage is free one
+// tile later than it would be without the overlap: the ring has three
+// stages. The bias modes:
+// - dense: each thread reads its entries of the float32 bias in place
+//   through L1 (8-byte column pairs where the layout allows), issued before
+//   it waits for S, and adds them times log2(e) before the row maximum;
+// - relative position: the block's rows of v_rel and h_rel staged in
+//   shared memory, walked by counters that advance with the tile (no
+//   division or remainder per score).
+// With an lse pointer, each row's (m + log2 l) ln 2 is written at the end.
 template <typename T, int D, int kBias>
 __global__ void __launch_bounds__(kNarrowThreads, 1)
     flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tq16,
                             const __grid_constant__ CUtensorMap tk16, const __grid_constant__ CUtensorMap tv16,
-                            const Params p, const RelPosGrid grid) {
+                            const Params p, const BiasWalk walk) {
   constexpr int BK = kNarrowKeys<D, kBias>;
   using L = NarrowSmem<D, BK>;
   using QTile = typename L::QTile;
   using KVTile = typename L::KVTile;
-  constexpr int kMainN = KVTile::kBoxes * hopper::kBox;  // O columns of the n64/n128 accumulator
-  constexpr int kSteps = D / 16;
+  constexpr int kMainN = KVTile::kMainN;  // O columns in the whole boxes (n64/n128 accumulator)
+  constexpr int kRemN = KVTile::kRemN;    // in the narrow box (n16 accumulator)
+  constexpr int kO = kMainN > 0 ? kMainN / 2 : 1;
+  constexpr int kORem = kRemN > 0 ? kRemN / 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   // aligned by an offset from the array, so that the compiler knows every
   // pointer below to be shared memory (the tables are read with ld.shared)
@@ -593,9 +578,9 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
   auto load_kv = [&](int j) {
     const int s = j % kNarrowStages;
     hopper::mbar_expect_tx(kfull0 + 8 * s, KVTile::kBytes);
-    load_narrow_tile<D, BK>(&tk, &tk16, kfull0 + 8 * s, sk0 + s * KVTile::kBytes, j * BK, h, b);
+    hopper::load_tile<D, BK>(&tk, &tk16, kfull0 + 8 * s, sk0 + s * KVTile::kBytes, j * BK, h, b);
     hopper::mbar_expect_tx(vfull0 + 8 * s, KVTile::kBytes);
-    load_narrow_tile<D, BK>(&tv, &tv16, vfull0 + 8 * s, sv0 + s * KVTile::kBytes, j * BK, h, b);
+    hopper::load_tile<D, BK>(&tv, &tv16, vfull0 + 8 * s, sv0 + s * KVTile::kBytes, j * BK, h, b);
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(qbar, 1);
@@ -606,8 +591,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
     }
     hopper::fence_barrier_init();
     hopper::mbar_expect_tx(qbar, 2 * QTile::kBytes);
-    load_narrow_tile<D, kTile>(&tq, &tq16, qbar, sq0, q0, h, b);
-    load_narrow_tile<D, kTile>(&tq, &tq16, qbar, sq0 + QTile::kBytes, q0 + kTile, h, b);
+    hopper::load_tile<D, kTile>(&tq, &tq16, qbar, sq0, q0, h, b);
+    hopper::load_tile<D, kTile>(&tq, &tq16, qbar, sq0 + QTile::kBytes, q0 + kTile, h, b);
     for (int j = 0; j < kNarrowStages && j < n_tiles; ++j) load_kv(j);
   }
   __syncthreads();
@@ -635,22 +620,22 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
   const T* gvb = nullptr;
   const T* gha = nullptr;
   const T* ghb = nullptr;
-  int offset[BK / 8][2];
+  int offset[kBias == kRelPosBias ? BK / 8 : 1][2];
   int bq = 0, br = 0;
   if constexpr (kBias == kRelPosBias) {
     const HeadBias<T> rel = head_bias<T>(p, b, h);
-    if (grid.in_smem) {
+    if (walk.in_smem) {
       float* sv = reinterpret_cast<float*>(smem + L::tables);
-      float* sh = sv + kNarrowRows * grid.pitch_v;
+      float* sh = sv + kNarrowRows * walk.pitch_v;
       // this warpgroup's 64 rows
       const int row0 = q0 + g * kTile;
-      stage_table(sv + g * kTile * grid.pitch_v, grid.pitch_v, rel.vrel, p.vrel_rs, grid.kh, row0, p.q_len, tid);
-      stage_table(sh + g * kTile * grid.pitch_h, grid.pitch_h, rel.hrel, p.hrel_rs, p.kw, row0, p.q_len, tid);
+      stage_table(sv + g * kTile * walk.pitch_v, walk.pitch_v, rel.vrel, p.vrel_rs, walk.kh, row0, p.q_len, tid);
+      stage_table(sh + g * kTile * walk.pitch_h, walk.pitch_h, rel.hrel, p.hrel_rs, p.kw, row0, p.q_len, tid);
       hopper::bar_sync(kBarTables + g, kWarpgroup);
-      va = local_a * grid.pitch_v;
-      vb = va + 8 * grid.pitch_v;
-      ha = kNarrowRows * grid.pitch_v + local_a * grid.pitch_h;
-      hb = ha + 8 * grid.pitch_h;
+      va = local_a * walk.pitch_v;
+      vb = va + 8 * walk.pitch_v;
+      ha = kNarrowRows * walk.pitch_v + local_a * walk.pitch_h;
+      hb = ha + 8 * walk.pitch_h;
     } else {
       const long long ra = min(row_a, p.q_len - 1), rb = min(row_b, p.q_len - 1);
       gva = rel.vrel + ra * p.vrel_rs;
@@ -668,14 +653,47 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
     }
   }
 
-  float o[kMainN / 2];
-  float orem[KVTile::kRem ? 8 : 1];
+  // dense bias: this thread's two rows of it (rows past the end read the
+  // last row, and are never stored)
+  const float* bias_a = nullptr;
+  const float* bias_b = nullptr;
+  if constexpr (kBias == kDenseBias) {
+    const float* rows = p.bias + b * p.bias_bs + h * p.bias_hs;
+    bias_a = rows + (long long)min(row_a, p.q_len - 1) * p.bias_rs;
+    bias_b = rows + (long long)min(row_b, p.q_len - 1) * p.bias_rs;
+  }
+  // tile j's dense bias at this thread's accumulator entries ([n][row]
+  // holds columns 8n + 2t and 8n + 2t + 1), zero past the last key
+  constexpr int kBiasN = kBias == kDenseBias ? BK / 8 : 1;
+  auto load_bias = [&](float2 (&bv)[kBiasN][2], int j) {
+    if constexpr (kBias == kDenseBias) {
+      #pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        const int col = j * BK + n * 8 + 2 * t;
+        const bool in0 = col < p.kv_len, in1 = col + 1 < p.kv_len;
+        if (walk.pairs) {
+          const float2 zero = make_float2(0.f, 0.f);
+          bv[n][0] = in0 ? __ldg(reinterpret_cast<const float2*>(bias_a + col)) : zero;
+          bv[n][1] = in0 ? __ldg(reinterpret_cast<const float2*>(bias_b + col)) : zero;
+        } else {
+          const long long c0 = col * p.bias_cs, c1 = c0 + p.bias_cs;
+          bv[n][0] = make_float2(in0 ? __ldg(bias_a + c0) : 0.f, in1 ? __ldg(bias_a + c1) : 0.f);
+          bv[n][1] = make_float2(in0 ? __ldg(bias_b + c0) : 0.f, in1 ? __ldg(bias_b + c1) : 0.f);
+        }
+      }
+    }
+  };
+
+  float o[kO];
+  float orem[kORem];
   #pragma unroll
-  for (int i = 0; i < kMainN / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
   #pragma unroll
-  for (int i = 0; i < (KVTile::kRem ? 8 : 1); ++i) orem[i] = 0.f;
-  float m[2] = {kMaskedScore, kMaskedScore};  // running maxima, in base-2 units
-  float l[2] = {0.f, 0.f};                    // this thread's share of the row sums
+  for (int i = 0; i < kORem; ++i) orem[i] = 0.f;
+  // running maxima, in base-2 units (the first tile always holds a key, so
+  // they are finite from then on), and this thread's share of the row sums
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
 
   // S = Q K_j^T over the 16-column steps that hold head columns, issued
   // once K_j has landed; not waited for
@@ -686,16 +704,9 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
     hopper::fence_regs(s);
     hopper::wgmma_fence();
     #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
+    for (int kk = 0; kk < KVTile::kSteps; ++kk) {
       if (kk > 0 && kk >= ksteps) break;
-      if (kk < 4 * KVTile::kBoxes) {
-        const uint32_t qoff = (kk / 4) * QTile::kBoxStride + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * KVTile::kBoxStride + (kk % 4) * 32;
-        hopper::wgmma_ss<T, BK>(s, hopper::kmajor_desc(sq + qoff), hopper::kmajor_desc(sk + koff), kk > 0);
-      } else {
-        hopper::wgmma_ss<T, BK>(s, hopper::narrow_kmajor_desc(sq + QTile::kNarrow),
-                                hopper::narrow_kmajor_desc(sk + KVTile::kNarrow), 1);
-      }
+      hopper::wgmma_ss<T, BK>(s, QTile::kmajor(sq, kk), KVTile::kmajor(sk, kk), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::fence_regs(s);
@@ -711,10 +722,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
     hopper::wgmma_fence();
     #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
-      hopper::wgmma_rs<T, kMainN>(o, pa[kc], hopper::mnmajor_desc(sv + kc * 16 * 128, KVTile::kBoxStride));
-      if constexpr (KVTile::kRem) {
-        hopper::wgmma_rs<T, 16>(orem, pa[kc], hopper::narrow_mnmajor_desc(sv + KVTile::kNarrow + kc * 16 * 32));
-      }
+      if constexpr (kMainN > 0) hopper::wgmma_rs<T, kMainN>(o, pa[kc], KVTile::mn_main(sv, kc));
+      if constexpr (kRemN > 0) hopper::wgmma_rs<T, kRemN>(orem, pa[kc], KVTile::mn_rem(sv, kc));
     }
     hopper::wgmma_commit();
     hopper::fence_regs(o);
@@ -723,7 +732,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
 
   // tile j's scores in s → its P in pa (the A operand of each 16-key step),
   // the running maxima and sums updated, alpha the factor that rescales O
-  auto softmax = [&](float (&s)[BK / 2], int j, uint32_t (&pa)[BK / 16][4], float (&alpha)[2]) {
+  auto softmax = [&](float (&s)[BK / 2], int j, const float2 (&bv)[kBiasN][2], uint32_t (&pa)[BK / 16][4],
+                     float (&alpha)[2]) {
     // scores in base 2 with the bias and the masks; a row's BK scores are
     // spread over the 4 lanes of a quad. Maxima and sums run in two
     // independent chains a row (by column parity c), which halves their
@@ -737,6 +747,10 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
           const int col = j * BK + n * 8 + 2 * t + c;
           const bool valid = !decltype(masked)::value || col < p.kv_len;
           float bias_a = 0.f, bias_b = 0.f;
+          if constexpr (kBias == kDenseBias) {
+            bias_a = fmaxf(c ? bv[n][0].y : bv[n][0].x, kMaskedScore) * kLog2e;
+            bias_b = fmaxf(c ? bv[n][1].y : bv[n][1].x, kMaskedScore) * kLog2e;
+          }
           if constexpr (kBias == kRelPosBias) {
             if (valid) {
               int kq = bq + (offset[n][c] >> 16), kr = br + (offset[n][c] & 0xffff);
@@ -759,8 +773,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
             if (!valid) {
               xa = xb = -INFINITY;
             } else if (p.causal) {
-              if (col > row_a + causal_shift) xa = kMaskedScore;
-              if (col > row_b + causal_shift) xb = kMaskedScore;
+              if (col > row_a + causal_shift) xa = kMaskedScore2;
+              if (col > row_b + causal_shift) xb = kMaskedScore2;
             }
           }
           s[4 * n + c] = xa;
@@ -772,7 +786,7 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
     };
     auto score = [&](auto masked) {
       if constexpr (kBias == kRelPosBias) {
-        if (grid.in_smem) {
+        if (walk.in_smem) {
           score_tile(masked, std::true_type{});
         } else {
           score_tile(masked, std::false_type{});
@@ -787,8 +801,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
       score(std::true_type{});
     }
     if constexpr (kBias == kRelPosBias) {
-      bq += grid.step_q;
-      br += grid.step_r;
+      bq += walk.step_q;
+      br += walk.step_r;
       if (br >= p.kw) {
         br -= p.kw;
         ++bq;
@@ -827,37 +841,40 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
   };
 
   // Each warpgroup overlaps tile j's softmax with tile j - 1's P V: S_j and
-  // P_{j-1} V_{j-1} are issued together, the softmax waits for S_j only,
-  // and O is rescaled once P_{j-1} V_{j-1} has landed (not at all when no
-  // row's maximum moved: the factor is then exactly 1). P alternates between
-  // two register arrays (no copy lands between two products, where ptxas
-  // would serialize them). The two warpgroups take turns to issue their
-  // products (named barriers 3 and 4), so that one's softmax runs while the
-  // other's products hold the tensor cores.
+  // P_{j-1} V_{j-1} are issued together (then tile j's dense bias is read),
+  // the softmax waits for S_j only, and O is rescaled once P_{j-1} V_{j-1}
+  // has landed (not at all when no row's maximum moved: the factor is then
+  // exactly 1). P alternates between two register arrays (no copy lands
+  // between two products, where ptxas would serialize them). The two
+  // warpgroups take turns to issue their products (named barriers 3 and 4),
+  // so that one's softmax runs while the other's products hold the tensor
+  // cores.
   auto turn = [&] { hopper::bar_sync(kBarTurn + g, kNarrowThreads); };
   auto pass = [&](bool last) {
     if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kNarrowThreads);
   };
   float s[BK / 2];
   float alpha[2];
+  float2 bv[kBiasN][2];
   uint32_t pa[2][BK / 16][4];
   auto step = [&](int j, const uint32_t (&prev)[BK / 16][4], uint32_t (&cur)[BK / 16][4]) {
     turn();
     issue_qk(s, j);
     issue_pv(prev, j - 1);
     pass(false);
+    load_bias(bv, j);
     hopper::wgmma_wait<1>();
     hopper::fence_regs(s);
-    softmax(s, j, cur, alpha);
+    softmax(s, j, bv, cur, alpha);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
     hopper::fence_regs(orem);
     release(j - 1);
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
       #pragma unroll
-      for (int i = 0; i < kMainN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];
       #pragma unroll
-      for (int i = 0; i < (KVTile::kRem ? 8 : 1); ++i) orem[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < kORem; ++i) orem[i] *= alpha[(i >> 1) & 1];
     }
   };
   if (g == 1) hopper::bar_arrive(kBarTurn, kNarrowThreads);  // warpgroup 0 issues first
@@ -865,9 +882,10 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
   turn();
   issue_qk(s, 0);
   pass(false);
+  load_bias(bv, 0);
   hopper::wgmma_wait<0>();
   hopper::fence_regs(s);
-  softmax(s, 0, pa[0], alpha);
+  softmax(s, 0, bv, pa[0], alpha);
   for (int j = 1; j < n_tiles; j += 2) {
     step(j, pa[0], pa[1]);
     if (j + 1 < n_tiles) step(j + 1, pa[1], pa[0]);
@@ -900,10 +918,20 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
   };
   #pragma unroll
   for (int n = 0; n < kMainN / 8; ++n) store(n * 8 + 2 * t, o[4 * n], o[4 * n + 1], o[4 * n + 2], o[4 * n + 3]);
-  if constexpr (KVTile::kRem) {
+  #pragma unroll
+  for (int n = 0; n < kRemN / 8; ++n) {
+    store(kMainN + n * 8 + 2 * t, orem[4 * n], orem[4 * n + 1], orem[4 * n + 2], orem[4 * n + 3]);
+  }
+  // lse in natural-log units; a row whose every key is masked keeps the
+  // -1e30 of its scores exactly, as the plain version gives it
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (long long)blockIdx.y * p.q_len;
+    const int rows[2] = {row_a, row_b};
     #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      store(kMainN + n * 8 + 2 * t, orem[4 * n], orem[4 * n + 1], orem[4 * n + 2], orem[4 * n + 3]);
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] < p.q_len) {
+        lse[rows[r]] = m[r] == kMaskedScore2 ? kMaskedScore + logf(l[r]) : (m[r] + log2f(l[r])) * kLn2;
+      }
     }
   }
 }
@@ -912,8 +940,8 @@ __global__ void __launch_bounds__(kNarrowThreads, 1)
 // 8 rows at one column fall in 8 distinct banks.
 inline int table_pitch(int n) { return n | 1; }
 
-// The six tensor maps (q, k, v: 64-column boxes, then 16-column boxes),
-// the relative-position grid, and the launch of mode kBias.
+// The six tensor maps (q, k, v: 64-column boxes, then 16-column boxes), the
+// bias walk, and the launch of mode kBias.
 template <typename T, int D, int kBias>
 int launch_narrow_mode(const Params& p, int batch, cudaStream_t stream) {
   constexpr int BK = kNarrowKeys<D, kBias>;
@@ -922,210 +950,48 @@ int launch_narrow_mode(const Params& p, int batch, cudaStream_t stream) {
   const void* bases[3] = {p.q, p.k, p.v};
   const int rows[3] = {p.q_len, p.kv_len, p.kv_len};
   const long long strides[3][3] = {{p.q_rs, p.q_hs, p.q_bs}, {p.k_rs, p.k_hs, p.k_bs}, {p.v_rs, p.v_hs, p.v_bs}};
-  CUtensorMap maps[6];
+  CUtensorMap maps[3][2];
   for (int i = 0; i < 3; ++i) {
-    for (int narrow = 0; narrow < 2; ++narrow) {
-      const int box = narrow && L::KVTile::kRem ? hopper::kNarrowBox : hopper::kBox;
-      if (!hopper::encode_map(&maps[3 * narrow + i], bf16, bases[i], p.head_dim, rows[i], p.heads, batch,
-                              strides[i][0], strides[i][1], strides[i][2], box)) {
-        return int(cudaErrorInvalidValue);
-      }
+    if (!hopper::encode_tile_maps(maps[i], bf16, bases[i], p.head_dim, rows[i], p.heads, batch, strides[i][0],
+                                  strides[i][1], strides[i][2])) {
+      return int(cudaErrorInvalidValue);
     }
   }
-  RelPosGrid grid = {};
+  BiasWalk walk = {};
   int bytes = L::bytes;
   if (kBias == kRelPosBias) {
-    grid.kh = p.kv_len / p.kw;
-    grid.step_q = BK / p.kw;
-    grid.step_r = BK % p.kw;
-    grid.pitch_v = table_pitch(grid.kh);
-    grid.pitch_h = table_pitch(p.kw);
-    const int table_bytes = kNarrowRows * (grid.pitch_v + grid.pitch_h) * int(sizeof(float));
-    grid.in_smem = table_bytes <= kMaxRelPosTableBytes;
-    if (grid.in_smem) bytes += table_bytes;
+    walk.kh = p.kv_len / p.kw;
+    walk.step_q = BK / p.kw;
+    walk.step_r = BK % p.kw;
+    walk.pitch_v = table_pitch(walk.kh);
+    walk.pitch_h = table_pitch(p.kw);
+    const int table_bytes = kNarrowRows * (walk.pitch_v + walk.pitch_h) * int(sizeof(float));
+    walk.in_smem = table_bytes <= kMaxRelPosTableBytes;
+    if (walk.in_smem) bytes += table_bytes;
+  }
+  if (kBias == kDenseBias) {
+    walk.pairs = p.bias_cs == 1 && p.kv_len % 2 == 0 && p.bias_bs % 2 == 0 && p.bias_hs % 2 == 0 &&
+                 p.bias_rs % 2 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 8 == 0;
   }
   auto kernel = flash_fwd_narrow_kernel<T, D, kBias>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return int(err);
   const dim3 blocks((p.q_len + kNarrowRows - 1) / kNarrowRows, batch * p.heads);
-  kernel<<<blocks, kNarrowThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p, grid);
+  kernel<<<blocks, kNarrowThreads, bytes, stream>>>(maps[0][0], maps[1][0], maps[2][0], maps[0][1], maps[1][1],
+                                                    maps[2][1], p, walk);
   return int(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch_narrow(const Params& p, int batch, cudaStream_t stream) {
-  return p.vrel != nullptr ? launch_narrow_mode<T, D, kRelPosBias>(p, batch, stream)
-                           : launch_narrow_mode<T, D, kNoBias>(p, batch, stream);
-}
-
-// ---------------------------------------------------------------------------
-// head_dim <= 128 with a dense bias or an lse: FlashAttention-2 on mma.sync
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, int kBias>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(const Params p) {
-  constexpr int LD = D + 8;  // +16 bytes per row: ldmatrix rows fall in distinct banks
-  constexpr int kTileElems = kTile * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTileElems;      // two buffers
-  T* sV = sK + 2 * kTileElems;  // two buffers
-
-  const int d = p.head_dim;
-  const int b = blockIdx.y / p.heads;
-  const int h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
-  T* oh = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
-  const HeadBias<T> hb = head_bias<T>(p, b, h);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // accumulator row within the warp's 16 (and g + 8)
-  const int t = lane & 3;   // accumulator column pair
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const int causal_shift = p.kv_len - p.q_len;
-  const int n_tiles = (p.kv_len + kTile - 1) / kTile;
-
-  load_tile_async<T, D>(sQ, qh, p.q_rs, q0, p.q_len, d);
-  load_tile_async<T, D>(sK, kh, p.k_rs, 0, p.kv_len, d);
-  load_tile_async<T, D>(sV, vh, p.v_rs, 0, p.kv_len, d);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kMaskedScore, kMaskedScore};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile_async<T, D>(sK + (buf ^ 1) * kTileElems, kh, p.k_rs, (j + 1) * kTile, p.kv_len, d);
-      load_tile_async<T, D>(sV + (buf ^ 1) * kTileElems, vh, p.v_rs, (j + 1) * kTile, p.kv_len, d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-      #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a<LD>(qf[kk], sQ, warp * 16, kk, lane);
-    }
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    const T* kb = sK + buf * kTileElems;
-    float s[kTile / 8][4];
-    #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t kf[4];
-        load_b_rows<LD>(kf, kb, np, kk, lane);
-        mma_16816<T>(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_16816<T>(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // online softmax; a row's 64 scores are spread over the 4 lanes of a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-    #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTile + nt * 8 + 2 * t + (e & 1);
-        const float x = masked_score<kBias>(p, hb, s[nt][e], e < 2 ? row_a : row_b, col, causal_shift);
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-    #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-    #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = pe;
-        l[e >> 1] += pe;
-      }
-    }
-    #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V; the S accumulators of key columns [16kc, 16kc + 16) are the
-    // A fragment of that 16-key slice
-    const T* vb = sV + buf * kTileElems;
-    #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);
-      #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        load_b_cols<LD>(vf, vb, kc, dp, lane);
-        mma_16816<T>(o[2 * dp], pa, vf[0], vf[1]);
-        mma_16816<T>(o[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+  switch (bias_mode(p)) {
+    case kRelPosBias:
+      return launch_narrow_mode<T, D, kRelPosBias>(p, batch, stream);
+    case kDenseBias:
+      return launch_narrow_mode<T, D, kDenseBias>(p, batch, stream);
+    default:
+      return launch_narrow_mode<T, D, kNoBias>(p, batch, stream);
   }
-
-  #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (col >= d) continue;
-    if (row_a < p.q_len) {
-      *reinterpret_cast<uint32_t*>(oh + (long long)row_a * p.o_rs + col) = pack2<T>(o[i][0] / l[0], o[i][1] / l[0]);
-    }
-    if (row_b < p.q_len) {
-      *reinterpret_cast<uint32_t*>(oh + (long long)row_b * p.o_rs + col) = pack2<T>(o[i][2] / l[1], o[i][3] / l[1]);
-    }
-  }
-  if (p.lse != nullptr && t == 0) {
-    float* lse = p.lse + (long long)blockIdx.y * p.q_len;
-    if (row_a < p.q_len) lse[row_a] = m[0] + logf(l[0]);
-    if (row_b < p.q_len) lse[row_b] = m[1] + logf(l[1]);
-  }
-}
-
-template <typename T, int D>
-int launch_mma(const Params& p, int batch, cudaStream_t stream) {
-  const int bytes = 5 * kTile * (D + 8) * int(sizeof(T));  // Q + 2 x K + 2 x V
-  auto kernel =
-      bias_mode(p) == kDenseBias ? flash_fwd_mma_kernel<T, D, kDenseBias> : flash_fwd_mma_kernel<T, D, kNoBias>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return int(err);
-  }
-  const dim3 grid((p.q_len + kTile - 1) / kTile, batch * p.heads);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return int(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -1265,43 +1131,35 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // The kernel that serves a call: float32 on FFMA; bfloat16 and float16 with
-// d > 128 on the wide wgmma kernel; with d <= 128, the narrow wgmma kernel,
-// unless the call carries a dense bias or an lse output (mma.sync).
-enum ForwardKernel { kNarrowKernel = 0, kMmaKernel = 1, kWideKernel = 2, kF32Kernel = 3 };
+// d > 128 on the wide wgmma kernel, with d <= 128 on the narrow one, with
+// or without a bias of either kind and an lse output.
+enum ForwardKernel { kNarrowKernel = 0, kWideKernel = 1, kF32Kernel = 2 };
 
-int forward_kernel(int dtype, int dim_pad, bool dense_bias, bool lse) {
+int forward_kernel(int dtype, int dim_pad) {
   if (dtype == 2) return kF32Kernel;
-  if (dim_pad > 128) return kWideKernel;
-  return dense_bias || lse ? kMmaKernel : kNarrowKernel;
+  return dim_pad > 128 ? kWideKernel : kNarrowKernel;
 }
 
 template <typename T>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kDtype = std::is_same<T, __nv_bfloat16>::value ? 0 : 1;
-  switch (forward_kernel(kDtype, p.dim_pad, p.bias != nullptr, p.lse != nullptr)) {
-    case kNarrowKernel:
-      if (p.dim_pad <= 64) return launch_narrow<T, 64>(p, batch, stream);
-      if (p.dim_pad <= 80) return launch_narrow<T, 80>(p, batch, stream);
-      return launch_narrow<T, 128>(p, batch, stream);
-    case kMmaKernel:
-      switch (mma_template(p.dim_pad)) {
-        case 48:
-          return launch_mma<T, 48>(p, batch, stream);
-        case 64:
-          return launch_mma<T, 64>(p, batch, stream);
-        case 80:
-          return launch_mma<T, 80>(p, batch, stream);
-        default:
-          return launch_mma<T, 128>(p, batch, stream);
-      }
+  if (forward_kernel(kDtype, p.dim_pad) == kWideKernel) {
+    return p.dim_pad <= 256 ? launch_wgmma<T, 256>(p, batch, stream) : launch_wgmma<T, 512>(p, batch, stream);
+  }
+  switch (narrow_template(p.dim_pad)) {
+    case 64:
+      return launch_narrow<T, 64>(p, batch, stream);
+    case 80:
+      return launch_narrow<T, 80>(p, batch, stream);
     default:
-      return p.dim_pad <= 256 ? launch_wgmma<T, 256>(p, batch, stream) : launch_wgmma<T, 512>(p, batch, stream);
+      return launch_narrow<T, 128>(p, batch, stream);
   }
 }
 
 // The fields every entry sets: operands, sizes, the (batch, head, row)
 // strides of q, k, v and o (12 values, in elements), the scale; no bias, no
-// lse, no mask.
+// lse, no mask. The head dim padded to 16, which picks the kernel's
+// instance.
 Params base_params(const void* q, const void* k, const void* v, void* o, int heads, int head_dim, int q_len,
                    int kv_len, const long long* strides, float scale) {
   Params p = {};
@@ -1311,7 +1169,7 @@ Params base_params(const void* q, const void* k, const void* v, void* o, int hea
   p.o = o;
   p.heads = heads;
   p.head_dim = head_dim;
-  p.dim_pad = (head_dim + 15) / 16 * 16;
+  p.dim_pad = pad16(head_dim);
   p.q_len = q_len;
   p.kv_len = kv_len;
   long long* const fields[] = {&p.q_bs, &p.q_hs, &p.q_rs, &p.k_bs, &p.k_hs, &p.k_rs,
@@ -1366,11 +1224,12 @@ extern "C" int refiners_flash_attention_forward(const void* q, const void* k, co
 }
 
 // Which kernel a call of the entries above launches (see ForwardKernel):
-// 0 the narrow wgmma kernel, 1 mma.sync, 2 the wide wgmma kernel, 3 float32
-// FFMA; -1 for sizes the entries refuse.
-extern "C" int refiners_flash_attention_forward_kernel(int dtype, int head_dim, int dense_bias, int lse) {
+// 0 the narrow wgmma kernel, 1 the wide wgmma kernel, 2 float32 FFMA; -1
+// for sizes the entries refuse. A bias of either kind and an lse output
+// are modes of each kernel, so they do not change it.
+extern "C" int refiners_flash_attention_forward_kernel(int dtype, int head_dim) {
   if (!valid_sizes(1, 1, head_dim, 1) || dtype < 0 || dtype > 2) return -1;
-  return forward_kernel(dtype, (head_dim + 15) / 16 * 16, dense_bias != 0, lse != 0);
+  return forward_kernel(dtype, pad16(head_dim));
 }
 
 // K3: the relative-position bias of a kh x kw key grid (kh * kw = kv_len,

@@ -1,7 +1,8 @@
 // Helpers shared by the flash attention kernels (forward and backward), for
-// Hopper (sm_90a): cp.async copies, ldmatrix, the m16n8k16 tensor-core
-// product, and the strided tile loads every kernel uses; and, for the
-// float32 kernels, shared-memory tiles multiplied with FFMA.
+// Hopper (sm_90a): the element conversions and packing every kernel uses;
+// cp.async copies, ldmatrix and the m16n8k16 tensor-core product of the dQ
+// kernel; the head-dim instances; and, for the float32 kernels,
+// shared-memory tiles multiplied with FFMA.
 //
 // Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row-major), 4 registers of two values: (g, 2t), (g + 8, 2t),
@@ -151,6 +152,19 @@ __device__ __forceinline__ void load_b_rows(uint32_t b[4], const T* tile, int np
 template <int LD, typename T>
 __device__ __forceinline__ void load_b_cols(uint32_t b[4], const T* tile, int kc, int dp, int lane) {
   ldmatrix_x4_trans(b, tile + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8);
+}
+
+// head_dim rounded up to the 16-column depth of a tensor-core step
+inline int pad16(int head_dim) { return (head_dim + 15) / 16 * 16; }
+
+// The instance (padded head dim, hopper::Tile) of the wgmma kernels for
+// d <= 128 that runs a head of padded width `dim_pad` (a multiple of 16 up
+// to 128): 64 up to 64, then 80 and 128. A 48-column instance measured
+// slower than 64 at d = 40 on the H100 (PERF.md), so there is none.
+inline int narrow_template(int dim_pad) {
+  if (dim_pad <= 64) return 64;
+  if (dim_pad <= 80) return 80;
+  return 128;
 }
 
 // Smallest compiled head-dim template that holds `dim_pad` (a multiple of 16).

@@ -26,6 +26,8 @@
 //   K-major it is one 16-deep K step with 8-row groups 256 bytes apart;
 //   read MN-major (N = 16) its K step k starts 16 rows, 512 bytes, further
 //   on.
+// - `Tile<D, R>` lays out R rows x D columns of one head as these boxes;
+//   the attention kernels read Q, K, V, dO through it.
 
 #pragma once
 
@@ -84,6 +86,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
   } while (!done);
   __syncwarp();
+}
+
+// one arrival on `bar` once every cp.async the calling thread has issued so
+// far has landed (the barrier's expected count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
@@ -257,6 +265,64 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_F8
 
 // ---------------------------------------------------------------------------
+// tiles of one head, as the attention kernels lay them out
+// ---------------------------------------------------------------------------
+
+// R rows (a multiple of 64) x D columns (D = 64, 80 or 128, the head dim
+// padded) of one head: D / 64 whole boxes of 64 columns (128-byte swizzle),
+// each its R / 64 row boxes of 8 KiB one after another (R * 128 bytes);
+// then, at D = 80, a narrow box of 16 columns (32-byte swizzle), R * 32
+// bytes. Rows run on across row boxes, so R rows are one wgmma operand.
+// Read MN-major, the whole boxes are one operand of N = kMainN and the
+// narrow box one of N = 16, so no product runs over zero columns past D;
+// read K-major, the tile is D / 16 steps of 16 columns.
+template <int D, int R>
+struct Tile {
+  static_assert(D == 64 || D == 80 || D == 128, "tiles are compiled for D = 64, 80 and 128");
+  static_assert(R % kBox == 0, "a tile is whole row boxes");
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kMainN = kBoxes * kBox;  // columns in whole boxes
+  static constexpr int kRemN = D % kBox;        // columns in the narrow box (0 or 16)
+  static constexpr int kBoxStride = R * 128;    // bytes from one whole box to the next
+  static constexpr int kNarrow = kBoxes * kBoxStride;  // offset of the narrow box
+  static constexpr int kBytes = kNarrow + kRemN * R * 2;
+  static constexpr int kSteps = D / 16;
+
+  // K-major descriptor of K step kk (columns [16 kk, 16 kk + 16)) of the
+  // tile at `base`
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    return kk < 4 * kBoxes ? kmajor_desc(base + (kk / 4) * kBoxStride + (kk % 4) * 32)
+                           : narrow_kmajor_desc(base + kNarrow);
+  }
+  // MN-major descriptors of K step kc (rows [16 kc, 16 kc + 16)): the whole
+  // boxes' columns, the narrow box's columns
+  static __device__ __forceinline__ uint64_t mn_main(uint32_t base, int kc) {
+    return mnmajor_desc(base + kc * 16 * 128, kBoxStride);
+  }
+  static __device__ __forceinline__ uint64_t mn_rem(uint32_t base, int kc) {
+    return narrow_mnmajor_desc(base + kNarrow + kc * 16 * 32);
+  }
+};
+
+// Rows [row, row + R) of head (h, b) onto `bar`, laid out as Tile<D, R>:
+// `map` serves the whole boxes, `narrow` the narrow one.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map, const CUtensorMap* narrow, uint32_t bar,
+                                          uint32_t dst, int row, int h, int b) {
+  using L = Tile<D, R>;
+  #pragma unroll
+  for (int r = 0; r < R / kBox; ++r) {
+    #pragma unroll
+    for (int i = 0; i < L::kBoxes; ++i) {
+      tma_load_4d(dst + i * L::kBoxStride + r * kBoxBytes, map, bar, i * kBox, row + r * kBox, h, b);
+    }
+    if constexpr (L::kRemN > 0) {
+      tma_load_4d(dst + L::kNarrow + r * kNarrowBoxBytes, narrow, bar, L::kMainN, row + r * kBox, h, b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -307,6 +373,15 @@ inline bool encode_map(CUtensorMap* map, bool bf16, const void* base, int cols, 
                               const_cast<void*>(base), dims, bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS;
+}
+
+// The two maps of a head-strided operand that `load_tile` reads: 64-column
+// boxes (maps[0]) and 16-column boxes (maps[1]).
+inline bool encode_tile_maps(CUtensorMap (&maps)[2], bool bf16, const void* base, int cols, int rows, int heads,
+                             int batch, long long row_stride, long long head_stride, long long batch_stride) {
+  return encode_map(&maps[0], bf16, base, cols, rows, heads, batch, row_stride, head_stride, batch_stride, kBox) &&
+         encode_map(&maps[1], bf16, base, cols, rows, heads, batch, row_stride, head_stride, batch_stride,
+                    kNarrowBox);
 }
 
 }  // namespace hopper

@@ -42,7 +42,7 @@ _ENTRIES = {
         "flash_attention_forward",
         [_P] * 6 + [_I] * 6 + [ctypes.POINTER(_LL), _F, _I, _P],
     ),
-    "refiners_flash_attention_forward_kernel": ("flash_attention_forward", [_I] * 4),
+    "refiners_flash_attention_forward_kernel": ("flash_attention_forward", [_I] * 2),
     "refiners_flash_attention_relpos_forward": (
         "flash_attention_forward",
         [_P] * 6 + [_I] * 8 + [ctypes.POINTER(_LL), _F, _P],

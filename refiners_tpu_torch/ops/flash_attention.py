@@ -19,10 +19,12 @@ does not exist here: both entries view their operands as (B, H, L, D) through
 strides and launch the same kernels, with no split/merge-heads copies. Each
 source holds tensor-core versions for bfloat16 and float16 and an FFMA
 version for float32 (which keeps float32 accuracy). The forward source picks
-its kernel by what a call carries (`forward_kernel` names it): float32 on
-FFMA; d > 128 on the wide wgmma kernel; d ≤ 128 on the narrow wgmma kernel
-(TMA, two consumer warpgroups), unless the call has a dense bias or an lse
-output, which take the mma.sync kernel.
+one of three kernels by dtype and head dim (`forward_kernel` names it):
+float32 on FFMA; d > 128 on the wide wgmma kernel; d ≤ 128 on the narrow
+wgmma kernel (TMA, two consumer warpgroups), with or without a dense or
+relative-position bias and an lse output. The backward's dK/dV kernel is a
+wgmma kernel on TMA (two warpgroups of 64 keys, P and dS kept in registers),
+its dQ kernel mma.sync (`BACKWARD_KERNELS` names them).
 
 Entries and their launch counters (a plain integer on each wrapper, one per
 launch of its kernel):
@@ -60,7 +62,13 @@ MAX_BACKWARD_HEAD_DIM = 128
 MAX_RELPOS_SIDE = 256
 # the CUDA kernels of csrc/flash_attention_forward.cu, numbered as its
 # `refiners_flash_attention_forward_kernel` entry numbers them
-FORWARD_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_mma_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")
+FORWARD_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")
+# the CUDA kernels of csrc/flash_attention_backward.cu, (dK/dV, dQ) by dtype
+BACKWARD_KERNELS = {
+    torch.bfloat16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel"),
+    torch.float16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel"),
+    torch.float32: ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -242,13 +250,11 @@ def _launch_forward(
         raise RuntimeError(f"flash attention forward kernel launch failed: cudaError {err}")
 
 
-def forward_kernel(dtype: torch.dtype, head_dim: int, dense_bias: bool = False, lse: bool = False) -> str:
+def forward_kernel(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that a forward call on the card launches, as the C
-    entry routes it (a relative-position call carries no dense bias and no
-    lse). Builds the kernels if needed."""
-    code = load_library().refiners_flash_attention_forward_kernel(
-        DTYPE_CODES[dtype], head_dim, int(dense_bias), int(lse)
-    )
+    entry routes it: by dtype and head dim (a bias of either kind and an lse
+    output are modes of each kernel). Builds the kernels if needed."""
+    code = load_library().refiners_flash_attention_forward_kernel(DTYPE_CODES[dtype], head_dim)
     if code < 0:
         raise ValueError(f"the forward kernels do not take head_dim={head_dim}")
     return FORWARD_KERNELS[code]

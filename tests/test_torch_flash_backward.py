@@ -45,7 +45,12 @@ SHAPES = [
     (1, 200, 300, 8, 40, False),  # SD1.5 head width, ragged lengths
     (2, 256, 256, 4, 64, True),
     (1, 256, 256, 3, 160, False),  # wide heads
+    (1, 256, 256, 2, 80, True),  # SD1.5's second training site's head width, causal
+    (1, 200, 260, 2, 128, False),  # the widest head of the narrow kernels, Lq != Lk
 ]
+# biases broadcast to (2, 3, 192, 224) by stride 0: over heads, and a key
+# bias over batch, heads and rows
+BROADCAST_BIASES = [(2, 1, 192, 224), (1, 1, 1, 224)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,6 +91,21 @@ def test_forward_and_lse_match_jax(
     assert _rel(got.numpy(), want) <= TOL
     # the JAX lse is lane-broadcast (B, H, Lq_pad, 128): its first lane, first Lq rows
     assert float(np.abs(lse.numpy() - np.asarray(want_lse)[:, :, :lq, 0]).max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("bias_shape", BROADCAST_BIASES)
+def test_forward_and_lse_with_a_broadcast_bias_match_jax(bias_shape: tuple[int, ...]) -> None:
+    """The port takes the bias as given and broadcasts it by stride 0; the
+    JAX kernel takes it materialized at (B, H, Lq, Lk). out within TOL, lse
+    within LSE_TOL."""
+    q, k, v, _ = _inputs(2, 192, 224, 3, 40, seed=len(bias_shape) + bias_shape[1])
+    bias = np.random.RandomState(2).randn(*bias_shape).astype(np.float32)
+    full = jnp.asarray(np.broadcast_to(bias, (2, 3, 192, 224)))
+    want, want_lse = jax_flash_forward(*(jnp.asarray(x) for x in (q, k, v)), full, False, None, with_lse=True)
+    got, lse = flash_attention_forward(*(torch.tensor(x) for x in (q, k, v)), torch.tensor(bias), with_lse=True)
+    assert lse is not None and lse.shape == (2, 3, 192)
+    assert _rel(got.numpy(), want) <= TOL
+    assert float(np.abs(lse.numpy() - np.asarray(want_lse)[:, :, :192, 0]).max()) <= LSE_TOL
 
 
 def test_boolean_mask_with_a_fully_masked_row_gives_uniform_weights() -> None:

@@ -181,14 +181,13 @@ def test_wide_kernel_reads_strided_heads(device: torch.device) -> None:
 
 
 def test_forward_routes_by_what_the_call_carries(device: torch.device) -> None:
-    """d <= 128 without a dense bias or an lse takes the narrow wgmma kernel;
-    a dense bias or an lse keeps mma.sync; d > 128 the wide wgmma kernel;
-    float32 the FFMA kernel."""
+    """d <= 128 takes the narrow wgmma kernel, with or without a dense bias
+    or an lse (modes of each kernel, which the route does not read: SD1.5's
+    d = 40 training forward with its lse runs the narrow kernel); d > 128
+    the wide wgmma kernel; float32 the FFMA kernel."""
     for dim in NARROW_DIMS:
         for dtype in (torch.bfloat16, torch.float16):
             assert fa.forward_kernel(dtype, dim) == "flash_fwd_narrow_kernel"
-    assert fa.forward_kernel(torch.bfloat16, 40, lse=True) == "flash_fwd_mma_kernel"
-    assert fa.forward_kernel(torch.bfloat16, 64, dense_bias=True) == "flash_fwd_mma_kernel"
     assert fa.forward_kernel(torch.bfloat16, 136) == "flash_fwd_wgmma_kernel"
     assert fa.forward_kernel(torch.float32, 64) == "flash_fwd_f32_kernel"
     with pytest.raises(ValueError):
@@ -208,6 +207,71 @@ def test_narrow_kernel_matches_plain(device: torch.device, dim: int, dtype: torc
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_packed_plain(q.float(), k.float(), v.float(), head_dim=dim)
     assert _rel(got, want) <= TOL
+
+
+# dense biases of the narrow kernel's lse tests, over (B, H, Lq, Lk) =
+# (2, 3, 300, 260): full (8-byte column pairs), broadcast over heads, over
+# batch, heads and rows (strides 0), and transposed (column stride Lq: one
+# value a load)
+NARROW_BIASES = {
+    "none": None,
+    "full": (2, 3, 300, 260),
+    "over heads": (2, 1, 300, 260),
+    "keys only": (1, 1, 1, 260),
+    "transposed": "transposed",
+}
+
+
+def _bias(device: torch.device, kind: str) -> torch.Tensor | None:
+    gen = torch.Generator(device).manual_seed(len(kind))
+    shape = NARROW_BIASES[kind]
+    if shape == "transposed":
+        return torch.randn((2, 3, 260, 300), generator=gen, device=device).transpose(-1, -2)
+    return None if shape is None else torch.randn(shape, generator=gen, device=device)
+
+
+@pytest.mark.parametrize("bias", list(NARROW_BIASES))
+@pytest.mark.parametrize("dim", NARROW_DIMS)
+def test_narrow_kernel_lse_and_dense_bias_match_plain(device: torch.device, dim: int, bias: str) -> None:
+    """The narrow kernel's lse output and dense-bias mode at each of its
+    instances (64, 80, 128) and the widths that pad into them, causal and
+    ragged with Lq = 300 > Lk = 260: the first 40 rows have no admissible
+    key, get uniform weights and the lse of their -1e30 scores, as the
+    plain version gives them. out within TOL, lse within LSE_TOL."""
+    q, k, v = _qkv4(device, 2, 300, 260, 3, dim)
+    b = _bias(device, bias)
+    before = flash_attention.launches
+    out, lse = flash_attention_forward(q, k, v, b, is_causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert lse is not None and lse.shape == (2, 3, 300)
+    want_out, want_lse = fa._plain_forward(q.float(), k.float(), v.float(), b, True, None)
+    assert _rel(out, want_out) <= TOL
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    assert _rel(out[:, :, :40], v.float().mean(dim=2, keepdim=True).expand(2, 3, 40, dim)) <= TOL
+
+
+@pytest.mark.parametrize("masked", [-1e30, torch.finfo(torch.float32).min])
+@pytest.mark.parametrize("dim", [40, 64, 80, 128])
+def test_narrow_kernel_fully_masked_bias_row(device: torch.device, dim: int, masked: float) -> None:
+    """A boolean keep-mask as a bias (B, 1, Lq, Lk) of `masked` (-1e30, or
+    float32's lowest, which times log2(e) would overflow to -inf), one row
+    with no key: uniform weights on that row; out within TOL, lse within
+    LSE_TOL on the other rows. The kernel counts a bias below -1e30 as
+    -1e30, so that row's lse is within float32 rounding of -1e30."""
+    q, k, v = _qkv4(device, 1, 256, 320, 2, dim)
+    keep = torch.rand((1, 1, 256, 320), generator=torch.Generator(device).manual_seed(dim), device=device) > 0.5
+    keep[..., 9, :] = False
+    bias = torch.where(keep, 0.0, masked)
+    out, lse = flash_attention_forward(q, k, v, bias, with_lse=True)
+    want_out, want_lse = fa._plain_forward(q.float(), k.float(), v.float(), bias, False, None)
+    assert lse is not None
+    assert bool(out.isfinite().all())
+    assert _rel(out, want_out) <= TOL
+    assert _rel(out[..., 9, :], v.float().mean(dim=2)) <= TOL
+    rows = torch.arange(256, device=device) != 9
+    assert float((lse - want_lse)[..., rows].abs().max()) <= LSE_TOL
+    assert float((lse[..., 9] / -1e30 - 1.0).abs().max()) <= 1e-6
 
 
 def test_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
@@ -294,6 +358,47 @@ def test_backward_matches_plain(
         assert _rel(got, ref) <= GRAD_TOL
     if lq > lk and causal:
         assert float(grads[0][:, :, : lq - lk].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dim", [40, 48, 64, 80, 128])
+def test_dkv_kernel_matches_plain(device: torch.device, dim: int, causal: bool, dtype: torch.dtype) -> None:
+    """The dK/dV wgmma kernel at each of its instances (D = 64 for d = 40
+    and 48, 80, 128), ragged with Lq = 330 > Lk = 200 (two blocks of 128 keys, the second
+    partial; six query tiles, the last partial; each head's lse and delta
+    start off a 16-byte boundary): with `causal` the first 130 query rows
+    have no admissible key and get zero dq. dq, dk, dv within GRAD_TOL."""
+    q, k, v = (x.to(dtype) for x in _qkv4(device, 2, 330, 200, 3, dim))
+    out, lse = flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+    do = torch.randn_like(out)
+    before = _launches()
+    grads = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1], before[2] + 1, before[3] + 1]
+    want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype and _rel(got, ref) <= GRAD_TOL
+    if causal:
+        assert float(grads[0][:, :, :130].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dim", [40, 64, 80, 128])
+def test_dkv_kernel_reads_a_fused_projection(device: torch.device, dim: int) -> None:
+    """q, k, v as head views of one (B, L, 3·H·D) projection (row stride
+    3·H·D, k starting H·D after q), read in place by the dK/dV kernel's
+    tensor maps; dk and dv within GRAD_TOL."""
+    b, seq, heads = 2, 520, 4
+    gen = torch.Generator(device).manual_seed(dim + 1)
+    qkv = torch.randn((b, seq, 3 * heads * dim), generator=gen, device=device).bfloat16()
+    q, k, v = qkv.reshape(b, seq, 3, heads, dim).permute(2, 0, 3, 1, 4)
+    assert k.stride(2) == 3 * heads * dim
+    out, lse = flash_attention_forward(q, k, v, with_lse=True)
+    do = torch.randn_like(out)
+    delta = (do.float() * out.float()).sum(-1)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False, dim**-0.5)
+    _, want_dk, want_dv = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float())
+    assert _rel(dk, want_dk) <= GRAD_TOL and _rel(dv, want_dv) <= GRAD_TOL
 
 
 def test_packed_backward_reads_strided_heads(device: torch.device) -> None:
