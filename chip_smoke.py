@@ -26,11 +26,13 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      broadcast over batch, heads and rows, d = 128): out ≤ 1e-2, lse max
      abs ≤ 1e-3; a boolean mask with a fully masked row gives uniform
      weights;
-   - the backward kernels (``flash_attention_bwd_dkv``, K4a on wgmma, and
-     ``flash_attention_bwd_dq``, K4b) at the SD1.5 shapes, causal cases at
-     d = 80, d = 128 and d = 40 with Lq > Lk, and through strided heads of
-     a packed fused projection: dq, dk, dv each ≤ 2e-2 against
-     ``flash_attention_backward_plain`` in float32;
+   - the backward kernels (``flash_attention_bwd_dkv``, K4a, and
+     ``flash_attention_bwd_dq``, K4b, both on TMA + wgmma) at the SD1.5
+     shapes, causal cases at d = 80, d = 128, d = 40 with Lq > Lk and
+     d = 80 with Lq < Lk, and through strided heads of a packed fused
+     projection: dq, dk, dv each ≤ 2e-2 against
+     ``flash_attention_backward_plain`` in float32; the registers and spill
+     bytes of every dQ instance from the build's ptxas output;
    - the forward with SAM's decomposed relative-position bias
      (``flash_attention_relpos``) at the SAM-H global and windowed layers'
      shapes and at a 10 × 10 key grid, in bf16 and float32, against
@@ -232,6 +234,7 @@ BACKWARD_SHAPES = [
     (2, 1024, 1024, 8, 80, True, BF16),
     (2, 1024, 1024, 8, 128, True, BF16),  # the D = 128 instance
     (2, 1200, 1000, 8, 40, True, BF16),  # Lq > Lk: 200 query rows without a key
+    (2, 1000, 1100, 8, 80, True, BF16),  # Lq < Lk: every row sees keys, the diagonal 100 keys in
     (2, 4096, 4096, 8, 40, False, F32),
     (2, 1024, 1024, 8, 80, False, F32),
     (2, 1000, 1100, 5, 64, True, F32),
@@ -1378,6 +1381,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
         return 1
     from refiners_tpu_torch.ops import build
+    from refiners_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda", 0)
     smi = _smi()
@@ -1391,12 +1395,19 @@ def main() -> int:
     paths, log = build.build_libraries()
     build.load_library()
     print(f"build: {', '.join(p.name for p in paths.values())} in {time.perf_counter() - start:.1f} s")
-    entry = ""
+    entry, ptxas = "", {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = _kernel_name(line)
         elif "Used" in line or "spill" in line:
-            print(f"  ptxas: {entry}: {line.split('info    :')[-1].strip()}")
+            ptxas.setdefault(entry, []).append(line.split("info    :")[-1].strip())
+            print(f"  ptxas: {entry}: {ptxas[entry][-1]}")
+    dq_kernel = fa.BACKWARD_KERNELS[BF16][1]
+    dq_ptxas = {name: "; ".join(lines) for name, lines in ptxas.items() if name.startswith(dq_kernel + "<")}
+    if log and not dq_ptxas:
+        raise AssertionError(f"the build's ptxas output names no {dq_kernel} instance")
+    for name, lines in dq_ptxas.items():
+        print(f"ptxas K4b {name}: {lines}")
 
     check_device_default()
     packed = check_packed_forward(dev)
@@ -1480,7 +1491,7 @@ def main() -> int:
              "cuda_kernel": rows["K4a"]["cuda_kernel"], "sites": train_sites("K4a", dkv[0])},
             {**kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
                       train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
-             "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0])},
+             "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0]), "ptxas": dq_ptxas},
             {**kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
                       sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
              "cuda_kernel": rows["K3 global"]["cuda_kernel"], "device_ms": rows["K3 global"]["device_ms"],

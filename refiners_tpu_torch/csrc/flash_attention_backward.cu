@@ -21,40 +21,48 @@
 //
 // As on the TPU there are two kernels and no atomics, so the gradients are
 // deterministic: the dK/dV kernel owns a tile of keys and loops over the
-// query tiles; the dQ kernel owns a tile of 64 queries and loops over the
-// key tiles. With `causal`, tiles that lie wholly above the diagonal are
+// query tiles; the dQ kernel owns a tile of queries and loops over the key
+// tiles. With `causal`, tiles that lie wholly above the diagonal are
 // skipped. Heads are read through (batch, head, row) strides, so the packed
 // (B, L, H*D) layout, the flat (B, H, L, D) layout and column slices of a
 // fused projection all run in place. head_dim <= 128.
 //
-// - dK/dV, bfloat16 and float16 (K4a): `flash_bwd_dkv_wgmma_kernel`,
-//   compiled for padded head dims 64, 80 and 128 (hopper::Tile: whole
-//   64-column boxes with the 128-byte swizzle plus a 16-column box with the
-//   32-byte swizzle, so d = 80 pays for 80 columns; d <= 64 runs the D = 64
-//   instance). A block is 128
-//   keys, two warpgroups of 64, with K and V loaded once by TMA; Q and dO
-//   stream through a three-stage TMA ring, lse and delta beside them by
-//   cp.async onto the same mbarriers. Every product is a warpgroup wgmma:
-//   S^T = K Q^T and dP^T = V dO^T from shared memory, so P^T and dS^T come
-//   out as accumulators whose rows are keys, and feed dV += P^T dO and
-//   dK += dS^T Q as register A operands (dO and Q read MN-major through the
-//   transpose bit). Neither P nor dS goes through shared memory, every Q
-//   and dO byte read from L2 serves 128 keys, and the two warpgroups take
-//   turns on the tensor cores, as the forward's narrow kernel does.
-// - dQ, bfloat16 and float16 (K4b): `flash_bwd_dq_kernel`, FlashAttention-2
-//   on mma.sync m16n8k16, 4 warps of 16 query rows, K and V tiles double-
-//   buffered with cp.async, compiled for padded head dims 48, 64, 80 and
-//   128.
+// bfloat16 and float16: both kernels are warpgroup wgmma kernels on TMA,
+// compiled for padded head dims 64, 80 and 128 (hopper::Tile: whole
+// 64-column boxes with the 128-byte swizzle plus a 16-column box with the
+// 32-byte swizzle, so d = 80 pays for 80 columns; d <= 64 runs the D = 64
+// instance). A block is two warpgroups of 64 rows that own their operand
+// tiles (loaded once by TMA) and their gradient accumulators (registers),
+// while the other side's tiles stream through a three-stage TMA ring that
+// the last of the block's 8 warps done with a stage refills. The two
+// warpgroups take turns on the tensor cores, as the forward's narrow kernel
+// does, and neither P nor dS ever goes through shared memory: each is
+// computed in the accumulator of its product and packed there into a
+// register A operand.
+// - dK/dV (K4a): `flash_bwd_dkv_wgmma_kernel`, 128 keys a block, K and V
+//   owned; Q and dO stream, lse and delta beside them by cp.async onto the
+//   same mbarriers. S^T = K Q^T and dP^T = V dO^T from shared memory, so
+//   P^T and dS^T come out as accumulators whose rows are keys, and feed
+//   dV += P^T dO and dK += dS^T Q as register A operands (dO and Q read
+//   MN-major through the transpose bit). Every Q and dO byte read from L2
+//   serves 128 keys.
+// - dQ (K4b): `flash_bwd_dq_wgmma_kernel`, 128 query rows a block, Q and dO
+//   owned, each row's lse and delta in registers; K and V stream.
+//   S = Q K^T and dP = dO V^T from shared memory, dS fed to dQ += dS K as a
+//   register A operand (K read MN-major). Every K and V byte read from L2
+//   serves 128 queries.
 // - float32: the same two kernels on plain FFMA with 8 warps (P and dS
 //   unrounded, float32 throughout), so the gradients keep float32 accuracy.
 //
 // What bounds it on the H100: tensor-core throughput, as in the forward
 // (the dK/dV kernel does 8*L^2*d flops per head, the dQ kernel 6*L^2*d),
-// and beside it the exp2 of every P entry on the MUFU; with 64 keys a
-// warpgroup, the dK/dV kernel holds 64 x D float32 of dK and of dV per
-// warpgroup in registers (D floats a thread), two 64 x 64 score tiles and
-// their packed A operands: 224 values at D = 128, which ptxas fits in 254
-// of the 255 registers a thread of a 256-thread block may use.
+// and beside it the exp2 of every P entry on the MUFU, which each kernel
+// computes once. With 64 rows a warpgroup, the dK/dV kernel holds 64 x D
+// float32 of dK and of dV per warpgroup in registers (D floats a thread),
+// two 64 x 64 score tiles and their packed A operands: 224 values at
+// D = 128, which ptxas fits in 254 of the 255 registers a thread of a
+// 256-thread block may use; the dQ kernel holds one gradient, so it can
+// afford 128-key score tiles up to D = 80.
 
 #include <math.h>
 
@@ -91,10 +99,12 @@ __device__ __forceinline__ bool admissible(const BwdParams& p, int row, int col)
 
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB per block on Hopper
 constexpr int kWarpgroup = 128;
-constexpr int kDkvThreads = 2 * kWarpgroup;  // two warpgroups of 64 keys
-constexpr int kDkvWarps = kDkvThreads / 32;
-constexpr int kDkvKeys = 2 * kTile;  // keys per block
-constexpr int kDkvStages = 3;        // depth of the Q/dO ring
+// both wgmma kernels: blocks of two warpgroups, 64 rows each (keys for
+// dK/dV, query rows for dQ), and a TMA ring of three stages
+constexpr int kThreads = 2 * kWarpgroup;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlockRows = 2 * kTile;
+constexpr int kStages = 3;
 // named barriers: 1 + g, warpgroup g's turn to issue its products
 constexpr int kBarTurn = 1;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -117,12 +127,12 @@ struct DkvSmem {
   static constexpr int k = 0;
   static constexpr int v = 2 * Tile::kBytes;
   static constexpr int q = 4 * Tile::kBytes;
-  static constexpr int dout = q + kDkvStages * Tile::kBytes;
-  static constexpr int rows = dout + kDkvStages * Tile::kBytes;
+  static constexpr int dout = q + kStages * Tile::kBytes;
+  static constexpr int rows = dout + kStages * Tile::kBytes;
   static constexpr int kRowBytes = 2 * kTile * 4;  // a stage's lse and delta
-  static constexpr int bars = rows + kDkvStages * kRowBytes;
-  static constexpr int done = bars + (1 + kDkvStages) * 8;
-  static constexpr int bytes = done + kDkvStages * 4 + hopper::kSwizzleAtomBytes;  // + room to align the base
+  static constexpr int bars = rows + kStages * kRowBytes;
+  static constexpr int done = bars + (1 + kStages) * 8;
+  static constexpr int bytes = done + kStages * 4 + hopper::kSwizzleAtomBytes;  // + room to align the base
   static_assert(bytes <= int(kMaxSharedBytes), "dK/dV tiles exceed shared memory");
 };
 
@@ -131,7 +141,7 @@ struct DkvSmem {
 // [64g, 64g + 64) of the block: its K and V rows stay in shared memory
 // (K-major A operands) and its dK and dV accumulators (64 x D, float32) in
 // registers. Q and dO of each query tile arrive by TMA in a ring of
-// kDkvStages stages, lse and delta beside them by cp.async, one full
+// kStages stages, lse and delta beside them by cp.async, one full
 // mbarrier a stage, shared by both warpgroups; the last of the 8 warps done
 // with a stage starts the loads of the tile it holds next. Per tile i, a
 // warpgroup issues in one turn
@@ -151,7 +161,7 @@ struct DkvSmem {
 // diagonal); query rows past the end and zero-filled K rows past the end
 // contribute nothing, and rows past the end are never stored.
 template <typename T, int D>
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                                const __grid_constant__ CUtensorMap tq16, const __grid_constant__ CUtensorMap tk16,
@@ -177,7 +187,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const uint32_t sdo0 = hopper::smem_u32(smem + L::dout);
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int k0 = blockIdx.x * kDkvKeys;
+  const int k0 = blockIdx.x * kBlockRows;
   const int shift = p.kv_len - p.q_len;  // causal: key k sees queries q >= k - shift
   const int n_q = (p.q_len + kTile - 1) / kTile;
   const int first_row = p.causal ? k0 - shift : 0;
@@ -187,14 +197,14 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
   const int lane = threadIdx.x % 32;
 
-  // query tile j0 + i into stage i % kDkvStages, by one whole warp: lane 0
+  // query tile j0 + i into stage i % kStages, by one whole warp: lane 0
   // starts the TMA loads of Q and dO; every lane copies 2 of the tile's 64
   // lse values and 2 of its delta values with cp.async, which arrive on the
   // same full mbarrier (one arrival a lane), zeros past q_len. A head's lse
   // and delta start wherever q_len puts them, where a TMA copy would need
   // its start 16-byte aligned.
   auto load_q = [&](int i) {
-    const int s = i % kDkvStages;
+    const int s = i % kStages;
     const int q0 = (j0 + i) * kTile;
     const uint32_t bar = full0 + 8 * s;
     if (lane == 0) {
@@ -215,7 +225,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   };
   if (threadIdx.x == 0) {
     hopper::mbar_init(kvbar, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(full0 + 8 * s, 1 + 32);  // lane 0's expect_tx, then every lane's copies
       done[s] = 0;
     }
@@ -228,7 +238,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
   if (threadIdx.x < 32) {
     __syncwarp();  // the barriers are initialized
-    for (int i = 0; i < kDkvStages && i < n_tiles; ++i) load_q(i);
+    for (int i = 0; i < kStages && i < n_tiles; ++i) load_q(i);
   }
   __syncthreads();
 
@@ -278,7 +288,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   };
   // dV += P^T dO and dK += dS^T Q of tile i, from pa and da; not committed
   auto issue_grads = [&](int i) {
-    const int stage = i % kDkvStages;
+    const int stage = i % kStages;
     issue_rs(dv, dvr, pa, sdo0 + stage * Tile::kBytes);
     issue_rs(dk, dkr, da, sq0 + stage * Tile::kBytes);
   };
@@ -286,15 +296,15 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   auto release = [&](int i) {
     __syncwarp();
     int last = 0;
-    if (lane == 0) last = atomicAdd(done + i % kDkvStages, 1) % kDkvWarps == kDkvWarps - 1;
-    if (__shfl_sync(0xffffffffu, last, 0) && i + kDkvStages < n_tiles) load_q(i + kDkvStages);
+    if (lane == 0) last = atomicAdd(done + i % kStages, 1) % kWarps == kWarps - 1;
+    if (__shfl_sync(0xffffffffu, last, 0) && i + kStages < n_tiles) load_q(i + kStages);
   };
   // The two warpgroups take turns to issue their products (named barriers
   // 1 and 2), so that one's P and dS run while the other's products hold
   // the tensor cores.
-  auto turn = [&] { hopper::bar_sync(kBarTurn + g, kDkvThreads); };
+  auto turn = [&] { hopper::bar_sync(kBarTurn + g, kThreads); };
   auto pass = [&](bool last) {
-    if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kDkvThreads);
+    if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kThreads);
   };
 
   // Per tile i, one turn issues S^T_i = K Q_i^T and dP^T_i = V dO_i^T, then
@@ -304,13 +314,13 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // operands once those have landed too.
   hopper::mbar_wait(kvbar, 0);
   if (n_tiles > 0) {
-    if (g == 1) hopper::bar_arrive(kBarTurn, kDkvThreads);  // warpgroup 0 issues first
+    if (g == 1) hopper::bar_arrive(kBarTurn, kThreads);  // warpgroup 0 issues first
     for (int i = 0; i < n_tiles; ++i) {
-      const int stage = i % kDkvStages;
+      const int stage = i % kStages;
       const int q0 = (j0 + i) * kTile;
       const float* lse = stage_rows + stage * 2 * kTile;
       const float* delta = lse + kTile;
-      hopper::mbar_wait(full0 + 8 * stage, (i / kDkvStages) & 1);
+      hopper::mbar_wait(full0 + 8 * stage, (i / kStages) & 1);
       turn();
       hopper::fence_regs(s);
       hopper::fence_regs(dp);
@@ -334,7 +344,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
       // P^T and dS^T; accumulator entry 4n + e is (key e < 2 ? key_a :
       // key_b, query q0 + 8n + 2t + (e & 1))
-      const bool masked = q0 + kTile > p.q_len || (p.causal && k0 + kDkvKeys - 1 > q0 + shift);
+      const bool masked = q0 + kTile > p.q_len || (p.causal && k0 + kBlockRows - 1 > q0 + shift);
       #pragma unroll
       for (int n = 0; n < kTile / 8; ++n) {
         const float2 lv = *reinterpret_cast<const float2*>(lse + 8 * n + 2 * t);
@@ -389,10 +399,273 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   for (int n = 0; n < kRemN / 8; ++n) store(kMainN + n * 8 + 2 * t, dkr + 4 * n, dvr + 4 * n);
 }
 
-// The eight tile maps (q, k, v, dout: 64-column and 16-column boxes) and
-// the launch.
+// ---------------------------------------------------------------------------
+// dQ, bfloat16 and float16: wgmma and TMA
+// ---------------------------------------------------------------------------
+
+// Keys per tile of the dQ kernel at padded head dim D: 128 up to D = 80,
+// where S and dP are m64n128 products (fewer shared-memory bytes per
+// product than m64n64) and the tile's 128 scores a row, their dS operands
+// and the gradient fit in 240 and 248 registers; it measured 13-14 % faster
+// than 64 keys at both SD1.5 sites on the H100 (PERF.md). 64 at D = 128,
+// whose wider gradient would not fit beside 128 scores a row.
+template <int D>
+constexpr int kDqKeys = D <= 80 ? 128 : 64;
+
+// Shared memory of the dQ kernel at padded head dim D, in bytes from a
+// 1024-byte-aligned base: Q and dO as two 64-row tiles each (one per
+// warpgroup, loaded once); the ring's K tiles, then its V tiles; the
+// mbarriers (Q and dO; then each stage's full barrier) and each stage's
+// running count of warps done with it.
+template <int D>
+struct DqSmem {
+  using QTile = hopper::Tile<D, kTile>;
+  using KVTile = hopper::Tile<D, kDqKeys<D>>;
+  static constexpr int q = 0;
+  static constexpr int dout = 2 * QTile::kBytes;
+  static constexpr int k = 4 * QTile::kBytes;
+  static constexpr int v = k + kStages * KVTile::kBytes;
+  static constexpr int bars = v + kStages * KVTile::kBytes;
+  static constexpr int done = bars + (1 + kStages) * 8;
+  static constexpr int bytes = done + kStages * 4 + hopper::kSwizzleAtomBytes;  // + room to align the base
+  static_assert(bytes <= int(kMaxSharedBytes), "dQ tiles exceed shared memory");
+};
+
+// One block of 256 threads per (128 query rows, batch*head), a loop over the
+// key tiles of BK that any of its rows sees. Warpgroup g owns rows
+// [64g, 64g + 64) of the block: its Q and dO rows stay in shared memory
+// (K-major A operands), its dQ accumulator (64 x D, float32) and its rows'
+// lse and delta in registers. K and V of each key tile arrive by TMA in a
+// ring of kStages stages, one full mbarrier a stage, shared by both
+// warpgroups; the last of the 8 warps done with a stage starts the loads of
+// the tile it holds next. Per tile j, a warpgroup issues in one turn
+//   S = Q K^T and dP = dO V^T (wgmma m64nBK, both operands in shared
+//     memory, K-major, ceil(d / 16) steps of 16), then tile j - 1's
+//   dQ += dS K (wgmma, A from registers, B the stage's K tile MN-major
+//     through the transpose bit, BK / 16 steps),
+// computes P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP - delta)
+// in the S and dP accumulators once those have landed, while tile j - 1's
+// product runs, and packs dS to the input type in the layout of a register
+// A operand once that has landed too: dS never goes through shared memory.
+// The two warpgroups take turns to issue (ping-pong), so that one's P and
+// dS run while the other's products hold the tensor cores. Masks are
+// applied only on tiles that need them (the ragged last tile, the causal
+// diagonal). Both warpgroups walk the block's tiles: with `causal`, the
+// first warpgroup's P is 0 past its own diagonal (at BK = 64 the whole last
+// tile), so every stage of the ring is closed by all 8 warps.
+// Query rows past the end read zeros (Q, dO, lse, delta) and give dS = 0;
+// they are never stored.
 template <typename T, int D>
-int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tq16, const __grid_constant__ CUtensorMap tk16,
+                              const __grid_constant__ CUtensorMap tv16, const __grid_constant__ CUtensorMap tdo16,
+                              const BwdParams p) {
+  constexpr int BK = kDqKeys<D>;
+  using L = DqSmem<D>;
+  using QTile = typename L::QTile;
+  using KVTile = typename L::KVTile;
+  constexpr int kMainN = KVTile::kMainN;  // gradient columns in the whole boxes
+  constexpr int kRemN = KVTile::kRemN;    // in the narrow box
+  constexpr int kAcc = kMainN > 0 ? kMainN / 2 : 1;
+  constexpr int kAccRem = kRemN > 0 ? kRemN / 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kAlign = hopper::kSwizzleAtomBytes;
+  unsigned char* smem = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  int* done = reinterpret_cast<int*>(smem + L::done);
+  const uint32_t qbar = hopper::smem_u32(bars);
+  const uint32_t full0 = hopper::smem_u32(bars + 1);
+  const uint32_t sq0 = hopper::smem_u32(smem + L::q);
+  const uint32_t sdo0 = hopper::smem_u32(smem + L::dout);
+  const uint32_t sk0 = hopper::smem_u32(smem + L::k);
+  const uint32_t sv0 = hopper::smem_u32(smem + L::v);
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int q0 = blockIdx.x * kBlockRows;
+  const int shift = p.kv_len - p.q_len;  // causal: row r sees keys k <= r + shift
+  int n_tiles = (p.kv_len + BK - 1) / BK;
+  if (p.causal) {  // keys past the block's last row + shift are masked for every row
+    const int last_col = min(q0 + kBlockRows, p.q_len) - 1 + shift;
+    n_tiles = last_col < 0 ? 0 : min(n_tiles, last_col / BK + 1);
+  }
+
+  // K_j and V_j into stage j % kStages, onto its full mbarrier
+  auto load_kv = [&](int j) {
+    const int s = j % kStages;
+    const uint32_t bar = full0 + 8 * s;
+    hopper::mbar_expect_tx(bar, 2 * KVTile::kBytes);
+    hopper::load_tile<D, BK>(&tk, &tk16, bar, sk0 + s * KVTile::kBytes, j * BK, h, b);
+    hopper::load_tile<D, BK>(&tv, &tv16, bar, sv0 + s * KVTile::kBytes, j * BK, h, b);
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      done[s] = 0;
+    }
+    hopper::fence_barrier_init();
+    hopper::mbar_expect_tx(qbar, 4 * QTile::kBytes);
+    for (int w = 0; w < 2; ++w) {
+      hopper::load_tile<D, kTile>(&tq, &tq16, qbar, sq0 + w * QTile::kBytes, q0 + w * kTile, h, b);
+      hopper::load_tile<D, kTile>(&tdo, &tdo16, qbar, sdo0 + w * QTile::kBytes, q0 + w * kTile, h, b);
+    }
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncthreads();
+
+  const int g = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row0 = q0 + g * kTile;                      // this warpgroup's first row
+  const int row_a = row0 + (tid / 32) * 16 + lane / 4;  // this thread's accumulator rows
+  const int row_b = row_a + 8;
+  const uint32_t sq = sq0 + g * QTile::kBytes;
+  const uint32_t sdo = sdo0 + g * QTile::kBytes;
+  const float scale_log2 = p.scale * kLog2e;
+  const int ksteps = (p.head_dim + 15) / 16;
+  // this thread's rows' lse (times log2(e)) and delta, zeros past q_len: a
+  // head's lse and delta start wherever q_len puts them
+  const float* lse_head = p.lse + (long long)blockIdx.y * p.q_len;
+  const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
+  const float lse2[2] = {row_a < p.q_len ? lse_head[row_a] * kLog2e : 0.f,
+                         row_b < p.q_len ? lse_head[row_b] * kLog2e : 0.f};
+  const float delta[2] = {row_a < p.q_len ? delta_head[row_a] : 0.f, row_b < p.q_len ? delta_head[row_b] : 0.f};
+
+  float dq[kAcc], dqr[kAccRem];
+  #pragma unroll
+  for (int i = 0; i < kAcc; ++i) dq[i] = 0.f;
+  #pragma unroll
+  for (int i = 0; i < kAccRem; ++i) dqr[i] = 0.f;
+  float s[BK / 2];   // S, then P
+  float dp[BK / 2];  // dP, then dS
+  uint32_t da[BK / 16][4];  // dS as A operands of 16 keys each
+
+  // acc (64 rows x BK keys) = A B^T over the head's 16-column steps, A this
+  // warpgroup's Q or dO rows, B the stage's K or V tile; not committed
+  auto issue_ss = [&](float (&acc)[BK / 2], uint32_t a, uint32_t bt) {
+    #pragma unroll
+    for (int kk = 0; kk < QTile::kSteps; ++kk) {
+      if (kk > 0 && kk >= ksteps) break;
+      hopper::wgmma_ss<T, BK>(acc, QTile::kmajor(a, kk), KVTile::kmajor(bt, kk), kk > 0);
+    }
+  };
+  auto fence_grads = [&] {
+    hopper::fence_regs(dq);
+    hopper::fence_regs(dqr);
+  };
+  // dQ += dS K of tile j, from da; not committed
+  auto issue_grads = [&](int j) {
+    const uint32_t sk = sk0 + (j % kStages) * KVTile::kBytes;
+    #pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      if constexpr (kMainN > 0) hopper::wgmma_rs<T, kMainN>(dq, da[kc], KVTile::mn_main(sk, kc));
+      if constexpr (kRemN > 0) hopper::wgmma_rs<T, kRemN>(dqr, da[kc], KVTile::mn_rem(sk, kc));
+    }
+  };
+  // this warp is done with tile j's stage; the last of the 8 refills it
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(done + j % kStages, 1) % kWarps == kWarps - 1 && j + kStages < n_tiles) {
+      load_kv(j + kStages);
+    }
+  };
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2), so that one's P and dS run while the other's products hold
+  // the tensor cores.
+  auto turn = [&] { hopper::bar_sync(kBarTurn + g, kThreads); };
+  auto pass = [&](bool last) {
+    if (g == 0 || !last) hopper::bar_arrive(kBarTurn + 1 - g, kThreads);
+  };
+
+  // Per tile j, one turn issues S_j = Q K_j^T and dP_j = dO V_j^T, then tile
+  // j - 1's dQ product; P_j and dS_j are computed (as floats, in the S and
+  // dP accumulators) once S_j and dP_j have landed, while tile j - 1's
+  // product runs, and packed into the A operands once that has landed too.
+  if (n_tiles > 0) {
+    hopper::mbar_wait(qbar, 0);
+    if (g == 1) hopper::bar_arrive(kBarTurn, kThreads);  // warpgroup 0 issues first
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      const int k0 = j * BK;
+      hopper::mbar_wait(full0 + 8 * stage, (j / kStages) & 1);
+      turn();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      fence_grads();
+      hopper::wgmma_fence();
+      issue_ss(s, sq, sk0 + stage * KVTile::kBytes);    // S = Q K^T
+      issue_ss(dp, sdo, sv0 + stage * KVTile::kBytes);  // dP = dO V^T
+      hopper::wgmma_commit();
+      if (j > 0) {
+        issue_grads(j - 1);
+        hopper::wgmma_commit();
+      }
+      pass(false);
+      if (j > 0) {
+        hopper::wgmma_wait<1>();  // S and dP have landed; tile j - 1's product may run on
+      } else {
+        hopper::wgmma_wait<0>();
+      }
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P and dS; accumulator entry 4n + e is (row e < 2 ? row_a : row_b,
+      // key k0 + 8n + 2t + (e & 1))
+      const bool masked = k0 + BK > p.kv_len || (p.causal && k0 + BK - 1 > row0 + shift);
+      #pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pe = fast_exp2(fmaf(s[4 * n + e], scale_log2, -lse2[r]));
+          if (masked) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            if (key >= p.kv_len || (p.causal && key > (r ? row_b : row_a) + shift)) pe = 0.f;
+          }
+          dp[4 * n + e] = pe * (dp[4 * n + e] - delta[r]);
+        }
+      }
+      hopper::wgmma_wait<0>();  // tile j - 1's product has landed: its stage and da are free
+      fence_grads();
+      if (j > 0) release(j - 1);
+      #pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) acc_to_a<T>(da[kc], dp + 8 * kc, dp + 8 * kc + 4);
+    }
+    turn();
+    fence_grads();
+    hopper::wgmma_fence();
+    issue_grads(n_tiles - 1);
+    hopper::wgmma_commit();
+    pass(true);
+    hopper::wgmma_wait<0>();
+    fence_grads();
+  }
+
+  T* dqh = static_cast<T*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
+  auto store = [&](int col, const float* q4) {
+    if (col >= p.head_dim) return;
+    if (row_a < p.q_len) {
+      *reinterpret_cast<uint32_t*>(dqh + (long long)row_a * p.dq_rs + col) =
+          pack2<T>(q4[0] * p.scale, q4[1] * p.scale);
+    }
+    if (row_b < p.q_len) {
+      *reinterpret_cast<uint32_t*>(dqh + (long long)row_b * p.dq_rs + col) =
+          pack2<T>(q4[2] * p.scale, q4[3] * p.scale);
+    }
+  };
+  #pragma unroll
+  for (int n = 0; n < kMainN / 8; ++n) store(n * 8 + 2 * t, dq + 4 * n);
+  #pragma unroll
+  for (int n = 0; n < kRemN / 8; ++n) store(kMainN + n * 8 + 2 * t, dqr + 4 * n);
+}
+
+// The eight tile maps (q, k, v, dout: 64-column and 16-column boxes) and
+// the launch of the dK/dV kernel (kDkv) or the dQ kernel.
+template <typename T, int D, bool kDkv>
+int launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   const void* bases[4] = {p.q, p.k, p.v, p.dout};
   const int rows[4] = {p.q_len, p.kv_len, p.kv_len, p.q_len};
@@ -405,149 +678,15 @@ int launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
       return int(cudaErrorInvalidValue);
     }
   }
-  constexpr int bytes = DkvSmem<D>::bytes;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<T, D>;
+  constexpr int bytes = kDkv ? DkvSmem<D>::bytes : DqSmem<D>::bytes;
+  auto kernel = kDkv ? flash_bwd_dkv_wgmma_kernel<T, D> : flash_bwd_dq_wgmma_kernel<T, D>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((p.kv_len + kDkvKeys - 1) / kDkvKeys, batch * p.heads);
-  kernel<<<grid, kDkvThreads, bytes, stream>>>(maps[0][0], maps[1][0], maps[2][0], maps[3][0], maps[0][1],
-                                               maps[1][1], maps[2][1], maps[3][1], p);
+  const int len = kDkv ? p.kv_len : p.q_len;
+  const dim3 grid((len + kBlockRows - 1) / kBlockRows, batch * p.heads);
+  kernel<<<grid, kThreads, bytes, stream>>>(maps[0][0], maps[1][0], maps[2][0], maps[3][0], maps[0][1], maps[1][1],
+                                            maps[2][1], maps[3][1], p);
   return int(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// dQ, bfloat16 and float16: mma.sync
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int kTileElems = kTile * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + kTileElems;
-  T* sK = sdO + kTileElems;     // two buffers
-  T* sV = sK + 2 * kTileElems;  // two buffers
-
-  const int d = p.head_dim;
-  const int b = blockIdx.y / p.heads;
-  const int h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
-  const T* doh = static_cast<const T*>(p.dout) + b * p.do_bs + h * p.do_hs;
-  T* dqh = static_cast<T*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const float* lse = p.lse + (long long)blockIdx.y * p.q_len;
-  const float* delta = p.delta + (long long)blockIdx.y * p.q_len;
-  const float lse_r[2] = {row_a < p.q_len ? lse[row_a] : 0.f, row_b < p.q_len ? lse[row_b] : 0.f};
-  const float delta_r[2] = {row_a < p.q_len ? delta[row_a] : 0.f, row_b < p.q_len ? delta[row_b] : 0.f};
-
-  int n_k = (p.kv_len + kTile - 1) / kTile;
-  if (p.causal) {  // keys past the tile's last row + (kv_len - q_len) are masked for every row
-    const int last_col = q0 + kTile - 1 + (p.kv_len - p.q_len);
-    n_k = last_col < 0 ? 0 : min(n_k, last_col / kTile + 1);
-  }
-
-  float dq[D / 8][4];
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  if (n_k > 0) {
-    load_tile_async<T, D>(sQ, qh, p.q_rs, q0, p.q_len, d);
-    load_tile_async<T, D>(sdO, doh, p.do_rs, q0, p.q_len, d);
-    load_tile_async<T, D>(sK, kh, p.k_rs, 0, p.kv_len, d);
-    load_tile_async<T, D>(sV, vh, p.v_rs, 0, p.kv_len, d);
-    cp_async_commit();
-  }
-  for (int j = 0; j < n_k; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_k) {
-      load_tile_async<T, D>(sK + (buf ^ 1) * kTileElems, kh, p.k_rs, (j + 1) * kTile, p.kv_len, d);
-      load_tile_async<T, D>(sV + (buf ^ 1) * kTileElems, vh, p.v_rs, (j + 1) * kTile, p.kv_len, d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* kb = sK + buf * kTileElems;
-    const T* vb = sV + buf * kTileElems;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[kTile / 8][4];
-    float dp[kTile / 8][4];
-    #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-    #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], doa[4];
-      load_a<LD>(qa, sQ, warp * 16, kk, lane);
-      load_a<LD>(doa, sdO, warp * 16, kk, lane);
-      #pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t f[4];
-        load_b_rows<LD>(f, kb, np, kk, lane);
-        mma_16816<T>(s[2 * np], qa, f[0], f[1]);
-        mma_16816<T>(s[2 * np + 1], qa, f[2], f[3]);
-        load_b_rows<LD>(f, vb, np, kk, lane);
-        mma_16816<T>(dp[2 * np], doa, f[0], f[1]);
-        mma_16816<T>(dp[2 * np + 1], doa, f[2], f[3]);
-      }
-    }
-
-    // dS (into dp)
-    #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTile + nt * 8 + 2 * t + (e & 1);
-        const int r = e >> 1;
-        const bool keep = admissible(p, r == 0 ? row_a : row_b, col);
-        const float pe = keep ? expf(s[nt][e] * p.scale - lse_r[r]) : 0.f;
-        dp[nt][e] = pe * (dp[nt][e] - delta_r[r]);
-      }
-    }
-
-    // dQ += dS K over the 64 keys, 16 at a time
-    #pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t dsa[4];
-      acc_to_a<T>(dsa, dp[2 * kc], dp[2 * kc + 1]);
-      #pragma unroll
-      for (int dpi = 0; dpi < D / 16; ++dpi) {
-        uint32_t f[4];
-        load_b_cols<LD>(f, kb, kc, dpi, lane);
-        mma_16816<T>(dq[2 * dpi], dsa, f[0], f[1]);
-        mma_16816<T>(dq[2 * dpi + 1], dsa, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + 2 * t;
-    if (col >= d) continue;
-    if (row_a < p.q_len) {
-      *reinterpret_cast<uint32_t*>(dqh + (long long)row_a * p.dq_rs + col) =
-          pack2<T>(dq[i][0] * p.scale, dq[i][1] * p.scale);
-    }
-    if (row_b < p.q_len) {
-      *reinterpret_cast<uint32_t*>(dqh + (long long)row_b * p.dq_rs + col) =
-          pack2<T>(dq[i][2] * p.scale, dq[i][3] * p.scale);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -774,42 +913,17 @@ int launch_f32(const BwdParams& p, int batch, cudaStream_t stream) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-int launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int bytes = 6 * kTile * (D + 8) * int(sizeof(T));
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return int(err);
-  }
-  const dim3 grid((p.q_len + kTile - 1) / kTile, batch * p.heads);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return int(cudaGetLastError());
-}
-
 // bfloat16 and float16: each kernel at the smallest of its instances that
 // holds the head
 template <typename T, bool kDkv>
 int launch(const BwdParams& p, int batch, cudaStream_t stream) {
-  if constexpr (kDkv) {
-    switch (narrow_template(pad16(p.head_dim))) {
-      case 64:
-        return launch_dkv<T, 64>(p, batch, stream);
-      case 80:
-        return launch_dkv<T, 80>(p, batch, stream);
-      default:
-        return launch_dkv<T, 128>(p, batch, stream);
-    }
-  }
-  switch (mma_template(pad16(p.head_dim))) {
-    case 48:
-      return launch_dq<T, 48>(p, batch, stream);
+  switch (narrow_template(pad16(p.head_dim))) {
     case 64:
-      return launch_dq<T, 64>(p, batch, stream);
+      return launch_wgmma<T, 64, kDkv>(p, batch, stream);
     case 80:
-      return launch_dq<T, 80>(p, batch, stream);
+      return launch_wgmma<T, 80, kDkv>(p, batch, stream);
     default:
-      return launch_dq<T, 128>(p, batch, stream);
+      return launch_wgmma<T, 128, kDkv>(p, batch, stream);
   }
 }
 

@@ -1,16 +1,15 @@
 // Helpers shared by the flash attention kernels (forward and backward), for
 // Hopper (sm_90a): the element conversions and packing every kernel uses;
-// cp.async copies, ldmatrix and the m16n8k16 tensor-core product of the dQ
-// kernel; the head-dim instances; and, for the float32 kernels,
-// shared-memory tiles multiplied with FFMA.
+// the 4-byte cp.async of the dK/dV kernel; the head-dim instances; and, for
+// the float32 kernels, shared-memory tiles multiplied with FFMA.
 //
-// Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
+// Register fragments of a 16-row block (g = lane / 4, t = lane % 4), as the
+// wgmma accumulators and register A operands of each warp lay them out:
 // - A (16 x 16, row-major), 4 registers of two values: (g, 2t), (g + 8, 2t),
 //   (g, 2t + 8), (g + 8, 2t + 8);
-// - B (16 x 8, column-major), 2 registers: (2t, g), (2t + 8, g);
-// - C (16 x 8, float32), 4 values: (g, 2t), (g, 2t + 1), (g + 8, 2t),
-//   (g + 8, 2t + 1).
-// So the C accumulators of two neighbouring 16 x 8 tiles are, packed two by
+// - an accumulator of 16 x 8 (float32), 4 values: (g, 2t), (g, 2t + 1),
+//   (g + 8, 2t), (g + 8, 2t + 1).
+// So the accumulators of two neighbouring 16 x 8 tiles are, packed two by
 // two, the A fragment of their 16 x 16 block: a product's result feeds the
 // next product from registers.
 
@@ -27,9 +26,7 @@
 
 namespace flash {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // rows per tile: 16 per warp, and keys per inner step
+constexpr int kTile = 64;  // rows per tile: 64 per warpgroup, and keys per inner step
 constexpr float kMaskedScore = -1e30f;
 
 template <typename T>
@@ -47,53 +44,10 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
-// 16-byte copy; src-size 0 writes 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
 // 4-byte copy; src-size 0 writes zeros
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)), "l"(src),
                "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), float32 accumulation
-template <typename T>
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 }
 
 // two floats → one register of two T, `lo` in the low half
@@ -108,50 +62,14 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// The A fragment of 16 columns [16c, 16c + 16) of a 16-row block whose
-// float32 accumulators are acc[n][4] (n-th 8-column tile), rounded to T.
+// The A fragment of 16 columns of a 16-row block from the float32
+// accumulators of its two 8-column tiles, lo and hi, rounded to T.
 template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4], const float hi[4]) {
   a[0] = pack2<T>(lo[0], lo[1]);
   a[1] = pack2<T>(lo[2], lo[3]);
   a[2] = pack2<T>(hi[0], hi[1]);
   a[3] = pack2<T>(hi[2], hi[3]);
-}
-
-// Start copying rows [row0, row0 + 64) of one head into shared memory with
-// row pitch D + 8; rows past `len` and columns past `d` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride, int row0, int len,
-                                                int d) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool valid = row0 + r < len && col < d;
-    cp_async16(dst + r * (D + 8) + col, valid ? src + (long long)(row0 + r) * row_stride + col : src, valid);
-  }
-}
-
-// The A fragment of the 16 rows [row0, row0 + 16) and 16 columns
-// [16kk, 16kk + 16) of a tile with row pitch LD.
-template <int LD, typename T>
-__device__ __forceinline__ void load_a(uint32_t a[4], const T* tile, int row0, int kk, int lane) {
-  ldmatrix_x4(a, tile + (row0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-}
-
-// The B fragments of two 8-column tiles [16np, 16np + 16) of X^T, for X's
-// rows as columns (X row-major, pitch LD), over depth [16kk, 16kk + 16):
-// b[0], b[1] for tile 2np and b[2], b[3] for tile 2np + 1.
-template <int LD, typename T>
-__device__ __forceinline__ void load_b_rows(uint32_t b[4], const T* tile, int np, int kk, int lane) {
-  ldmatrix_x4(b, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
-}
-
-// The B fragments of two 8-column tiles [16dp, 16dp + 16) of X (X row-major,
-// pitch LD), over depth rows [16kc, 16kc + 16): transposed ldmatrix.
-template <int LD, typename T>
-__device__ __forceinline__ void load_b_cols(uint32_t b[4], const T* tile, int kc, int dp, int lane) {
-  ldmatrix_x4_trans(b, tile + (kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8);
 }
 
 // head_dim rounded up to the 16-column depth of a tensor-core step

@@ -17,8 +17,8 @@
 // - Accumulators of wgmma.m64nN (float32, N / 2 registers a thread): thread
 //   t of the warpgroup, warp w = t / 32, lane l, g = l / 4, c = l % 4, holds
 //   d[4n + e] at row 16w + g + 8 * (e / 2), column 8n + 2c + e % 2.
-// - A from registers (m64nNk16): 4 registers of two values, the mma.sync
-//   m16n8k16 A fragment of warp w's 16 rows, so the accumulators of two
+// - A from registers (m64nNk16): 4 registers of two values, the 16 x 16
+//   A fragment of warp w's 16 rows, so the accumulators of two
 //   neighbouring 8-column chunks, packed two by two, are the A operand of
 //   their 16 columns (see acc_to_a in flash_common.cuh).
 // - A narrow box of 16 columns x 64 rows with the 32-byte swizzle (2 KiB,

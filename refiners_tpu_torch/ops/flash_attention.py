@@ -65,8 +65,8 @@ MAX_RELPOS_SIDE = 256
 FORWARD_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")
 # the CUDA kernels of csrc/flash_attention_backward.cu, (dK/dV, dQ) by dtype
 BACKWARD_KERNELS = {
-    torch.bfloat16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel"),
-    torch.float16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel"),
+    torch.bfloat16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
+    torch.float16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
     torch.float32: ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"),
 }
 

@@ -130,7 +130,10 @@ def test_boolean_mask_with_a_fully_masked_row_gives_uniform_weights() -> None:
 
 
 @pytest.mark.parametrize("entry", ["packed", "flat"])
-@pytest.mark.parametrize("batch,lq,lk,heads,dim,causal", SHAPES + [(1, 300, 200, 2, 64, True)])
+@pytest.mark.parametrize(
+    "batch,lq,lk,heads,dim,causal",
+    SHAPES + [(1, 300, 200, 2, 64, True), (1, 330, 200, 2, 128, True), (1, 200, 330, 2, 80, True)],
+)
 def test_backward_plain_matches_jax_vjp(
     entry: str, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool
 ) -> None:

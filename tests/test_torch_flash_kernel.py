@@ -401,6 +401,69 @@ def test_dkv_kernel_reads_a_fused_projection(device: torch.device, dim: int) -> 
     assert _rel(dk, want_dk) <= GRAD_TOL and _rel(dv, want_dv) <= GRAD_TOL
 
 
+def _dq_inputs(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, lse, do, delta) of the forward kernel on q, k, v, as the backward
+    entry hands them to the dQ kernel."""
+    out, lse = flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+    do = torch.randn_like(out)
+    return out, lse, do, (do.float() * out.float()).sum(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk", [(330, 200), (200, 330)])
+@pytest.mark.parametrize("dim", [40, 64, 80, 128])
+def test_dq_kernel_matches_plain(
+    device: torch.device, dim: int, lq: int, lk: int, causal: bool, dtype: torch.dtype
+) -> None:
+    """The dQ wgmma kernel at each of its instances (D = 64 for d = 40 and
+    64, 80, 128) against the float32 plain version: three blocks of 128
+    query rows or two, the last partial (its second warpgroup holds 10 rows
+    at Lq = 330, 8 at Lq = 200), a ragged last key tile, each head's lse and
+    delta off a 16-byte boundary; with `causal` and Lq > Lk the first 130
+    rows have no admissible key and get dq exactly 0. One launch, dq within
+    GRAD_TOL."""
+    q, k, v = (x.to(dtype) for x in _qkv4(device, 2, lq, lk, 3, dim))
+    out, lse, do, delta = _dq_inputs(q, k, v, causal)
+    before = _launches()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, dim**-0.5)
+    torch.cuda.synchronize()
+    assert _launches() == [before[0], before[1], before[2], before[3] + 1]
+    want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)[0]
+    assert dq.dtype == dtype and dq.shape == q.shape and bool(torch.isfinite(dq).all())
+    assert _rel(dq, want) <= GRAD_TOL
+    if causal and lq > lk:
+        assert float(dq[:, :, : lq - lk].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dim", [40, 64, 80, 128])
+def test_dq_kernel_reads_a_fused_projection(device: torch.device, dim: int) -> None:
+    """q, k, v as head views of one (B, L, 3·H·D) projection (row stride
+    3·H·D, k starting H·D after q), read in place by the dQ kernel's tensor
+    maps; L = 520 leaves the last block 8 rows, so its second warpgroup
+    holds none and still takes its turns. dq within GRAD_TOL."""
+    b, seq, heads = 2, 520, 4
+    gen = torch.Generator(device).manual_seed(dim + 2)
+    qkv = torch.randn((b, seq, 3 * heads * dim), generator=gen, device=device).bfloat16()
+    q, k, v = qkv.reshape(b, seq, 3, heads, dim).permute(2, 0, 3, 1, 4)
+    assert q.stride(2) == 3 * heads * dim
+    out, lse, do, delta = _dq_inputs(q, k, v, False)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False, dim**-0.5)
+    want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float())[0]
+    assert _rel(dq, want) <= GRAD_TOL
+
+
+def test_dq_kernel_is_deterministic(device: torch.device) -> None:
+    """No atomics: two calls on the same inputs give bit-equal dq."""
+    q, k, v = _qkv4(device, 2, 1000, 1100, 5, 64)
+    _, lse, do, delta = _dq_inputs(q, k, v, True)
+    first = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, 0.125)
+    second = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, 0.125)
+    assert torch.equal(first, second)
+
+
 def test_packed_backward_reads_strided_heads(device: torch.device) -> None:
     """Autograd through the packed entry, q, k, v as column slices of one
     fused projection: the backward kernels read the heads in place."""
