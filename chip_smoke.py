@@ -46,9 +46,15 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      float32), once without SiLU; each kernel also against its own plain
      version;
    - the int8 quantization (``quantize_int8``, K6) at the SDXL linears'
-     shapes and a ragged (520, 300): values and scales bit-equal to
+     shapes, a ragged (520, 300) and (37, 301) and a weight that starts
+     off a 16-byte boundary: values and scales bit-equal to
      ``quantize_int8_plain`` (the same Philox stream), |q| ≤ 127, q between
      floor and ceil of w/scale, and unbiased over 64 seeds;
+   - its round-to-nearest row mode (``quantize_rows_int8``, the W8A8
+     activations) at the SDXL UNet's activation shapes, a ragged (37, 301),
+     a row-offset view off a 16-byte boundary and float32: bit-equal to
+     ``quantize_rows_int8_plain``, |q| ≤ 127, zero padding rows; and the
+     host cost of one call against the eager sequence it replaces;
    - for every kernel at its main-path shape: the bound (the larger of the
      bytes over 3.35 TB/s and the operations over 989 TFLOP/s in bf16, or
      67 TFLOP/s in float32 FFMA) and the time of one PyTorch call that
@@ -107,10 +113,12 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    float32 fused through K5 (≤ 1e-4 from it). (b) ``quantize_linears(unet,
    min_features=256)`` replaces 743 linears with W8A8 ``QuantizedLinear``s,
    one K6 launch each. (c) 2 requests through ``TextToImage`` with phase 3's
-   first prompts and seeds: exactly 35 × 30 + 29 launches of K5a and of K5b
-   and 70 × 30 + 1 of K1 each; images finite and not constant; request 0's
-   image at PSNR ≥ 20 against phase 3's bf16 image (the JAX package's int8
-   gate).
+   first prompts and seeds: exactly 35 × 30 + 29 launches of K5a and of K5b,
+   70 × 30 + 1 of K1 and 743 × 30 of the row mode (each W8A8 linear once a
+   UNet step) each; images finite and not constant; request 0's image at
+   PSNR ≥ 20 against phase 3's bf16 image (the JAX package's int8 gate).
+   Then one W8A8 UNet step is traced with ``torch.profiler`` (device time
+   by kind, idle share).
 
 The last lines are a JSON summary of the kernels (launches counted over
 phases 3, 4b, 5b and 6, each with the counts set to 0 just before it), the
@@ -151,6 +159,7 @@ TRAINING_STEP_LAUNCHES = {
     "group_norm_stats": 0,
     "group_norm_apply": 0,
     "quantize_int8": 0,
+    "quantize_rows_int8": 0,
 }
 ATTENTION_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
@@ -216,12 +225,26 @@ QUANT_SHAPES = [
     (1280, 5120),  # 60: feed-forward out
     (1280, 2816),  # the add-embedding
     (520, 300),  # ragged: rows that do not start on a Philox block
+    (37, 301),  # ragged, odd width: 3-block vectors and scalar heads and tails
+]
+ROW_QUANT_SHAPES = [
+    # (tokens, features) of the W8A8 activations in one SDXL UNet step at 1024², CFG batch 2;
+    # the first is the main-path row
+    (8192, 640),  # the 64×64 level: q, k, v, out, cross q, feed-forward in, projections (80 a step)
+    (8192, 2560),  # feed-forward out at 64×64 (10)
+    (2048, 1280),  # the 32×32 level (432)
+    (2048, 5120),  # feed-forward out at 32×32 (60)
+    (154, 2048),  # text keys and values (140)
+    (2, 2816),  # the add-embedding, padded to 32 rows
+    (2, 1280),  # time embeddings, padded to 32 rows
+    (37, 301),  # ragged
 ]
 QUANT_SEEDS = 64  # unbiasedness: mean of 64 stochastic roundings on a (256, 1024) weight
 QUANT_UNBIASED_TOL = 0.375  # 6σ of a mean of 64 Bernoulli draws (σ ≤ 1/16): deterministic given the seeds
 PASSES_UNET_FUSED = 35  # GroupNorm → SiLU pairs in the SDXL UNet
 PASSES_VAE_FUSED = (21, 29)  # in the VAE's encoder and decoder
 PASSES_QUANTIZED = 743  # SDXL UNet linears with both widths ≥ 256
+ROW_QUANT_LAUNCHES_PER_REQUEST = PASSES_QUANTIZED * 30  # each W8A8 linear runs once a UNet step
 GROUP_NORM_LAUNCHES_PER_REQUEST = PASSES_UNET_FUSED * 30 + PASSES_VAE_FUSED[1]  # the encoder does not run
 INT8_PSNR_FLOOR = 20.0  # tests/tpu/test_bf16_tpu.py: the int8 image against the bf16 image
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
@@ -326,6 +349,19 @@ def _device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn: Callable[[], Any], reps: int = 200) -> float:
+    """Host milliseconds a call: `reps` calls enqueued without a synchronize."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a.float() - b.float()) / torch.linalg.vector_norm(b.float()))
 
@@ -348,6 +384,7 @@ def _counters() -> dict[str, Any]:
         "group_norm_stats": gn.group_norm_stats,
         "group_norm_apply": gn.group_norm_apply,
         "quantize_int8": quant.quantize_int8,
+        "quantize_rows_int8": quant.quantize_rows_int8,
     }
 
 
@@ -738,15 +775,25 @@ def check_group_norm(dev: torch.device) -> tuple[list[dict], list[dict]]:
     return stats_results, apply_results
 
 
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` that starts one element past a 16-byte boundary."""
+    buffer = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    shifted = buffer[1:].view(x.shape)
+    shifted.copy_(x)
+    return shifted
+
+
 def check_quantize(dev: torch.device) -> list[dict]:
     """K6 at the SDXL linears' shapes: bit-equal to its plain version."""
     from refiners_tpu_torch.ops import quant
 
     results = []
     gen = torch.Generator(dev).manual_seed(8)
-    cases = [(shape, BF16) for shape in QUANT_SHAPES] + [(QUANT_SHAPES[0], F32)]
-    for (rows, cols), dtype in cases:
+    cases = [(shape, BF16, False) for shape in QUANT_SHAPES] + [(QUANT_SHAPES[0], F32, False), ((37, 301), BF16, True)]
+    for (rows, cols), dtype, unaligned in cases:
         w = (torch.randn((rows, cols), generator=gen, device=dev) * cols**-0.5).to(dtype)
+        if unaligned:
+            w = _unaligned(w)
         seed = rows * cols
         values, scales = quant.quantize_int8(w, seed=seed)
         torch.cuda.synchronize()
@@ -762,13 +809,15 @@ def check_quantize(dev: torch.device) -> list[dict]:
         row = {**_bound(21 * rows * cols, rows * cols * (w.element_size() + 1) + rows * 4, F32), "library_ms": None,
                "library_call": "no single PyTorch call computes it"}  # fmt: skip
         print(
-            f"int8 quantize ({rows}, {cols}), {dtype}: mismatches against the plain version {mismatches}, "
+            f"int8 quantize ({rows}, {cols}), {dtype}{', off a 16-byte boundary' if unaligned else ''}: mismatches "
+            f"against the plain version {mismatches}, "
             f"floor/ceil bracket {bracket}, |q| <= 127 {clipped}, kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
         )
         if mismatches or not (bracket and clipped):
             raise AssertionError(f"K6 at ({rows}, {cols}) is not bit-equal to its plain version or leaves its bracket")
-        results.append({"shape": [rows, cols], "dtype": str(dtype), "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **row})
+        results.append({"shape": [rows, cols], "dtype": str(dtype), "unaligned": unaligned, "max_abs_err": 0.0, "ms": ms,
+                        "plain_ms": plain_ms, **row})  # fmt: skip
         del w, values, scales, want_values, want_scales, scaled, q
 
     w = torch.randn((256, 1024), generator=gen, device=dev) * 0.02
@@ -782,6 +831,51 @@ def check_quantize(dev: torch.device) -> list[dict]:
     if not (worst <= QUANT_UNBIASED_TOL and abs(mean) <= 1e-3):
         raise AssertionError(f"K6's rounding is biased: max {worst} (≤ {QUANT_UNBIASED_TOL}), mean {mean} (≤ 1e-3)")
     return results
+
+
+def check_quantize_rows(dev: torch.device) -> tuple[list[dict], dict[str, float]]:
+    """The row mode at the W8A8 activations' shapes: bit-equal to its plain
+    version; and the host cost of one call against the eager sequence."""
+    from refiners_tpu_torch.ops import quant
+
+    results = []
+    gen = torch.Generator(dev).manual_seed(10)
+    cases = [(shape, BF16, "") for shape in ROW_QUANT_SHAPES]
+    cases += [(ROW_QUANT_SHAPES[0], F32, ""), ((300, 1280), BF16, "row view")]
+    for (rows, cols), dtype, layout in cases:
+        x = (torch.randn((rows, cols), generator=gen, device=dev) * 3.0).to(dtype)
+        x[0] *= 40.0  # an outlier token
+        if layout:  # every row starts elsewhere, the first one element past a 16-byte boundary
+            x = torch.cat([torch.zeros((rows, 1), device=dev, dtype=dtype), x], dim=1)[:, 1:]
+        values, scales = quant.quantize_rows_int8(x, min_rows=32)
+        torch.cuda.synchronize()
+        want_values, want_scales = quant.quantize_rows_int8_plain(x)
+        mismatches = int((values[:rows] != want_values).sum()) + int((scales != want_scales).sum())
+        padding = int(values[rows:].count_nonzero())
+        clipped = int(values.abs().max()) <= 127
+        ms = _device_ms(lambda: quant.quantize_rows_int8(x, min_rows=32))
+        plain_ms = _device_ms(lambda: quant.quantize_rows_int8_plain(x), reps=5)
+        # about 9 float32 operations an element: the abs-max, the division in five, the rounding and the clamp
+        row = {**_bound(9 * rows * cols, rows * cols * (x.element_size() + 1) + rows * 4, F32), "library_ms": None,
+               "library_call": "no single PyTorch call computes it"}  # fmt: skip
+        print(
+            f"int8 rows ({rows}, {cols}), {dtype}{', ' + layout if layout else ''}: mismatches against the plain "
+            f"version {mismatches}, nonzero padding {padding}, |q| <= 127 {clipped}, kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) share={row['bound_ms'] / ms:.3f}"
+        )
+        if mismatches or padding or not clipped:
+            raise AssertionError(f"the row mode at ({rows}, {cols}) is not bit-equal to its plain version")
+        results.append({"shape": [rows, cols], "dtype": str(dtype), "layout": layout or "contiguous", "max_abs_err": 0.0,
+                        "ms": ms, "plain_ms": plain_ms, **row})  # fmt: skip
+        del x, values, scales, want_values, want_scales
+
+    # the host's share: one call of the entry against the eager sequence, on a small input
+    x = torch.randn((154, 2048), generator=gen, device=dev).to(BF16)
+    host = {"host_ms": _host_ms(lambda: quant.quantize_rows_int8(x, min_rows=32)),
+            "plain_host_ms": _host_ms(lambda: quant.quantize_rows_int8_plain(x))}  # fmt: skip
+    print(f"int8 rows, host cost per call at (154, 2048): kernel entry {host['host_ms']:.4f} ms, eager sequence "
+          f"{host['plain_host_ms']:.4f} ms (200 calls enqueued without a synchronize)")  # fmt: skip
+    return results, host
 
 
 def check_device_default() -> None:
@@ -1028,11 +1122,11 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
 
     decoded: list[torch.Tensor] = []
     hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
-    want_launches = {**{k: 0 for k in _counters()}, "flash_attention_packed": LAUNCHES_PER_REQUEST,
-                     "group_norm_stats": GROUP_NORM_LAUNCHES_PER_REQUEST,
-                     "group_norm_apply": GROUP_NORM_LAUNCHES_PER_REQUEST}  # fmt: skip
+    want_fused = {**{k: 0 for k in _counters()}, "flash_attention_packed": LAUNCHES_PER_REQUEST,
+                  "group_norm_stats": GROUP_NORM_LAUNCHES_PER_REQUEST,
+                  "group_norm_apply": GROUP_NORM_LAUNCHES_PER_REQUEST}  # fmt: skip
 
-    def request(seed: int, label: str) -> tuple[float, int, float | None]:
+    def request(seed: int, label: str, want_launches: dict[str, int]) -> tuple[float, int, float | None]:
         """One request; (seconds, peak memory, PSNR against phase 3's image of the same seed or None)."""
         prompt, negative = PROMPTS[seed]
         before = read_launches()
@@ -1061,7 +1155,7 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
         return seconds, peak, psnr
 
     # the fusion alone, for comparison: one request before quantizing
-    seconds, peak, psnr = request(0, "fused-only")
+    seconds, peak, psnr = request(0, "fused-only", want_fused)
     report["fused_only"] = {"seconds": seconds, "peak_memory_bytes": peak, "psnr_vs_bf16": psnr}
 
     # (b) int8 quantization: the counts are set to 0 here and read after the requests
@@ -1081,8 +1175,9 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
 
     # (c) requests under both passes
     report["seconds"], report["peak_memory_bytes"] = [], []
+    want_int8 = {**want_fused, "quantize_rows_int8": ROW_QUANT_LAUNCHES_PER_REQUEST}
     for seed in range(2):
-        seconds, peak, psnr = request(seed, "int8 + fused")
+        seconds, peak, psnr = request(seed, "int8 + fused", want_int8)
         report["seconds"].append(seconds)
         report["peak_memory_bytes"].append(peak)
         if psnr is not None:
@@ -1091,7 +1186,17 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
         raise AssertionError(f"int8 + fused image at PSNR {report['psnr_vs_bf16']:.2f} < {INT8_PSNR_FLOOR} against bf16")
     launches = read_launches()
     hook.remove()
-    del sd, pipe, sdpa, decoded, emb, pooled, x
+
+    # one W8A8 UNet step, warm: host clock, then traced (after the counts are read)
+    with torch.inference_mode():
+        inputs = dict(clip_text_embedding=emb.to(BF16), pooled_text_embedding=pooled.to(BF16),
+                      time_ids=sd.default_time_ids, condition_scale=5.0)  # fmt: skip
+        x16 = x.to(BF16)
+        report["w8a8_unet_step_profile"] = _profile(
+            "passes: one W8A8 UNet step (1024², CFG batch 2, bf16, both passes)",
+            lambda: sd.predict_noise(x16, 0, **inputs), unit="step",
+        )  # fmt: skip
+    del sd, pipe, sdpa, decoded, emb, pooled, x, x16
     _free()
     return report, launches
 
@@ -1418,6 +1523,7 @@ def main() -> int:
     rows = attention_rows(dev)
     gn_stats, gn_apply = check_group_norm(dev)
     quantize = check_quantize(dev)
+    quantize_rows, rows_host = check_quantize_rows(dev)
     for first, label in ((packed, "K1"), (forward, "K2"), (relpos, "K3 global"), (dkv, "K4a"), (dq, "K4b")):
         _print_row(label, first[0]["ms"], rows[label])
     # the SD1.5 UNet's 32×32 site: the first bf16 case at its shape in each list
@@ -1437,7 +1543,7 @@ def main() -> int:
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
     _print_row("K3 windowed", windowed["ms"], rows["K3 windowed"])
-    for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6")):
+    for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6"), (quantize_rows, "K6 rows")):
         _print_row(label, results[0]["ms"], results[0])
     _free()
     sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image, unet_profile = run_sdxl(dev)
@@ -1501,6 +1607,12 @@ def main() -> int:
             kernel("group_norm_apply", "group_norm.cu", "group_norm.py:82",
                    passes_launches["group_norm_apply"], gn_apply, gn_apply[0]),
             kernel("quantize_int8", "quant.cu", "quant.py:23", passes_launches["quantize_int8"], quantize, quantize[0]),
+            # the same kernel's round-to-nearest mode: the activation quantization of the JAX package's
+            # W8A8 `int8_matmul` (XLA there, no Pallas kernel)
+            {**kernel("quantize_rows_int8", "quant.cu", "quant.py:113", passes_launches["quantize_rows_int8"],
+                      quantize_rows, quantize_rows[0]), **rows_host,
+             "shapes": [{key: r[key] for key in ("shape", "dtype", "layout", "ms", "plain_ms", "bound_ms")}
+                        for r in quantize_rows]},
         ],  # fmt: skip
         "sdxl_seconds_per_request": seconds,
         "sdxl_vae_decode_seconds": decode_seconds,

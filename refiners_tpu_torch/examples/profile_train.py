@@ -52,7 +52,7 @@ requires_grad = true
 KINDS = [
     ("attention (flash kernels)", ("flash_",)),
     ("fused GroupNorm+SiLU (K5a, K5b)", ("gn_stats_kernel", "gn_apply_kernel")),
-    ("int8 quantization (K6)", ("quantize_kernel",)),
+    ("int8 quantization (K6 and its row mode)", ("quantize_rows_kernel",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "nchwToNhwc", "nhwcToNchw")),
     ("optimizer and other foreach", ("multi_tensor_apply", "foreach")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),

@@ -60,7 +60,7 @@ _ENTRIES = {
         "group_norm",
         [_P] * 5 + [_I, _I, _LL, _I, _LL, _LL, _I, _I, _I, _F, _I, _P],
     ),
-    "refiners_quantize_int8": ("quant", [_P] * 3 + [_I] * 3 + [_ULL, _P]),
+    "refiners_quantize_int8": ("quant", [_P] * 3 + [_I] * 4 + [_LL, _I, _ULL, _P]),
 }
 
 

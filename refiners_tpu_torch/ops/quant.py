@@ -1,23 +1,30 @@
-"""Int8 weight quantization: the hand-written Hopper kernel K6 and the
-quantized layers; counterpart of ``refiners_tpu/ops/quant.py``.
+"""Int8 quantization per row: the hand-written Hopper kernel K6 with its
+round-to-nearest row mode, and the quantized layers; counterpart of
+``refiners_tpu/ops/quant.py``.
 
-``quantize_int8`` replaces the TPU kernel ``_quantize_kernel``: per output
-channel abs-max scale, then stochastic rounding ``floor(w/scale + u)`` with
-24 random bits, clipped to ±127. The port's weight is (out, in), so an
-output channel is a row here where it is a column in the JAX package. Its
-two branches follow the JAX function's:
+One kernel (``csrc/quant.cu``) computes a per-row abs-max scale
+``max(amax, 1e-8) / 127`` and int8 values clipped to ±127, in two modes:
 
-- on a CUDA tensor, the kernel (``csrc/quant.cu``) with Philox4x32-10 bits
-  (key (seed & 0xffffffff, seed >> 32), counter (i >> 2 as two 32-bit words,
-  0, 0) for the flat row-major index i, word i & 3), counted by
-  ``quantize_int8.launches``; ``quantize_int8_plain`` computes the same
-  stream in torch, and the card compares the two bit for bit;
-- on any other tensor, the JAX package's deterministic off-TPU branch,
-  ``round(w/scale)``, so the CPU agrees with JAX exactly.
+- ``quantize_int8`` replaces the TPU kernel ``_quantize_kernel``: per output
+  channel, stochastic rounding ``floor(w/scale + u)`` with 24 random bits.
+  The port's weight is (out, in), so an output channel is a row here where
+  it is a column in the JAX package. Its two branches follow the JAX
+  function's: on a CUDA tensor, the kernel with Philox4x32-10 bits (key
+  (seed & 0xffffffff, seed >> 32), counter (i >> 2 as two 32-bit words, 0,
+  0) for the flat row-major index i, word i & 3), counted by
+  ``quantize_int8.launches``, and ``quantize_int8_plain`` computes the same
+  stream in torch, bit for bit; on any other tensor, the JAX function's
+  deterministic off-TPU branch, round to nearest, so the CPU agrees with JAX
+  exactly.
+- ``quantize_rows_int8`` rounds to nearest (half to even), per row of an
+  (M, K) activation: the per-token quantization of the JAX package's W8A8
+  ``int8_matmul`` (in XLA there), counted by ``quantize_rows_int8.launches``
+  and bit-equal to ``quantize_rows_int8_plain``, which is also the
+  deterministic branch above.
 
 ``int8_matmul`` is the product, which the JAX package leaves to XLA outside
-any Pallas kernel: W8A8 (per-token activation quantization, then
-``torch._int_mm``, int8 × int8 → int32) or W8A16.
+any Pallas kernel: W8A8 (per-token activation quantization through the row
+mode on the card, then ``torch._int_mm``, int8 × int8 → int32) or W8A16.
 """
 
 from __future__ import annotations
@@ -88,26 +95,45 @@ def _scale(abs_max: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(abs_max, 1e-8) / torch.full_like(abs_max, 127.0)
 
 
-def _row_scales(w32: torch.Tensor) -> torch.Tensor:
-    return _scale(w32.abs().amax(dim=1))
+def quantize_rows_int8_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the row mode, and the JAX function's off-TPU branch:
+    per-row scale, round to nearest (half to even). (M, K) → (int8 values
+    (M, K), float32 scales (M, 1))."""
+    x32 = x.float()
+    scale = _scale(x32.abs().amax(dim=1, keepdim=True))
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
 
 
 def quantize_int8_plain(w: torch.Tensor, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: stochastic rounding with the kernel's
     Philox bits. (out, in) weight → (int8 values (out, in), float32 scales (1, out))."""
     w32 = w.float()
-    scale = _row_scales(w32)
+    scale = _scale(w32.abs().amax(dim=1))
     u = (_random_bits(tuple(w.shape), seed, w.device) & 0xFFFFFF).float() * 2.0**-24
     values = torch.clamp(torch.floor(w32 / scale[:, None] + u), -127, 127).to(torch.int8)
     return values, scale[None, :]
 
 
-def _quantize_deterministic(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The JAX function's off-TPU branch: round to nearest (half to even)."""
-    w32 = w.float()
-    scale = _row_scales(w32)
-    values = torch.clamp(torch.round(w32 / scale[:, None]), -127, 127).to(torch.int8)
-    return values, scale[None, :]
+def _launch(x: torch.Tensor, out_rows: int, stochastic: bool, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on (M, K) `x`: int8 values (out_rows, K), rows past M
+    zero, and float32 scales (M,)."""
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"the quantization kernel takes bfloat16, float16 or float32, got {x.dtype}")
+    if x.ndim != 2 or x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+        raise ValueError(f"the quantization kernel takes rows of unit stride, got shape {tuple(x.shape)}, strides {x.stride()}")
+    rows, cols = x.shape
+    if rows == 0 or cols == 0 or max(rows, out_rows) > 2**31 - 1:
+        raise ValueError(f"cannot quantize a tensor of shape {tuple(x.shape)}")
+    values = torch.empty((max(rows, out_rows), cols), device=x.device, dtype=torch.int8)
+    scales = torch.empty((rows,), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = load_library().refiners_quantize_int8(
+            x.data_ptr(), values.data_ptr(), scales.data_ptr(), DTYPE_CODES[x.dtype], rows, values.shape[0], cols,
+            x.stride(0), int(stochastic), seed & 0xFFFFFFFFFFFFFFFF, stream(x),
+        )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"int8 quantization kernel launch failed: cudaError {err}")
+    return values, scales
 
 
 def quantize_int8(w: torch.Tensor, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,25 +145,30 @@ def quantize_int8(w: torch.Tensor, seed: int = 0) -> tuple[torch.Tensor, torch.T
     if w.ndim != 2:
         raise ValueError(f"expected an (out, in) weight, got {tuple(w.shape)}")
     if not w.is_cuda:
-        return _quantize_deterministic(w)
-    if w.dtype not in DTYPE_CODES:
-        raise TypeError(f"the quantization kernel takes bfloat16, float16 or float32, got {w.dtype}")
-    if not w.is_contiguous():
-        raise ValueError(f"the quantization kernel takes a contiguous weight, strides {w.stride()}")
-    rows, cols = w.shape
-    if rows == 0 or cols == 0 or rows > 2**31 - 1:
-        raise ValueError(f"cannot quantize a weight of shape {tuple(w.shape)}")
-    values = torch.empty((rows, cols), device=w.device, dtype=torch.int8)
-    scales = torch.empty((1, rows), device=w.device, dtype=torch.float32)
-    with torch.cuda.device(w.device):
-        err = load_library().refiners_quantize_int8(
-            w.data_ptr(), values.data_ptr(), scales.data_ptr(), DTYPE_CODES[w.dtype], rows, cols,
-            seed & 0xFFFFFFFFFFFFFFFF, stream(w),
-        )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"int8 quantization kernel launch failed: cudaError {err}")
+        values, scales = quantize_rows_int8_plain(w)
+        return values, scales.reshape(1, -1)
+    values, scales = _launch(w, 0, stochastic=True, seed=seed)
     quantize_int8.launches += 1  # type: ignore[attr-defined]
-    return values, scales
+    return values, scales[None, :]
+
+
+def quantize_rows_int8(x: torch.Tensor, min_rows: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) → (int8 values (max(M, min_rows), K), float32 scales (M, 1)):
+    the row mode, round to nearest. Rows past M are zero (the padding of
+    ``torch._int_mm``).
+
+    On a CUDA tensor this launches the kernel (``quantize_rows_int8.launches``);
+    on any other it takes ``quantize_rows_int8_plain``."""
+    if x.ndim != 2:
+        raise ValueError(f"expected (rows, features), got {tuple(x.shape)}")
+    if not x.is_cuda:
+        values, scales = quantize_rows_int8_plain(x)
+        if values.shape[0] < min_rows:
+            values = F.pad(values, (0, 0, 0, min_rows - values.shape[0]))
+        return values, scales
+    values, scales = _launch(x, min_rows, stochastic=False, seed=0)
+    quantize_rows_int8.launches += 1  # type: ignore[attr-defined]
+    return values, scales[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +189,11 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor, scales: torch.Tensor, act
     """x (…, in) times dequant(values)ᵀ, values (out, in) int8, scales (1, out)
     float32; the result in x's dtype.
 
-    W8A8 (`act_quant`): x is quantized per token (row abs-max → int8), the
-    product is int8 × int8 → int32 (``torch._int_mm``), then the two scales
-    are applied in float32. W8A16: values cast to x's dtype, the product in
-    float32, then the scales."""
+    W8A8 (`act_quant`): x is quantized per token (row abs-max → int8;
+    ``quantize_rows_int8``, the kernel on the card), the product is int8 ×
+    int8 → int32 (``torch._int_mm``), then the two scales are applied in
+    float32. W8A16: values cast to x's dtype, the product in float32, then
+    the scales."""
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     if not act_quant:
@@ -170,12 +202,10 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor, scales: torch.Tensor, act
     n = values.shape[0]
     if k % 8 or n % 8:
         raise ValueError(f"the int8 product takes in and out features in multiples of 8, got {k} and {n}")
-    x32 = x2.float()
-    x_scale = _scale(x32.abs().amax(dim=-1, keepdim=True))
-    xq = torch.clamp(torch.round(x32 / x_scale), -127, 127).to(torch.int8)
-    m = xq.shape[0]
-    if m < _INT_MM_MIN_ROWS:
-        xq = F.pad(xq, (0, 0, 0, _INT_MM_MIN_ROWS - m))  # zero rows quantize to 0 and are dropped
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
+    xq, x_scale = quantize_rows_int8(x2, min_rows=_INT_MM_MIN_ROWS)
+    m = x2.shape[0]
     y = torch._int_mm(xq, values.t())[:m]
     return (y.float() * x_scale * scales.float()).to(x.dtype).reshape(*x.shape[:-1], n)
 
@@ -225,3 +255,4 @@ def quantize_linears(module: fl.Chain, min_features: int = 256, act_quant: bool 
 
 
 quantize_int8.launches = 0  # type: ignore[attr-defined]
+quantize_rows_int8.launches = 0  # type: ignore[attr-defined]

@@ -228,6 +228,20 @@ def test_sdxl_unet_under_both_passes_matches_jax() -> None:
         assert torch.equal(value, fused_state[key]), key
 
 
+def test_every_quantized_linear_runs_once_per_unet_step() -> None:
+    """The card's W8A8 launch gate (one row-mode launch per quantized linear
+    call, 743 × 30 per SDXL request) rests on every quantized linear running
+    exactly once per UNet forward; held at the reduced width, where 737
+    linears of at least 64 features are quantized."""
+    unet = SDXLUNet(in_channels=4, base_channels=32)
+    n = opt.quantize_linears(unet, min_features=64, act_quant=False)
+    calls: list[int] = []
+    for layer in unet.layers(opt.QuantizedLinear, recurse=True):
+        layer.register_forward_hook(lambda module, *_: calls.append(id(module)))
+    _port_unet(unet, _unet_inputs())
+    assert n == 737 and len(calls) == n and len(set(calls)) == n
+
+
 def test_full_width_sdxl_unet_pass_counts() -> None:
     """The counts the card's int8 serving path checks, on the meta device."""
     unet = SDXLUNet(in_channels=4, device="meta")

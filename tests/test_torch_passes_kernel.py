@@ -1,6 +1,7 @@
 """The opt-in serving passes' kernels against their plain versions, on the card:
 the fused GroupNorm(+SiLU) (K5a statistics, K5b apply) and the int8
-quantization (K6), and the int8 layers on CUDA tensors.
+quantization (K6 and its round-to-nearest row mode), and the int8 layers on
+CUDA tensors.
 
 These tests need an NVIDIA card with nvcc (sm_90a) and skip elsewhere. The
 file imports neither JAX nor the JAX package, so it runs on a machine that
@@ -35,6 +36,7 @@ def device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -130,13 +132,29 @@ def test_fused_layer_launches_both_kernels(device: torch.device) -> None:
     assert _rel(got, want) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(520, 300), (1280, 1280), (640, 2048), (64, 5120)])
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` that starts one element past a 16-byte boundary."""
+    buffer = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    shifted = buffer[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == x.element_size()
+    return shifted
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("shape", [(520, 300), (1280, 1280), (640, 2048), (64, 5120), (37, 301)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_quantize_kernel_is_bit_equal_to_plain(device: torch.device, shape: tuple[int, int], dtype: torch.dtype) -> None:
+def test_quantize_kernel_is_bit_equal_to_plain(
+    device: torch.device, shape: tuple[int, int], dtype: torch.dtype, unaligned: bool
+) -> None:
+    """Rows of 301 and 300 columns do not all start on a Philox block; an
+    unaligned start shifts every 16-byte vector off its blocks."""
     gen = torch.Generator(device).manual_seed(shape[0] + shape[1])
     w = (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
     w[0] *= 30.0
     w[1] = 0.0
+    if unaligned:
+        w = _unaligned(w)
     before = quant.quantize_int8.launches  # type: ignore[attr-defined]
     values, scales = quant.quantize_int8(w, seed=2**32 + 5)
     torch.cuda.synchronize()
@@ -161,17 +179,76 @@ def test_quantize_kernel_is_unbiased(device: torch.device) -> None:
     assert abs(float(error.mean())) <= 1e-3
 
 
+def _activations(device: torch.device, shape: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """Seeded activations with an outlier row, a zero row (from the third row
+    on) and a last row of 127 and half-integers (scale exactly 1: round half
+    to even decides)."""
+    gen = torch.Generator(device).manual_seed(shape[0] * shape[1])
+    x = torch.randn(shape, generator=gen, device=device) * 3.0
+    x[0] *= 40.0
+    if shape[0] > 2:
+        x[1] = 0.0
+    x[-1] = torch.arange(shape[1], device=device) % 9 - 4.5
+    x[-1, 0] = 127.0
+    return x.to(dtype)
+
+
+def _check_rows(x: torch.Tensor, min_rows: int = 0) -> None:
+    before = quant.quantize_rows_int8.launches  # type: ignore[attr-defined]
+    values, scales = quant.quantize_rows_int8(x, min_rows=min_rows)
+    torch.cuda.synchronize()
+    assert quant.quantize_rows_int8.launches == before + 1  # type: ignore[attr-defined]
+    rows = x.shape[0]
+    assert values.dtype == torch.int8 and tuple(values.shape) == (max(rows, min_rows), x.shape[1])
+    assert scales.dtype == torch.float32 and tuple(scales.shape) == (rows, 1)
+    want_values, want_scales = quant.quantize_rows_int8_plain(x)
+    assert torch.equal(scales, want_scales)
+    assert torch.equal(values[:rows], want_values)
+    assert not values[rows:].any()
+    assert int(values.abs().max()) <= 127
+    if rows > 2:
+        zero_scale = torch.tensor(1e-8, device=x.device) / torch.tensor(127.0, device=x.device)
+        assert float(scales[1]) == float(zero_scale) and not values[1].any()
+    assert float(scales[-1]) == 1.0 and int(values[rows - 1, 1]) == -4 and int(values[rows - 1, 2]) == -2
+
+
+@pytest.mark.parametrize("shape", [(2, 1280), (154, 2048), (2048, 1280), (8192, 640), (37, 301)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_quantize_rows_kernel_is_bit_equal_to_plain(device: torch.device, shape: tuple[int, int], dtype: torch.dtype) -> None:
+    _check_rows(_activations(device, shape, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_quantize_rows_kernel_reads_unaligned_rows_and_pads(device: torch.device, dtype: torch.dtype) -> None:
+    """A row-offset view (data_ptr one element past a 16-byte boundary, row
+    stride 1281: every row starts elsewhere), an unaligned contiguous tensor,
+    and zero rows written up to `min_rows`."""
+    x = _activations(device, (300, 1280), dtype)
+    wide = torch.zeros((300, 1281), device=device, dtype=dtype)
+    wide[:, 1:] = x
+    view = wide[:, 1:]
+    assert view.data_ptr() % 16 == x.element_size() and view.stride() == (1281, 1)
+    _check_rows(view)
+    _check_rows(_unaligned(_activations(device, (37, 301), dtype)))
+    _check_rows(_activations(device, (5, 2816), dtype), min_rows=32)
+    with pytest.raises(ValueError, match="unit stride"):
+        quant.quantize_rows_int8(x.t())
+
+
 @pytest.mark.parametrize("rows", [1, 2, 16, 40])
 @pytest.mark.parametrize("act_quant", [True, False])
 def test_int8_matmul_on_the_card_matches_the_cpu(device: torch.device, rows: int, act_quant: bool) -> None:
-    """The same values and scales on the card and on the CPU: the int32 product
-    is exact, so W8A8 agrees to float32 rounding; rows ≤ 16 are padded for
-    torch._int_mm on the card."""
+    """The same values and scales on the card and on the CPU: the activations'
+    quantization (the row mode, one launch) is bit-equal and the int32
+    product exact, so W8A8 agrees to float32 rounding; rows ≤ 16 are padded
+    for torch._int_mm on the card."""
     gen = torch.Generator().manual_seed(rows)
     x = torch.randn((rows, 320), generator=gen)
     values, scales = quant.quantize_int8(torch.randn((264, 320), generator=gen) * 0.02)
     want = int8_matmul(x, values, scales, act_quant)
+    before = quant.quantize_rows_int8.launches  # type: ignore[attr-defined]
     got = int8_matmul(x.to(device), values.to(device), scales.to(device), act_quant)
+    assert quant.quantize_rows_int8.launches == before + int(act_quant)  # type: ignore[attr-defined]
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
