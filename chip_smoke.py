@@ -6,7 +6,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
 
 0. device: requires CUDA; prints the card's name and power limit; turns
    TF32 off so that float32 references are true float32; checks that the
-   facades (`StableDiffusion_XL`, `SegmentAnything`) built with no device
+   facades (`StableDiffusion_XL`, `StableDiffusion_1`,
+   `StableDiffusion_1_Inpainting`, `SegmentAnything`) built with no device
    land on the card (small sub-models, built on the host and moved).
 1. build: compiles the CUDA kernels from ``refiners_tpu_torch/csrc/`` into
    ``build/refiners_tpu_torch/``, one ``nvcc`` per source, side by side.
@@ -16,7 +17,9 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    the float32 plain version.
    - the packed forward (``flash_attention_packed``) at the SDXL path's
      shapes (the UNet's d = 64 on the narrow wgmma kernel, the VAE's
-     d = 512 on the wide one) plus ragged, causal, d = 40, d = 80, d = 128,
+     d = 512 on the wide one), at SD1.5's inference shapes (the UNet's
+     d = 40 and d = 80, no lse; the VAE's d = 512 at 64×64 latents)
+     plus ragged, causal, d = 80, d = 128,
      d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
      against the plain version in float32; uniform weights on causal rows
      that have no admissible key;
@@ -119,9 +122,26 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    PSNR ≥ 20 against phase 3's bf16 image (the JAX package's int8 gate).
    Then one W8A8 UNet step is traced with ``torch.profiler`` (device time
    by kind, idle share).
+7. SD1.5 serving: full-width ``StableDiffusion_1`` (UNet of 859,520,964
+   parameters, CLIP-L, VAE) in bf16 with seeded synthetic weights, DPM++
+   30 steps, CFG 7.5, 512². (a) One CFG UNet step at 64×64 latents three
+   ways: float32 on the plain path (the reference), bf16 on the plain path
+   (no K1 launch) and bf16 through the kernels (exactly 10 K1 launches); the
+   kernel route at most twice as far from the reference as the bf16 plain
+   route; the bf16 kernel step traced with ``torch.profiler``. (b) Requests,
+   each timed on the host clock between synchronizes with its peak memory
+   and K1 launches: 3 text-to-image requests through ``TextToImage``
+   (distinct prompts and seeds; 10 × 30 + 1 launches each), one with
+   ``num_images=2`` (301: batch 4 in one UNet call a step; each image at
+   PSNR ≥ 35 dB against a single run on its noise), one img2img at
+   strength 0.5 on the first image (first step 14: 10 × 16 + 2, the VAE
+   encoder's mid-block included) and one inpainting request on a 9-channel
+   ``StableDiffusion_1_Inpainting`` with the same weights apart from its
+   ``conv_in`` (10 × 30 + 2). Every decoded image finite and not constant.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b and 6, each with the counts set to 0 just before it), the
+phases 3, 4b, 5b, 6 and 7b, each with the counts set to 0 just before it;
+K1's over phases 3 and 7b, by path), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,6 +159,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from PIL import Image
 
 REL_TOL = 1e-2  # bf16 unit roundoff 3.9e-3; P and O are each rounded once
 LSE_TOL = 1e-3  # lse is float32 from the same bf16 q and k: summation order only
@@ -176,9 +197,14 @@ ATTENTION_SHAPES = [
     (1, 1000, 1100, 3, 200, False, BF16),  # d = 200, padded to 256; ragged
     (1, 2900, 3000, 1, 512, True, BF16),  # ragged and causal at d = 512
     (1, 4096, 4096, 1, 512, False, torch.float16),  # a float16 VAE mid-block at 64×64 latents
+    (2, 1024, 1024, 8, 80, False, BF16),  # SD1.5 self-attention at 32×32 latents, inference
+    (1, 4096, 4096, 1, 512, False, BF16),  # SD1.5 VAE mid-block at 64×64 latents
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
+# K1's SD1.5 inference sites: 5 + 5 launches per UNet call, one VAE launch per encode or decode
+SD15_SHAPES = {"K1 SD1.5 64²": [2, 4096, 4096, 8, 40], "K1 SD1.5 32²": [2, 1024, 1024, 8, 80],
+               "K1 SD1.5 VAE": [1, 4096, 4096, 1, 512]}  # fmt: skip
 TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
@@ -247,6 +273,18 @@ PASSES_QUANTIZED = 743  # SDXL UNet linears with both widths ≥ 256
 ROW_QUANT_LAUNCHES_PER_REQUEST = PASSES_QUANTIZED * 30  # each W8A8 linear runs once a UNet step
 GROUP_NORM_LAUNCHES_PER_REQUEST = PASSES_UNET_FUSED * 30 + PASSES_VAE_FUSED[1]  # the encoder does not run
 INT8_PSNR_FLOOR = 20.0  # tests/tpu/test_bf16_tpu.py: the int8 image against the bf16 image
+SD15_UNET_PARAMETERS = 859_520_964
+SD15_SIZE = 512  # image side of the SD1.5 requests (64×64 latents)
+# K1 launches of one SD1.5 UNet call at 64×64 latents: self-attention at 64² (2 down, 3 up; seq 4096,
+# 8 heads, d = 40) and at 32² (2 down, 3 up; seq 1024, d = 80); the 16², 8² and text sites stay plain
+SD15_LAUNCHES_PER_STEP = 10
+SD15_LAUNCHES_PER_REQUEST = SD15_LAUNCHES_PER_STEP * 30 + 1  # 30 DPM++ steps and the VAE decoder's mid-block
+# an image of a num_images=2 request against a single request on its noise: bf16 rounds the
+# batch-4 and batch-2 UNet calls differently, and 30 steps carry it into the image; the golden
+# tests' PSNR floor for the same image (tests/e2e/test_golden.py:29)
+SD15_PAIR_PSNR = 35.0
+SD15_PAIR_SEED, SD15_IMG2IMG_SEED, SD15_INPAINT_SEED = 10, 20, 30
+SD15_IMG2IMG_STRENGTH = 0.5
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -631,7 +669,9 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 and 32×32
     # self-attention, and at the VAE decoder's mid-block (one head of d = 512
     # over 128×128 latents)
-    for label, (b, seq, h, d) in (("K1", (2, 4096, 10, 64)), ("K1 32²", (2, 1024, 20, 64)), ("K1 VAE", (1, 16384, 1, 512))):
+    sites = [("K1", (2, 4096, 10, 64)), ("K1 32²", (2, 1024, 20, 64)), ("K1 VAE", (1, 16384, 1, 512))]
+    sites += [(label, (b, seq, h, d)) for label, (b, seq, _, h, d) in SD15_SHAPES.items()]
+    for label, (b, seq, h, d) in sites:
         q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
         heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
         library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
@@ -884,8 +924,12 @@ def check_device_default() -> None:
     from refiners_tpu_torch.foundationals.latent_diffusion import (
         DDIM,
         DoubleTextEncoder,
+        SD1Autoencoder,
+        SD1UNet,
         SDXLAutoencoder,
         SDXLUNet,
+        StableDiffusion_1,
+        StableDiffusion_1_Inpainting,
         StableDiffusion_XL,
     )
     from refiners_tpu_torch.foundationals.segment_anything import (
@@ -908,11 +952,18 @@ def check_device_default() -> None:
         SAMViT(embedding_dim=32, num_layers=2, num_heads=2, global_attention_indices=(1,)),
         PointEncoder(), MaskEncoder(), MaskDecoder(multimask_output=False),
     )  # fmt: skip
-    devices = {p.device.type for model in (sd, sam) for p in model.parameters()} | {sd.solver.timesteps.device.type}
-    print(f"device default: StableDiffusion_XL() and SegmentAnything(...) with no device hold their tensors on {devices}")
+    text_sd1 = CLIPTextEncoder(embedding_dim=768, num_attention_heads=12, use_quick_gelu=True, **small)
+    sd1 = StableDiffusion_1(unet=SD1UNet(in_channels=4, base_channels=32), lda=SD1Autoencoder(), clip_text_encoder=text_sd1)
+    inpainting = StableDiffusion_1_Inpainting(unet=SD1UNet(in_channels=9, base_channels=32), lda=sd1.lda,
+                                              clip_text_encoder=text_sd1)  # fmt: skip
+    models = (sd, sam, sd1, inpainting)
+    devices = {p.device.type for model in models for p in model.parameters()}
+    devices |= {m.solver.timesteps.device.type for m in (sd, sd1, inpainting)}
+    print(f"device default: StableDiffusion_XL(), StableDiffusion_1(), StableDiffusion_1_Inpainting() and "
+          f"SegmentAnything(...) with no device hold their tensors on {devices}")  # fmt: skip
     if devices != {"cuda"}:
         raise AssertionError(f"a facade built with no device left tensors on {devices}")
-    del sd, sam, text_l, text_g
+    del sd, sam, sd1, inpainting, models, text_l, text_g, text_sd1
     _free()
 
 
@@ -1481,6 +1532,192 @@ def run_sam(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: SD1.5 serving
+# ---------------------------------------------------------------------------
+
+
+def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
+    """Full-width SD1.5 at 512² in bf16: one UNet step three ways, then
+    text-to-image, `num_images=2`, img2img and inpainting requests, each
+    with its K1 launches counted."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights, tensor_to_image
+    from refiners_tpu_torch.foundationals.latent_diffusion import (
+        SD1UNet,
+        StableDiffusion_1,
+        StableDiffusion_1_Inpainting,
+    )
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    t0 = time.perf_counter()
+    manual_seed(0)
+    sd = StableDiffusion_1(device=dev, dtype=BF16)  # DPM++ 30 steps, CFG 7.5
+    synthesize_weights(sd, seed=11)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in sd.unet.parameters())
+    print(f"sd15: StableDiffusion_1 built, UNet {n_unet} parameters, {sum(p.numel() for p in sd.parameters())} in all, "
+          f"bf16, {type(sd.solver).__name__} {sd.solver.num_inference_steps} steps, {time.perf_counter() - t0:.1f} s")  # fmt: skip
+    if n_unet != SD15_UNET_PARAMETERS:
+        raise AssertionError(f"the SD1.5 UNet has {n_unet} parameters, not {SD15_UNET_PARAMETERS}")
+    report: dict[str, Any] = {"unet_parameters": n_unet}
+    latent = SD15_SIZE // 8
+
+    # One CFG UNet step at 64² latents three ways, held as phase 3 holds SDXL's
+    sdpa = list(sd.unet.layers(fl.ScaledDotProductAttention, recurse=True))
+    with torch.inference_mode():
+        emb = sd.compute_clip_text_embedding(*PROMPTS[0])
+        x = torch.randn((1, 4, latent, latent), generator=torch.Generator(dev).manual_seed(0), device=dev)
+
+        def step(dtype: torch.dtype, kernel: bool) -> tuple[torch.Tensor, int]:
+            for layer in sdpa:
+                layer.is_optimized = kernel
+            sd.unet.to(dtype=dtype)
+            reset_launches()
+            noise = sd.predict_noise(x.to(dtype), 0, clip_text_embedding=emb.to(dtype), condition_scale=7.5)
+            torch.cuda.synchronize()
+            return noise.float(), read_launches()["flash_attention_packed"]
+
+        reference, _ = step(F32, kernel=False)
+        plain_noise, plain_launches = step(BF16, kernel=False)
+        kernel_noise, step_launches = step(BF16, kernel=True)
+    err_kernel, err_plain = _rel(kernel_noise, reference), _rel(plain_noise, reference)
+    print(
+        f"sd15: one UNet step (512², CFG batch 2) vs float32 reference: kernel route rel_err={err_kernel:.3e}, "
+        f"plain bf16 route rel_err={err_plain:.3e}, kernel vs plain rel_err={_rel(kernel_noise, plain_noise):.3e}; "
+        f"K1 launches {step_launches} (plain route {plain_launches})"
+    )
+    if not (torch.isfinite(kernel_noise).all() and err_kernel <= 2 * err_plain):
+        raise AssertionError(f"the kernel route is further from float32 than the plain route: {err_kernel} > 2 × {err_plain}")
+    if (step_launches, plain_launches) != (SD15_LAUNCHES_PER_STEP, 0):
+        raise AssertionError(f"one UNet step launched K1 {step_launches} times (plain route {plain_launches}), "
+                             f"not {SD15_LAUNCHES_PER_STEP} (0)")  # fmt: skip
+    report["unet_step_rel_err"] = {"bf16_kernels": err_kernel, "bf16_plain": err_plain}
+    with torch.inference_mode():
+        emb16, x16 = emb.to(BF16), x.to(BF16)
+        report["unet_step_profile"] = _profile("sd15: one UNet step (512², CFG batch 2, bf16, kernels)",
+                                               lambda: sd.predict_noise(x16, 0, clip_text_embedding=emb16), unit="step")  # fmt: skip
+    del reference, plain_noise, kernel_noise, x, x16
+    _free()
+
+    # the 9-channel inpainting model: the same weights, apart from its conv_in, sharing the VAE and CLIP
+    unet9 = SD1UNet(in_channels=9, device=dev, dtype=BF16)
+    synthesize_weights(unet9, seed=12)
+    shared = {k: v for k, v in sd.unet.state_dict().items() if v.shape == unet9.state_dict()[k].shape}
+    unet9.load_state_dict(shared, strict=False)
+    inpainting = StableDiffusion_1_Inpainting(unet=unet9, lda=sd.lda, clip_text_encoder=sd.clip_text_encoder,
+                                              device=dev, dtype=BF16)  # fmt: skip
+    print(f"sd15: StableDiffusion_1_Inpainting built, {len(unet9.state_dict()) - len(shared)} tensor(s) not shared "
+          f"with the text-to-image UNet")  # fmt: skip
+
+    # each decode also timed alone: host clock between synchronizes around the decoder
+    decoded: list[torch.Tensor] = []
+    decode_seconds: list[float] = []
+
+    def before_decode(_module: Any, _inputs: Any) -> None:
+        torch.cuda.synchronize()
+        decode_seconds.append(-time.perf_counter())
+
+    def after_decode(_module: Any, _inputs: Any, out: torch.Tensor) -> None:
+        torch.cuda.synchronize()
+        decode_seconds[-1] += time.perf_counter()
+        decoded.append(out.float())
+
+    hooks = [sd.lda[1].register_forward_pre_hook(before_decode), sd.lda[1].register_forward_hook(after_decode)]
+    requests: list[dict[str, Any]] = []
+
+    def request(label: str, want: int, fn: Callable[[], Any]) -> Any:
+        """`fn` between synchronizes: seconds, peak memory and K1 launches;
+        every image it decodes finite and not constant."""
+        del decoded[:], decode_seconds[:]
+        before = read_launches()["flash_attention_packed"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launched = read_launches()["flash_attention_packed"] - before
+        peak = torch.cuda.max_memory_allocated(dev)
+        images = out if isinstance(out, list) else [out]
+        z = torch.cat(decoded)
+        print(
+            f"sd15 {label}: {seconds:.3f} s (VAE decode {decode_seconds[-1]:.4f} s), peak memory {peak / 2**30:.2f} GiB, "
+            f"K1 launches {launched}, {len(images)} image(s) {images[0].size}, "
+            f"decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}"
+        )
+        if launched != want:
+            raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
+        if tuple(z.shape) != (len(images), 3, SD15_SIZE, SD15_SIZE) or not torch.isfinite(z).all():
+            raise AssertionError(f"sd15 {label}: decoded images of shape {tuple(z.shape)} are not finite")
+        if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
+            raise AssertionError(f"sd15 {label}: an image is constant")
+        requests.append({"request": label, "seconds": seconds, "vae_decode_seconds": decode_seconds[-1],
+                         "peak_memory_bytes": peak, "k1_launches": launched})  # fmt: skip
+        return out
+
+    reset_launches()
+    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))  # CFG 7.5
+    images = [request(f"text-to-image {seed}", SD15_LAUNCHES_PER_REQUEST,
+                      lambda: pipe(prompt, negative_prompt=negative, seed=seed))
+              for seed, (prompt, negative) in enumerate(PROMPTS)]  # fmt: skip
+
+    # num_images = 2: one batch of 2 latents (CFG batch 4), each image held
+    # against a single request on its noise
+    pair = request("num_images=2", SD15_LAUNCHES_PER_REQUEST,
+                   lambda: TextToImage(sd, size=pipe.size, num_images=2)(*PROMPTS[0], seed=SD15_PAIR_SEED))  # fmt: skip
+    pair_decoded = decoded[-1]
+    noise = torch.randn((2, 4, latent, latent), generator=torch.Generator(dev).manual_seed(SD15_PAIR_SEED), device=dev)
+    pair_err, pair_psnr = [], []
+    with torch.inference_mode():
+        for i in range(2):
+            z = sd.diffuse(noise[i : i + 1].to(BF16), clip_text_embedding=emb16, condition_scale=7.5)
+            single = sd.lda.decode(z).float()
+            pair_err.append(_rel(pair_decoded[i : i + 1], single))
+            pair_psnr.append(_psnr(np.asarray(pair[i]), np.asarray(tensor_to_image((single + 1) / 2))))
+    print(f"sd15 num_images=2 against single requests on the same noise: rel_err {pair_err}, PSNR {pair_psnr} dB")
+    if not min(pair_psnr) >= SD15_PAIR_PSNR:
+        raise AssertionError(f"an image of the num_images=2 request is at PSNR {min(pair_psnr)} from its single run "
+                             f"(< {SD15_PAIR_PSNR})")  # fmt: skip
+    report["num_images_against_single"] = {"rel_err": pair_err, "psnr": pair_psnr}
+
+    # img2img at strength 0.5 on the first image: the solver starts at step
+    # round((1 - strength) · (steps - 1))
+    first_step = round((1 - SD15_IMG2IMG_STRENGTH) * (sd.solver.num_inference_steps - 1))
+
+    def img2img() -> Any:
+        generator = torch.Generator(dev).manual_seed(SD15_IMG2IMG_SEED)
+        with torch.inference_mode():
+            x = sd.init_latents(pipe.size, init_image=images[0], generator=generator)
+            z = sd.diffuse(x, clip_text_embedding=sd.compute_clip_text_embedding(*PROMPTS[1]), generator=generator)
+            return sd.lda.latents_to_image(z)
+
+    sd.set_inference_steps(30, first_step=first_step)
+    request(f"img2img (strength {SD15_IMG2IMG_STRENGTH}, first step {first_step})",
+            SD15_LAUNCHES_PER_STEP * (30 - first_step) + 2, img2img)  # fmt: skip
+    sd.set_inference_steps(30)
+
+    # inpainting: the right half of the first image repainted
+    half = np.arange(SD15_SIZE)[None, :] >= SD15_SIZE // 2
+    mask = Image.fromarray(np.where(half, 255, 0).astype(np.uint8).repeat(SD15_SIZE, 0), mode="L")
+
+    def inpaint() -> Any:
+        with torch.inference_mode():
+            inpainting.set_inpainting_conditions(images[0], mask, latents_size=(latent, latent))
+        return TextToImage(inpainting, size=pipe.size)(*PROMPTS[2], seed=SD15_INPAINT_SEED)
+
+    request("inpainting", SD15_LAUNCHES_PER_REQUEST + 1, inpaint)
+    # the path's launches: the requests' own, not those of the single runs the pair was held against
+    launches = {"flash_attention_packed": sum(r["k1_launches"] for r in requests)}
+    for hook in hooks:
+        hook.remove()
+    report["requests"] = requests
+    del sd, inpainting, unet9, pipe, sdpa, decoded, images, pair, pair_decoded, noise, emb, emb16
+    _free()
+    return report, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -1541,6 +1778,10 @@ def main() -> int:
     _print_row("K1 VAE", vae["ms"], rows["K1 VAE"])
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
+    sd15_packed = {label: next(r for r in packed if r["shape"] == shape and r["dtype"] == str(BF16) and not r["causal"])
+                   for label, shape in SD15_SHAPES.items()}  # fmt: skip
+    for label, result in sd15_packed.items():
+        _print_row(label, result["ms"], rows[label])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
     _print_row("K3 windowed", windowed["ms"], rows["K3 windowed"])
     for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6"), (quantize_rows, "K6 rows")):
@@ -1551,6 +1792,7 @@ def main() -> int:
     train_launches, train_records = run_trainer(dev)
     sam_report, sam_launches = run_sam(dev)
     passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
+    sd15_report, sd15_launches = run_sd15(dev)
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -1562,14 +1804,19 @@ def main() -> int:
         }  # fmt: skip
 
     # K1's three sites on the SDXL path: the UNet's d = 64 at 64×64 and 32×32 latents (the narrow
-    # wgmma kernel) and the VAE's d = 512 (the wide wgmma kernel)
+    # wgmma kernel) and the VAE's d = 512 (the wide wgmma kernel); SD1.5's three: the UNet's d = 40
+    # and d = 80 (narrow) and the VAE's d = 512 at 64×64 latents (wide)
     sites = [
         {"site": site, "shape": result["shape"], "ms": result["ms"], "plain_ms": result["plain_ms"],
          **{key: rows[label][key] for key in ("bound_ms", "bound_by", "library_ms", "cuda_kernel", "device_ms",
                                               "library_device_ms") if key in rows[label]}}
         for site, label, result in (("SDXL UNet 64², d = 64", "K1", packed[0]), ("SDXL UNet 32², d = 64", "K1 32²", unet32),
-                                    ("SDXL VAE, d = 512", "K1 VAE", vae))
+                                    ("SDXL VAE, d = 512", "K1 VAE", vae),
+                                    ("SD1.5 UNet 64², d = 40", "K1 SD1.5 64²", sd15_packed["K1 SD1.5 64²"]),
+                                    ("SD1.5 UNet 32², d = 80", "K1 SD1.5 32²", sd15_packed["K1 SD1.5 32²"]),
+                                    ("SD1.5 VAE, d = 512", "K1 SD1.5 VAE", sd15_packed["K1 SD1.5 VAE"]))
     ]  # fmt: skip
+    k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"]}
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -1588,7 +1835,7 @@ def main() -> int:
     summary = {
         "kernels": [
             {**kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
-                      sdxl_launches["flash_attention_packed"], packed, rows["K1"]), "sites": sites},
+                      sum(k1_launches.values()), packed, rows["K1"]), "launches_by_path": k1_launches, "sites": sites},
             {**kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
                       train_launches["flash_attention"], forward, rows["K2"]), "cuda_kernel": rows["K2"]["cuda_kernel"],
              "sites": train_sites("K2", forward[0])},
@@ -1624,6 +1871,7 @@ def main() -> int:
         "sd15_trainer_losses": [r["loss"] for r in train_records],
         "sam": sam_report,
         "sdxl_passes": passes_report,
+        "sd15": sd15_report,
     }
     print(json.dumps(summary))
     print(smi)

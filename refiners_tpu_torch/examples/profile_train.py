@@ -58,7 +58,11 @@ KINDS = [
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax", ("softmax",)),
     ("norm statistics and reductions", ("reduce", "welford", "norm")),
-    ("copies and casts", ("copy", "cast", "Memcpy", "Memset")),
+    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    # PyTorch's arithmetic on operands of one dtype runs as `gpu_kernel_impl_nocast`,
+    # whose name holds "cast": matched before the casts
+    ("elementwise arithmetic (no cast)", ("_nocast",)),
+    ("copies and casts", ("cast",)),
 ]
 
 

@@ -43,7 +43,9 @@ class DDIM(Solver):
             dtype=dtype,
         )
 
-    def __call__(self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int) -> torch.Tensor:
+    def __call__(
+        self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         """Deterministic DDIM update, in float32; no noise on the last step."""
         self._check_step(step)
         is_last = step == self.num_inference_steps - 1

@@ -40,5 +40,7 @@ class DDPM(Solver):
             device=device,
         )
 
-    def __call__(self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int) -> torch.Tensor:
+    def __call__(
+        self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         raise NotImplementedError

@@ -5,7 +5,9 @@ The schedules are computed on the host in numpy, exactly as in the JAX
 package, and kept as float32 buffers (not part of the state dict) that move
 with the solver: ``.to(device)`` puts them on the latents' device, so a step
 gathers its coefficients there with no host round trip. Steps are Python
-ints: the denoising loop is a Python loop.
+ints: the denoising loop is a Python loop. Stochastic solvers draw their
+noise from an explicit ``torch.Generator`` on the latents' device, the
+counterpart of the JAX package's PRNG ``key``.
 """
 
 from __future__ import annotations
@@ -118,17 +120,7 @@ class Solver(fl.Module, ABC):
         self.first_inference_step = first_inference_step
         self.params = self.resolve_params(params)
 
-        # host-side float64 schedule math, stored float32
-        scale_factors = self._np_noise_schedule()
-        cumulative = np.sqrt(np.cumprod(scale_factors))
-        noise_std = np.sqrt(1.0 - np.cumprod(scale_factors))
-        tables = {
-            "scale_factors": scale_factors,
-            "cumulative_scale_factors": cumulative,
-            "noise_std": noise_std,
-            "signal_to_noise_ratios": np.log(cumulative) - np.log(noise_std),
-        }
-        for name, table in tables.items():
+        for name, table in self._np_tables().items():
             self.register_buffer(name, torch.tensor(table, dtype=torch.float32, device=device), persistent=False)
         timesteps = self._generate_timesteps()
         self.register_buffer("timesteps", torch.from_numpy(timesteps.copy()).to(device), persistent=False)
@@ -142,6 +134,18 @@ class Solver(fl.Module, ABC):
             self.default_params,
             **{k: v for k, v in dataclasses.asdict(params).items() if v is not None},
         )
+
+    def _np_tables(self) -> dict[str, np.ndarray]:
+        """The schedule's tables on the host, indexed by train timestep."""
+        scale_factors = self._np_noise_schedule()
+        cumulative = np.sqrt(np.cumprod(scale_factors))
+        noise_std = np.sqrt(1.0 - np.cumprod(scale_factors))
+        return {
+            "scale_factors": scale_factors,
+            "cumulative_scale_factors": cumulative,
+            "noise_std": noise_std,
+            "signal_to_noise_ratios": np.log(cumulative) - np.log(noise_std),
+        }
 
     def _np_power_distribution(self, power: float) -> np.ndarray:
         """linspace between the diffusion rates in power space; float32 as in
@@ -202,17 +206,32 @@ class Solver(fl.Module, ABC):
     # -- runtime API ---------------------------------------------------------
 
     @abstractmethod
-    def __call__(self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int) -> torch.Tensor:
-        """Apply one denoising step."""
+    def __call__(
+        self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """Apply one denoising step; stochastic solvers draw from `generator`."""
         ...
 
     def init_state(self) -> Any:
         """Loop-carried state of multistep solvers; () when stateless."""
         return ()
 
-    def step(self, x: torch.Tensor, predicted_noise: torch.Tensor, step: int, state: Any) -> tuple[torch.Tensor, Any]:
+    def step(
+        self,
+        x: torch.Tensor,
+        predicted_noise: torch.Tensor,
+        step: int,
+        state: Any,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, Any]:
         """Functional step carrying the solver state; default: stateless __call__."""
-        return self(x, predicted_noise, step), state
+        return self(x, predicted_noise, step, generator=generator), state
+
+    def _randn(self, generator: torch.Generator | None, shape: tuple[int, ...]) -> torch.Tensor:
+        """Standard normal float32 noise on the tables' device, from an explicit generator."""
+        if generator is None:
+            raise ValueError(f"{type(self).__name__} draws noise: pass a torch.Generator")
+        return torch.randn(shape, generator=generator, device=self.timesteps.device, dtype=torch.float32)
 
     def _check_step(self, step: int) -> None:
         assert self.first_inference_step <= step < self.num_inference_steps, f"invalid step {step}"
@@ -231,6 +250,13 @@ class Solver(fl.Module, ABC):
             assert len(x) == len(noise) == len(step)
             return torch.stack([self._add_noise(x[i], noise[i], s) for i, s in enumerate(step)], dim=0)
         return self._add_noise(x, noise, step)
+
+    def remove_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int) -> torch.Tensor:
+        """The inverse of `add_noise`, arXiv:2006.11239 Eq. 15, in float32."""
+        timestep = self.timesteps[step].long()
+        csf = self.cumulative_scale_factors[timestep]
+        std = self.noise_std[timestep]
+        return ((x.float() - std * noise.float()) / csf).to(x.dtype)
 
     @property
     def all_steps(self) -> list[int]:

@@ -118,3 +118,8 @@ class StableDiffusion_XL(LatentDiffusionModel):
 
     def has_self_attention_guidance(self) -> bool:
         return False
+
+    def compute_self_attention_guidance(
+        self, x: torch.Tensor, noise: torch.Tensor, step: int, *, clip_text_embedding: torch.Tensor, **kwargs: Any
+    ) -> torch.Tensor:
+        raise NotImplementedError("self-attention guidance is not ported to refiners_tpu_torch yet")

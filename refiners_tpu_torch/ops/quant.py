@@ -193,20 +193,28 @@ def int8_matmul(x: torch.Tensor, values: torch.Tensor, scales: torch.Tensor, act
     ``quantize_rows_int8``, the kernel on the card), the product is int8 ×
     int8 → int32 (``torch._int_mm``), then the two scales are applied in
     float32. W8A16: values cast to x's dtype, the product in float32, then
-    the scales."""
+    the scales.
+
+    ``torch._int_mm`` takes in and out features in multiples of 8; other
+    widths are padded with zeros (columns of x and of the weight along K,
+    which leave each row's abs-max and the int32 sums as they are; weight
+    rows along N, whose outputs are sliced off)."""
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     if not act_quant:
         y = _matmul_f32(x2, values.to(x.dtype)) * scales.float()
         return y.to(x.dtype).reshape(*x.shape[:-1], -1)
     n = values.shape[0]
-    if k % 8 or n % 8:
-        raise ValueError(f"the int8 product takes in and out features in multiples of 8, got {k} and {n}")
+    pad_k, pad_n = -k % 8, -n % 8
+    if pad_k:
+        x2, values = F.pad(x2, (0, pad_k)), F.pad(values, (0, pad_k))
+    if pad_n:
+        values = F.pad(values, (0, 0, 0, pad_n))
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     xq, x_scale = quantize_rows_int8(x2, min_rows=_INT_MM_MIN_ROWS)
     m = x2.shape[0]
-    y = torch._int_mm(xq, values.t())[:m]
+    y = torch._int_mm(xq, values.t())[:m, :n]
     return (y.float() * x_scale * scales.float()).to(x.dtype).reshape(*x.shape[:-1], n)
 
 

@@ -237,14 +237,18 @@ def test_quantize_rows_kernel_reads_unaligned_rows_and_pads(device: torch.device
 
 @pytest.mark.parametrize("rows", [1, 2, 16, 40])
 @pytest.mark.parametrize("act_quant", [True, False])
-def test_int8_matmul_on_the_card_matches_the_cpu(device: torch.device, rows: int, act_quant: bool) -> None:
+@pytest.mark.parametrize("features", [(320, 264), (12, 20)])  # (in, out); the second padded to multiples of 8
+def test_int8_matmul_on_the_card_matches_the_cpu(
+    device: torch.device, rows: int, act_quant: bool, features: tuple[int, int]
+) -> None:
     """The same values and scales on the card and on the CPU: the activations'
     quantization (the row mode, one launch) is bit-equal and the int32
     product exact, so W8A8 agrees to float32 rounding; rows ≤ 16 are padded
     for torch._int_mm on the card."""
     gen = torch.Generator().manual_seed(rows)
-    x = torch.randn((rows, 320), generator=gen)
-    values, scales = quant.quantize_int8(torch.randn((264, 320), generator=gen) * 0.02)
+    k, n = features
+    x = torch.randn((rows, k), generator=gen)
+    values, scales = quant.quantize_int8(torch.randn((n, k), generator=gen) * 0.02)
     want = int8_matmul(x, values, scales, act_quant)
     before = quant.quantize_rows_int8.launches  # type: ignore[attr-defined]
     got = int8_matmul(x.to(device), values.to(device), scales.to(device), act_quant)
