@@ -138,10 +138,26 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    encoder's mid-block included) and one inpainting request on a 9-channel
    ``StableDiffusion_1_Inpainting`` with the same weights apart from its
    ``conv_in`` (10 × 30 + 2). Every decoded image finite and not constant.
+8. SD1.5 with adapters: phase 7's model, one request through
+   ``TextToImage`` for each adapter set, injected before it and ejected
+   after it: (a) two rank-32 LoRAs in the reference key layout on every
+   Linear of the UNet's transformer blocks and of CLIP, through
+   ``SDLoraManager.add_loras`` at scales 1.0 and 0.5; (b) one ControlNet,
+   "canny", at 1.0; (c) "depth" at 0.3 injected under "canny" at 0.7; (d) a
+   T2I-Adapter, "pose", at 0.8; (e) FreeU, backbone (1.2, 1.4), skip (0.9,
+   0.2). Conditions are seeded 512² images. For each: one CFG UNet step
+   three ways, gated as in phase 7 (K1 launches 10, 14, 18, 10, 10); the
+   request's seconds, peak memory and K1 launches (10 × 30 + 1, plus 4 × 30
+   per ControlNet), its image finite and not constant; after the eject,
+   one base UNet step bit-equal to the one taken before the first
+   injection. A LoRA at scale 0 gives the base step bit for bit and the
+   scales move it. With the ControlNet, the float32 reference step is also
+   taken once under PyTorch's default (cuDNN TF32 on) and its distance
+   from the TF32-off step printed (no gate), and one bf16 step is traced.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6 and 7b, each with the counts set to 0 just before it;
-K1's over phases 3 and 7b, by path), the
+phases 3, 4b, 5b, 6, 7b and 8b, each with the counts set to 0 just before
+it; K1's over phases 3, 7b and 8b, by path), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -285,6 +301,10 @@ SD15_LAUNCHES_PER_REQUEST = SD15_LAUNCHES_PER_STEP * 30 + 1  # 30 DPM++ steps an
 SD15_PAIR_PSNR = 35.0
 SD15_PAIR_SEED, SD15_IMG2IMG_SEED, SD15_INPAINT_SEED = 10, 20, 30
 SD15_IMG2IMG_STRENGTH = 0.5
+LORA_RANK = 32
+LORA_SCALES = {"style": 1.0, "detail": 0.5}  # the two LoRAs of phase 8's first request
+LORA_LAYERS = 16 * 10 + 12 * 6  # Linears of the UNet's 16 transformer blocks and of CLIP-L's 12 layers
+CONTROLNET_PARAMETERS = 361_279_120
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -1713,7 +1733,244 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
     for hook in hooks:
         hook.remove()
     report["requests"] = requests
-    del sd, inpainting, unet9, pipe, sdpa, decoded, images, pair, pair_decoded, noise, emb, emb16
+    del inpainting, unet9, pipe, sdpa, decoded, images, pair, pair_decoded, noise, emb, emb16
+    _free()
+    return report, launches, sd
+
+
+# ---------------------------------------------------------------------------
+# phase 8: SD1.5 with adapters
+# ---------------------------------------------------------------------------
+
+
+def _lora_weights(sd: Any, seed: int, dev: torch.device) -> dict[str, torch.Tensor]:
+    """A CivitAI-style SD1.5 LoRA in the reference layout: `key.lora_down.weight`
+    (rank, in), `key.lora_up.weight` (out, rank) and `key.alpha` for every
+    Linear of the UNet's transformer blocks (attention and feed-forward) and
+    of CLIP, keyed in the order of the tree; the up weights scaled so that a
+    LoRA at scale 1 moves each layer's output by about 30 %."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion.cross_attention import CrossAttentionBlock
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    unet = [l for b in sd.unet.layers(CrossAttentionBlock, recurse=True) for l in b.layers(fl.Linear, recurse=True)]
+    tensors: dict[str, torch.Tensor] = {}
+    for prefix, linears in (("lora_unet", unet), ("lora_te_text_model", list(sd.clip_text_encoder.layers(fl.Linear, recurse=True)))):
+        for n, linear in enumerate(linears):
+            key = f"{prefix}_{n:04d}"
+            down = torch.randn((LORA_RANK, linear.in_features), generator=gen, device=dev) * linear.in_features**-0.5
+            up = torch.randn((linear.out_features, LORA_RANK), generator=gen, device=dev) * (0.3 * LORA_RANK**-0.5)
+            tensors[f"{key}.lora_down.weight"], tensors[f"{key}.lora_up.weight"] = down, up
+            tensors[f"{key}.alpha"] = torch.tensor(float(LORA_RANK))
+    return tensors
+
+
+def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 7's bf16 SD1.5 with, in turn: two LoRAs, one ControlNet, a stack
+    of two, a T2I-Adapter and FreeU, each injected before its request and
+    ejected after it. For each: one CFG UNet step three ways (the 2× gate),
+    one request with its K1 launches counted, then one base step, which must
+    equal the step taken before the first injection bit for bit."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import (
+        SD1ControlnetAdapter,
+        SD1T2IAdapter,
+        SDFreeUAdapter,
+        SDLoraManager,
+    )
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    steps = sd.solver.num_inference_steps
+    latent = SD15_SIZE // 8
+    gen = torch.Generator(dev).manual_seed(40)
+    x = torch.randn((1, 4, latent, latent), generator=gen, device=dev)
+    conditions = {name: torch.rand((1, 3, SD15_SIZE, SD15_SIZE), generator=gen, device=dev)
+                  for name in ("canny", "depth", "pose")}  # fmt: skip
+    with torch.inference_mode():
+        emb = sd.compute_clip_text_embedding(*PROMPTS[0])
+    report: dict[str, Any] = {}
+
+    def step(dtype: torch.dtype, kernel: bool, prepare: Callable[[], None] = lambda: None) -> tuple[torch.Tensor, int]:
+        """One CFG UNet step in `dtype`, through the kernels or on the plain
+        path; `prepare` sets the adapters' conditions in the UNet's dtype."""
+        sd.unet.to(dtype=dtype)
+        for layer in sd.unet.layers(fl.ScaledDotProductAttention, recurse=True):
+            layer.is_optimized = kernel
+        prepare()
+        with torch.inference_mode():
+            reset_launches()
+            noise = sd.predict_noise(x.to(dtype), 0, clip_text_embedding=emb.to(dtype), condition_scale=7.5)
+            torch.cuda.synchronize()
+        return noise.float(), read_launches()["flash_attention_packed"]
+
+    def gate(label: str, want: int, prepare: Callable[[], None] = lambda: None, tf32: bool = False) -> dict[str, Any]:
+        """The adapted step three ways, held as phase 7 holds the bare one."""
+        reference, _ = step(F32, kernel=False, prepare=prepare)
+        out: dict[str, Any] = {}
+        if tf32:
+            # PyTorch's default float32 on the card: cuDNN convolutions in TF32, matmuls exact
+            torch.backends.cudnn.allow_tf32 = True
+            reference_tf32, _ = step(F32, kernel=False, prepare=prepare)
+            torch.backends.cudnn.allow_tf32 = False
+            out["f32_tf32_default_rel_err"] = _rel(reference_tf32, reference)
+            print(f"sd15 {label}: float32 step under PyTorch's default (cudnn.allow_tf32=True) vs TF32 off: "
+                  f"rel_err={out['f32_tf32_default_rel_err']:.3e}")  # fmt: skip
+            del reference_tf32
+        plain, plain_launches = step(BF16, kernel=False, prepare=prepare)
+        kernels, launches = step(BF16, kernel=True, prepare=prepare)
+        err_kernel, err_plain = _rel(kernels, reference), _rel(plain, reference)
+        print(f"sd15 {label}: one UNet step vs float32 reference: kernel route rel_err={err_kernel:.3e}, plain bf16 "
+              f"route rel_err={err_plain:.3e}; K1 launches {launches} (plain route {plain_launches})")  # fmt: skip
+        if not (torch.isfinite(kernels).all() and err_kernel <= 2 * err_plain):
+            raise AssertionError(f"sd15 {label}: the kernel route is further from float32 than the plain route: "
+                                 f"{err_kernel} > 2 × {err_plain}")  # fmt: skip
+        if (launches, plain_launches) != (want, 0):
+            raise AssertionError(f"sd15 {label}: one UNet step launched K1 {launches} times (plain route "
+                                 f"{plain_launches}), not {want} (0)")  # fmt: skip
+        return {**out, "bf16_kernels": err_kernel, "bf16_plain": err_plain, "step_launches": launches}
+
+    base, _ = step(BF16, kernel=True)
+
+    def check_base(label: str) -> None:
+        """After an eject, the bare UNet's step is the one taken before the
+        first injection, bit for bit: the same modules, weights and inputs
+        run the same (deterministic) forward kernels."""
+        again, _ = step(BF16, kernel=True)
+        if not torch.equal(again, base):
+            raise AssertionError(f"sd15 {label}: after eject the base step moved, max abs {_max_abs(again, base)}")
+        print(f"sd15 {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
+
+    decoded: list[torch.Tensor] = []
+    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out.float()))
+    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+    requests: list[dict[str, Any]] = []
+
+    def request(label: str, want: int, seed: int, prepare: Callable[[], None] = lambda: None) -> None:
+        """One text-to-image request (`prepare`, the per-request condition,
+        included) between synchronizes: seconds, peak memory, K1 launches;
+        the decoded image finite and not constant."""
+        del decoded[:]
+        before = read_launches()["flash_attention_packed"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        prepare()
+        image = pipe(*PROMPTS[seed % len(PROMPTS)], seed=seed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launched = read_launches()["flash_attention_packed"] - before
+        peak = torch.cuda.max_memory_allocated(dev)
+        z = torch.cat(decoded)
+        print(f"sd15 {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
+              f"decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
+        if launched != want:
+            raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
+        if tuple(z.shape) != (1, 3, SD15_SIZE, SD15_SIZE) or not torch.isfinite(z).all() or float(z.std()) == 0.0:
+            raise AssertionError(f"sd15 {label}: the decoded image of shape {tuple(z.shape)} is not finite or is constant")
+        if np.ptp(np.asarray(image)) == 0:
+            raise AssertionError(f"sd15 {label}: the image is constant")
+        requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
+
+    per_request = {n: SD15_LAUNCHES_PER_STEP * steps + 1 + 4 * n * steps for n in range(3)}  # n ControlNets
+
+    # (a) two LoRAs through SDLoraManager, at scales 1.0 and 0.5
+    manager = SDLoraManager(sd)
+    t0 = time.perf_counter()
+    weights = {name: _lora_weights(sd, seed, dev) for name, seed in zip(LORA_SCALES, (41, 42))}  # before any attaches
+    for name, scale in LORA_SCALES.items():
+        manager.add_loras(name, tensors=weights[name], scale=scale, unet_inclusions=["CrossAttentionBlock"])
+    torch.cuda.synchronize()
+    n_lora = len(manager.loras)
+    print(f"sd15 LoRA: {n_lora} LoRA layers of rank {LORA_RANK} ({len(manager.lora_adapters)} adapters, "
+          f"UNet and CLIP) loaded in {time.perf_counter() - t0:.2f} s")  # fmt: skip
+    if n_lora != 2 * LORA_LAYERS:
+        raise AssertionError(f"{n_lora} LoRA layers attached, not 2 × {LORA_LAYERS}")
+    manager.update_scales({name: 0.0 for name in LORA_SCALES})
+    zero, _ = step(BF16, kernel=True)
+    manager.update_scales(LORA_SCALES)
+    scaled, _ = step(BF16, kernel=True)
+    moved = _rel(scaled, base)
+    print(f"sd15 LoRA: at scale 0 the step equals the base step: {torch.equal(zero, base)}; at scales "
+          f"{LORA_SCALES} it moves rel {moved:.3e}")  # fmt: skip
+    if not torch.equal(zero, base) or not moved > 1e-3:
+        raise AssertionError(f"sd15 LoRA: scale 0 differs from the base step ({_max_abs(zero, base)}) "
+                             f"or the scales move it by only {moved}")  # fmt: skip
+    report["lora"] = {"layers": n_lora, "rank": LORA_RANK, "scaled_rel_move": moved, **gate("LoRA", SD15_LAUNCHES_PER_STEP)}
+    reset_launches()
+    request("LoRA x2", per_request[0], seed=50)
+    manager.remove_all()
+    check_base("LoRA")
+
+    # (b) one ControlNet, "canny", at scale 1.0; (c) "depth" at 0.3 under "canny" at 0.7
+    t0 = time.perf_counter()
+    canny = SD1ControlnetAdapter(sd.unet, name="canny", scale=1.0)
+    depth = SD1ControlnetAdapter(sd.unet, name="depth", scale=0.3)
+    synthesize_weights(canny.controlnet, seed=43)
+    synthesize_weights(depth.controlnet, seed=44)
+    torch.cuda.synchronize()
+    n_cn = sum(p.numel() for p in canny.controlnet.parameters())
+    print(f"sd15 ControlNet: 2 built ({n_cn} parameters each, {canny.controlnet.dtype}) in {time.perf_counter() - t0:.2f} s")
+    if n_cn != CONTROLNET_PARAMETERS:
+        raise AssertionError(f"a ControlNet has {n_cn} parameters, not {CONTROLNET_PARAMETERS}")
+
+    def set_canny() -> None:
+        canny.set_controlnet_condition(conditions["canny"])
+
+    def set_both() -> None:
+        depth.set_controlnet_condition(conditions["depth"])
+        canny.set_controlnet_condition(conditions["canny"])
+
+    canny.inject()
+    report["controlnet"] = gate("ControlNet", SD15_LAUNCHES_PER_STEP + 4, set_canny, tf32=True)
+    set_canny()
+    with torch.inference_mode():
+        x16, emb16 = x.to(BF16), emb.to(BF16)
+        report["controlnet"]["unet_step_profile"] = _profile(
+            "sd15 ControlNet: one UNet step (512², CFG batch 2, bf16, kernels)",
+            lambda: sd.predict_noise(x16, 0, clip_text_embedding=emb16), unit="step")  # fmt: skip
+    request("ControlNet canny", per_request[1], seed=51, prepare=set_canny)
+    canny.eject()
+    check_base("ControlNet")
+    depth.inject()
+    canny.scale = 0.7
+    canny.inject()
+    report["controlnet_stack"] = gate("ControlNet stack", SD15_LAUNCHES_PER_STEP + 8, set_both)
+    request("ControlNet stack depth + canny", per_request[2], seed=52, prepare=set_both)
+    canny.eject()
+    depth.eject()
+    check_base("ControlNet stack")
+    del canny, depth
+    _free()
+
+    # (d) a T2I-Adapter, "pose", at scale 0.8: its encoder runs once per condition
+    pose = SD1T2IAdapter(sd.unet, name="pose", scale=0.8)
+    synthesize_weights(pose.condition_encoder, seed=45)
+
+    def set_pose() -> None:
+        pose.condition_encoder.to(dtype=sd.unet.dtype)
+        with torch.inference_mode():
+            pose.set_condition_features(pose.compute_condition_features(conditions["pose"]))
+
+    pose.inject()
+    report["t2i_adapter"] = gate("T2I-Adapter", SD15_LAUNCHES_PER_STEP, set_pose)
+    request("T2I-Adapter pose", per_request[0], seed=53, prepare=set_pose)
+    pose.eject()
+    check_base("T2I-Adapter")
+    del pose, set_pose
+    _free()
+
+    # (e) FreeU
+    freeu = SDFreeUAdapter(sd.unet, backbone_scales=[1.2, 1.4], skip_scales=[0.9, 0.2]).inject()
+    report["freeu"] = gate("FreeU", SD15_LAUNCHES_PER_STEP)
+    request("FreeU", per_request[0], seed=54)
+    freeu.eject()
+    check_base("FreeU")
+
+    hook.remove()
+    report["requests"] = requests
+    launches = {"flash_attention_packed": sum(r["k1_launches"] for r in requests)}
+    del sd, pipe, manager, weights, freeu, decoded, base, x, emb, conditions
     _free()
     return report, launches
 
@@ -1792,7 +2049,9 @@ def main() -> int:
     train_launches, train_records = run_trainer(dev)
     sam_report, sam_launches = run_sam(dev)
     passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
-    sd15_report, sd15_launches = run_sd15(dev)
+    sd15_report, sd15_launches, sd15 = run_sd15(dev)
+    adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
+    del sd15
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -1816,7 +2075,8 @@ def main() -> int:
                                     ("SD1.5 UNet 32², d = 80", "K1 SD1.5 32²", sd15_packed["K1 SD1.5 32²"]),
                                     ("SD1.5 VAE, d = 512", "K1 SD1.5 VAE", sd15_packed["K1 SD1.5 VAE"]))
     ]  # fmt: skip
-    k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"]}
+    k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"],
+                   "sd15_adapters": adapters_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -1872,6 +2132,7 @@ def main() -> int:
         "sam": sam_report,
         "sdxl_passes": passes_report,
         "sd15": sd15_report,
+        "sd15_adapters": adapters_report,
     }
     print(json.dumps(summary))
     print(smi)

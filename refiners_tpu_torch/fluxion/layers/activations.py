@@ -24,6 +24,11 @@ class SiLU(Activation):
         return F.silu(x)
 
 
+class Sigmoid(Activation):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x)
+
+
 class GeLUApproximation(Enum):
     NONE = "none"
     TANH = "tanh"

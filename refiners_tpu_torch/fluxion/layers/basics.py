@@ -1,7 +1,7 @@
 """Basic shape/value manipulation layers.
 
 Counterpart of ``refiners_tpu/fluxion/layers/basics.py``; all stateless
-except `Parameter`.
+except `Parameter` and `Buffer`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,17 @@ from refiners_tpu_torch.fluxion.layers.module import Module, WeightedModule
 class Identity(Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+
+class GetArg(Module):
+    """Return the n-th positional argument."""
+
+    def __init__(self, index: int) -> None:
+        super().__init__()
+        self.index = index
+
+    def forward(self, *args: Any) -> Any:
+        return args[self.index]
 
 
 class Flatten(Module):
@@ -143,3 +154,18 @@ class Parameter(WeightedModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.weight.expand(x.shape[0], *self.dims)
+
+
+class Buffer(WeightedModule):
+    """A non-learnable tensor returned whatever the input: a persistent
+    buffer, so it keeps its place in ``state_dict()``."""
+
+    weight: torch.Tensor  # type: ignore[assignment]
+
+    def __init__(self, *dims: int, device: Any = None, dtype: Any = None) -> None:
+        super().__init__()
+        self.dims = dims
+        self.register_buffer("weight", torch.zeros(dims, device=device, dtype=dtype or torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.weight

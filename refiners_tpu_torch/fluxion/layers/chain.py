@@ -135,7 +135,7 @@ class Chain(ContextModule):
     def _call_layer(self, layer: Module, name: str, /, *args: Any) -> Any:
         try:
             return layer(*args)
-        except ChainError:
+        except (ChainError, ReturnException):
             raise
         except Exception as e:
             message = (
@@ -258,6 +258,13 @@ class Chain(ContextModule):
         if isinstance(module, ContextModule):
             module._set_parent(self)
         self._register_provider()
+
+    def insert_before_type(self, module_type: type[Module], new_module: Module) -> None:
+        for i, module in enumerate(self):
+            if isinstance(module, module_type):
+                self.insert(i, new_module)
+                return
+        raise ValueError(f"No module of type {module_type.__name__} found in the chain.")
 
     def insert_after_type(self, module_type: type[Module], new_module: Module) -> None:
         for i, module in enumerate(self):
@@ -446,3 +453,35 @@ class Matmul(Chain):
         self._reset_context()
         dtype = torch.promote_types(a.dtype, b.dtype)
         return torch.matmul(a.to(dtype), b.to(dtype))
+
+
+class ReturnException(Exception):
+    """Carries the value of a `Return` out of the chains that enclose it."""
+
+    def __init__(self, value: Any):
+        self.value = value
+
+
+class Return(Module):
+    """Raise ReturnException carrying the input."""
+
+    def forward(self, *args: Any) -> Any:
+        raise ReturnException(args[0] if len(args) == 1 else args)
+
+
+class Breakpoint(ContextModule):
+    """Drop into the debugger at this point in the chain (``vscode=True``:
+    debugpy's breakpoint instead of pdb's)."""
+
+    def __init__(self, vscode: bool = False):
+        super().__init__()
+        self.vscode = vscode
+
+    def forward(self, *args: Any) -> Any:
+        if self.vscode:
+            import debugpy  # type: ignore
+
+            debugpy.breakpoint()
+        else:
+            breakpoint()
+        return args[0] if len(args) == 1 else args

@@ -12,7 +12,7 @@ from typing import Any
 import torch
 
 from refiners_tpu_torch.fluxion import rng
-from refiners_tpu_torch.fluxion.layers.module import WeightedModule
+from refiners_tpu_torch.fluxion.layers.module import Module, WeightedModule
 
 
 def _normalize(x32: torch.Tensor, dims: tuple[int, ...], eps: float) -> torch.Tensor:
@@ -76,3 +76,15 @@ class LayerNorm2d(WeightedModule):
         y = _normalize(x.float(), (1,), self.eps)
         affine = (-1,) + (1,) * (x.ndim - 2)
         return (y * self.weight.float().reshape(affine) + self.bias.float().reshape(affine)).to(x.dtype)
+
+
+class InstanceNorm2d(Module):
+    """Instance norm over the spatial dims of (N, C, H, W), no affine."""
+
+    def __init__(self, channels: int, eps: float = 1e-05, device: Any = None, dtype: Any = None) -> None:
+        super().__init__()
+        self.channels = channels
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _normalize(x.float(), tuple(range(2, x.ndim)), self.eps).to(x.dtype)

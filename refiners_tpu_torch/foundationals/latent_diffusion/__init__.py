@@ -1,4 +1,6 @@
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
+from refiners_tpu_torch.foundationals.latent_diffusion.freeu import SDFreeUAdapter
+from refiners_tpu_torch.foundationals.latent_diffusion.lora import SDLoraManager
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import (
     DDIM,
@@ -15,7 +17,10 @@ from refiners_tpu_torch.foundationals.latent_diffusion.solvers import (
     TimestepSpacing,
 )
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import (
+    Controlnet,
     SD1Autoencoder,
+    SD1ControlnetAdapter,
+    SD1T2IAdapter,
     SD1UNet,
     StableDiffusion_1,
     StableDiffusion_1_Inpainting,
@@ -26,9 +31,11 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl impor
     SDXLUNet,
     StableDiffusion_XL,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import T2IAdapter, T2IFeatures
 
 __all__ = [
     "BaseSolverParams",
+    "Controlnet",
     "DDIM",
     "DDPM",
     "DPMSolver",
@@ -41,7 +48,11 @@ __all__ = [
     "ModelPredictionType",
     "NoiseSchedule",
     "SD1Autoencoder",
+    "SD1ControlnetAdapter",
+    "SD1T2IAdapter",
     "SD1UNet",
+    "SDFreeUAdapter",
+    "SDLoraManager",
     "SDXLAutoencoder",
     "SDXLUNet",
     "Solver",
@@ -49,5 +60,7 @@ __all__ = [
     "StableDiffusion_1",
     "StableDiffusion_1_Inpainting",
     "StableDiffusion_XL",
+    "T2IAdapter",
+    "T2IFeatures",
     "TimestepSpacing",
 ]

@@ -70,3 +70,16 @@ class RangeAdapter2d(fl.Sum, Adapter[fl.Conv2d]):
                     fl.Reshape(channels, 1, 1),
                 ),
             )
+
+    @property
+    def context_key(self) -> str:
+        """The key of the "range_adapter" context this adapter reads its embedding from."""
+        use_context_module = self.ensure_find(fl.UseContext)
+        assert use_context_module.context == "range_adapter"
+        return use_context_module.key
+
+    @context_key.setter
+    def context_key(self, value: str) -> None:
+        use_context_module = self.ensure_find(fl.UseContext)
+        assert use_context_module.context == "range_adapter"
+        use_context_module.key = value

@@ -1,8 +1,21 @@
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.controlnet import (
+    Controlnet,
+    SD1ControlnetAdapter,
+)
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.model import (
     SD1Autoencoder,
     StableDiffusion_1,
     StableDiffusion_1_Inpainting,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.t2i_adapter import SD1T2IAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.unet import SD1UNet
 
-__all__ = ["SD1Autoencoder", "SD1UNet", "StableDiffusion_1", "StableDiffusion_1_Inpainting"]
+__all__ = [
+    "Controlnet",
+    "SD1Autoencoder",
+    "SD1ControlnetAdapter",
+    "SD1T2IAdapter",
+    "SD1UNet",
+    "StableDiffusion_1",
+    "StableDiffusion_1_Inpainting",
+]

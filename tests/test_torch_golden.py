@@ -5,7 +5,9 @@ models from a seed (`tests/e2e/golden_cfg.py`), run fixed prompts and noise
 and hold the image to a committed PNG. Here the same JAX models are built,
 their weights bridged into the port on the CPU, and the same prompts, noise
 and steps run through the port, in the JAX tests' envelope: PSNR ≥ 35,
-SSIM ≥ 0.98, DINOv2 cosine ≥ 0.99.
+SSIM ≥ 0.98, DINOv2 cosine ≥ 0.99. The zoo goldens run full-width SD1.5
+with the text encoder stubbed (the embeddings given), the adapters injected
+in the port as in `golden_cfg`, so that the state dict keys line up.
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ from refiners_tpu_torch.foundationals.latent_diffusion import (
     StableDiffusion_1,
     StableDiffusion_XL,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion import (
+    SD1ControlnetAdapter,
+    SD1T2IAdapter,
+    SDFreeUAdapter,
+)
+from tests.e2e import golden_cfg
 from tests.e2e.golden_cfg import GOLDEN_DIR, build_sd15_full, build_sd15_reduced, build_sdxl_full, to_pil
 from tests.utils import ensure_similar_images
 
@@ -105,3 +113,78 @@ def test_sdxl_full_30step_golden() -> None:
         )  # fmt: skip
         image = port.lda.decode(z)
     _check("sdxl_full_30step_256", image)
+
+
+def _sd15_stub_clip() -> StableDiffusion_1:
+    """`golden_cfg._sd15_stub_clip` in the port: full-width SD1.5, 10 DDIM steps, no text encoder."""
+    return StableDiffusion_1(solver=DDIM(num_inference_steps=10), clip_text_encoder=fl.Chain(fl.Identity()), device="cpu")
+
+
+def _traj(sd: StableDiffusion_1, noise_seed: int = 50, emb_seed: int = 51) -> torch.Tensor:
+    """`golden_cfg._traj` through the port: 16×16 latents, CFG 7.5, step by step, then the decode."""
+    noise = np.random.RandomState(noise_seed).randn(1, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)
+    emb = torch.tensor(np.random.RandomState(emb_seed).randn(2, 77, 768).astype(np.float32))
+    x = torch.tensor(nhwc_to_nchw(noise))
+    with torch.inference_mode():
+        for step in sd.steps:
+            x = sd(x, step, clip_text_embedding=emb, condition_scale=7.5)
+        return sd.lda.decode(x)
+
+
+def _condition(rs: np.random.RandomState) -> torch.Tensor:
+    return torch.tensor(nhwc_to_nchw(rs.rand(1, 128, 128, 3).astype(np.float32)))
+
+
+@pytest.mark.slow
+def test_controlnet_10step_golden() -> None:
+    """`build_controlnet`: one ControlNet, "canny", scale 1.0."""
+    port = _sd15_stub_clip()
+    adapter = SD1ControlnetAdapter(port.unet, name="canny").inject()
+    jax_sd, _ = golden_cfg.build_controlnet()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    adapter.set_controlnet_condition(_condition(np.random.RandomState(52)))
+    _check("controlnet_10step_128", _traj(port))
+
+
+@pytest.mark.slow
+def test_controlnet_stack_10step_golden() -> None:
+    """`build_controlnet_stack`: "depth" at 0.3 injected first, then "canny" at 0.7."""
+    port = _sd15_stub_clip()
+    depth = SD1ControlnetAdapter(port.unet, name="depth", scale=0.3).inject()
+    canny = SD1ControlnetAdapter(port.unet, name="canny", scale=0.7).inject()
+    jax_sd, _, _ = golden_cfg.build_controlnet_stack()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    rs = np.random.RandomState(78)
+    depth.set_controlnet_condition(_condition(rs))
+    canny.set_controlnet_condition(_condition(rs))
+    _check("controlnet_stack_10step_128", _traj(port, noise_seed=79, emb_seed=80))
+
+
+@pytest.mark.slow
+def test_t2i_adapter_10step_golden() -> None:
+    """`build_t2i_adapter`: "pose" at 0.8; its condition encoder bridged apart (not a module of the UNet)."""
+    port = _sd15_stub_clip()
+    adapter = SD1T2IAdapter(port.unet, name="pose", scale=0.8).inject()
+    jax_sd, jax_adapter = golden_cfg.build_t2i_adapter()
+    _bridge(port, jax_sd)
+    load_jax_state_dict(adapter.condition_encoder,
+                        {k: np.asarray(v) for k, v in jax_adapter.condition_encoder.state_dict().items()})  # fmt: skip
+    del jax_sd, jax_adapter
+    gc.collect()
+    with torch.inference_mode():
+        adapter.set_condition_features(adapter.compute_condition_features(_condition(np.random.RandomState(54))))
+    _check("t2i_adapter_10step_128", _traj(port))
+
+
+@pytest.mark.slow
+def test_freeu_10step_golden() -> None:
+    """`build_freeu`: backbone scales (1.2, 1.4), skip scales (0.9, 0.2)."""
+    port = _sd15_stub_clip()
+    SDFreeUAdapter(port.unet, backbone_scales=[1.2, 1.4], skip_scales=[0.9, 0.2]).inject()
+    _bridge(port, golden_cfg.build_freeu())
+    gc.collect()
+    _check("freeu_10step_128", _traj(port))
