@@ -18,7 +18,9 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    - the packed forward (``flash_attention_packed``) at the SDXL path's
      shapes (the UNet's d = 64 on the narrow wgmma kernel, the VAE's
      d = 512 on the wide one), at SD1.5's inference shapes (the UNet's
-     d = 40 and d = 80, no lse; the VAE's d = 512 at 64×64 latents)
+     d = 40 and d = 80, no lse; the VAE's d = 512 at 64×64 latents), at
+     phase 9's sites with keys twice as long as the queries (StyleAligned
+     at batch 4, reference-only at batch 2, d = 40 and d = 80)
      plus ragged, causal, d = 80, d = 128,
      d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
      against the plain version in float32; uniform weights on causal rows
@@ -154,10 +156,31 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    scales move it. With the ControlNet, the float32 reference step is also
    taken once under PyTorch's default (cuDNN TF32 on) and its distance
    from the TF32-off step printed (no gate), and one bf16 step is traced.
+9. SD1.5 with guidance and image prompts: phase 7's model, one request
+   for each adapter set, injected before it and ejected after it: (a)
+   self-attention guidance at 0.75 (through ``TextToImage``); (b)
+   StyleAligned at 0.8 on two prompts in one batch; (c) reference-only
+   control (style_cfg 0.5) on a seeded 512² guide image, encoded once and
+   noised to each step; (d) Restart (10 timesteps, 2 iterations) on DDIM
+   30 steps; (e) IP-Adapter with a full-width ``CLIPImageEncoderH`` on a
+   seeded 512² image; (f) IP-Adapter plus (the same encoder's grid
+   features, a perceiver resampler); (g) a textual-inversion concept on
+   CLIP-L. For each: one CFG UNet step three ways, gated as in phase 8 (K1
+   launches 20, 10, 30, 10, 10, 10, 10; SAG's routes all take the float32
+   step's mask, and the pixels each route's own mask would flip are
+   printed); the request's seconds, peak memory and K1 launches (601,
+   301, 902, 481, 301, 301, 301), every image finite and not constant;
+   after the eject the base step bit-equal to the one before the first
+   injection. Also: StyleAligned's reference sample in float32 against
+   the bare step (printed); the guide UNet adds no parameters and at most
+   1 MiB of device memory; IP-Adapter at scale 0 bit-equal to the base
+   step; the text embedding bit-equal after the concept's eject; one
+   reference-only step traced (device time by kind, idle share, K1's
+   share).
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6, 7b and 8b, each with the counts set to 0 just before
-it; K1's over phases 3, 7b and 8b, by path), the
+phases 3, 4b, 5b, 6, 7b, 8b and 9b, each with the counts set to 0 just
+before it; K1's over phases 3, 7b, 8b and 9b, by path), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -215,12 +238,21 @@ ATTENTION_SHAPES = [
     (1, 4096, 4096, 1, 512, False, torch.float16),  # a float16 VAE mid-block at 64×64 latents
     (2, 1024, 1024, 8, 80, False, BF16),  # SD1.5 self-attention at 32×32 latents, inference
     (1, 4096, 4096, 1, 512, False, BF16),  # SD1.5 VAE mid-block at 64×64 latents
+    # keys twice as long as the queries (the reference's or the guide's appended): at 64×64 latents
+    (4, 4096, 8192, 8, 40, False, BF16),  # StyleAligned, 2 images (CFG batch 4), the 64² sites
+    (4, 1024, 2048, 8, 80, False, BF16),  # StyleAligned, the 32² sites
+    (2, 4096, 8192, 8, 40, False, BF16),  # reference-only's guided self-attention, the 64² sites
+    (2, 1024, 2048, 8, 80, False, BF16),  # reference-only, the 32² sites
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
 # K1's SD1.5 inference sites: 5 + 5 launches per UNet call, one VAE launch per encode or decode
 SD15_SHAPES = {"K1 SD1.5 64²": [2, 4096, 4096, 8, 40], "K1 SD1.5 32²": [2, 1024, 1024, 8, 80],
                "K1 SD1.5 VAE": [1, 4096, 4096, 1, 512]}  # fmt: skip
+# K1 at phase 9's sites with Lk = 2·Lq: 5 + 5 launches per UNet call of StyleAligned, and of
+# reference-only's guided pass (its guide and unguided passes run at Lk = Lq)
+SD15_ZOO_SHAPES = {"K1 StyleAligned 64²": [4, 4096, 8192, 8, 40], "K1 StyleAligned 32²": [4, 1024, 2048, 8, 80],
+                   "K1 ref-only 64²": [2, 4096, 8192, 8, 40], "K1 ref-only 32²": [2, 1024, 2048, 8, 80]}  # fmt: skip
 TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
@@ -305,6 +337,10 @@ LORA_RANK = 32
 LORA_SCALES = {"style": 1.0, "detail": 0.5}  # the two LoRAs of phase 8's first request
 LORA_LAYERS = 16 * 10 + 12 * 6  # Linears of the UNet's 16 transformer blocks and of CLIP-L's 12 layers
 CONTROLNET_PARAMETERS = 361_279_120
+VIT_H_PARAMETERS = 632_076_800  # CLIPImageEncoderH, IP-Adapter's image encoder
+SAG_SCALE = 0.75  # the golden's (tests/e2e/golden_cfg.py, build_sag)
+ZOO_CONCEPT = "<zoo-style>"  # phase 9's textual-inversion token
+ZOO_PROMPT = f"a cute cat sitting on a windowsill, in the style of {ZOO_CONCEPT}"
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -689,16 +725,17 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     # K1: packed (B, L, H·D) at the SDXL UNet's 64×64 and 32×32
     # self-attention, and at the VAE decoder's mid-block (one head of d = 512
     # over 128×128 latents)
-    sites = [("K1", (2, 4096, 10, 64)), ("K1 32²", (2, 1024, 20, 64)), ("K1 VAE", (1, 16384, 1, 512))]
-    sites += [(label, (b, seq, h, d)) for label, (b, seq, _, h, d) in SD15_SHAPES.items()]
-    for label, (b, seq, h, d) in sites:
-        q, k, v = randn(b, seq, h * d), randn(b, seq, h * d), randn(b, seq, h * d)
-        heads = lambda t: t.view(b, seq, h, d).transpose(1, 2)  # noqa: E731
+    sites = [("K1", (2, 4096, 4096, 10, 64)), ("K1 32²", (2, 1024, 1024, 20, 64)), ("K1 VAE", (1, 16384, 16384, 1, 512))]
+    sites += [(label, tuple(shape)) for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES}.items()]
+    for label, (b, lq, lk, h, d) in sites:
+        q, k, v = randn(b, lq, h * d), randn(b, lk, h * d), randn(b, lk, h * d)
+        heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
         library = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
         rows[label] = {
-            **_bound(4 * b * h * seq * seq * d, 4 * b * seq * h * d * 2, BF16),
+            # q, k, v read once and the output written once
+            **_bound(4 * b * h * lq * lk * d, 2 * b * (lq + lk) * h * d * 2, BF16),
             "library_ms": _time_ms(library, reps=10),
-            "library_call": f"F.scaled_dot_product_attention on the {(b, h, seq, d)} head views",
+            "library_call": f"F.scaled_dot_product_attention on the {(b, h, lq, d)} query and {(b, h, lk, d)} key views",
             "cuda_kernel": fa.forward_kernel(BF16, d),
         }
         if label != "K1 VAE":
@@ -1765,13 +1802,112 @@ def _lora_weights(sd: Any, seed: int, dev: torch.device) -> dict[str, torch.Tens
     return tensors
 
 
+class AdaptedServing:
+    """Phases 8 and 9: phase 7's bf16 SD1.5 with adapter sets injected in
+    turn. One CFG UNet step (at step 0 of the model's solver) three ways,
+    gated; after each eject the bare step, which must equal the one taken
+    before the first injection bit for bit; and requests, each between
+    synchronizes with its seconds, peak memory and K1 launches (counted
+    from 0), every image it decodes finite and not constant."""
+
+    def __init__(self, dev: torch.device, sd: Any, x: torch.Tensor, emb: torch.Tensor) -> None:
+        self.dev, self.sd, self.x, self.emb = dev, sd, x, emb
+        self.decoded: list[torch.Tensor] = []
+        self.hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: self.decoded.append(out.float()))
+        self.requests: list[dict[str, Any]] = []
+        self.base, _ = self.step(BF16, kernel=True)
+
+    def step(self, dtype: torch.dtype, kernel: bool, prepare: Callable[[], None] = lambda: None,
+             inputs: tuple[torch.Tensor, torch.Tensor] | None = None) -> tuple[torch.Tensor, int]:  # fmt: skip
+        """One CFG UNet step in `dtype`, through the kernels or on the plain
+        path; `prepare` sets the adapters' inputs in the UNet's dtype;
+        `inputs` (latents, text embedding) replace the default ones."""
+        import refiners_tpu_torch.fluxion.layers as fl
+
+        self.sd.unet.to(dtype=dtype)
+        for layer in self.sd.unet.layers(fl.ScaledDotProductAttention, recurse=True):
+            layer.is_optimized = kernel
+        prepare()
+        latents, embedding = inputs if inputs is not None else (self.x, self.emb)
+        with torch.inference_mode():
+            reset_launches()
+            noise = self.sd.predict_noise(latents.to(dtype), 0, clip_text_embedding=embedding.to(dtype),
+                                          condition_scale=7.5)  # fmt: skip
+            torch.cuda.synchronize()
+        return noise.float(), read_launches()["flash_attention_packed"]
+
+    def gate(self, label: str, want: int, prepare: Callable[[], None] = lambda: None,
+             inputs: tuple[torch.Tensor, torch.Tensor] | None = None, tf32: bool = False) -> dict[str, Any]:  # fmt: skip
+        """The adapted step three ways, held as phase 7 holds the bare one:
+        the bf16 kernel route at most twice as far from float32 (TF32 off)
+        as the bf16 plain route, and exactly `want` K1 launches (0 plain)."""
+        reference, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs)
+        out: dict[str, Any] = {}
+        if tf32:
+            # PyTorch's default float32 on the card: cuDNN convolutions in TF32, matmuls exact
+            torch.backends.cudnn.allow_tf32 = True
+            reference_tf32, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs)
+            torch.backends.cudnn.allow_tf32 = False
+            out["f32_tf32_default_rel_err"] = _rel(reference_tf32, reference)
+            print(f"sd15 {label}: float32 step under PyTorch's default (cudnn.allow_tf32=True) vs TF32 off: "
+                  f"rel_err={out['f32_tf32_default_rel_err']:.3e}")  # fmt: skip
+            del reference_tf32
+        plain, plain_launches = self.step(BF16, kernel=False, prepare=prepare, inputs=inputs)
+        kernels, launches = self.step(BF16, kernel=True, prepare=prepare, inputs=inputs)
+        err_kernel, err_plain = _rel(kernels, reference), _rel(plain, reference)
+        print(f"sd15 {label}: one UNet step vs float32 reference: kernel route rel_err={err_kernel:.3e}, plain bf16 "
+              f"route rel_err={err_plain:.3e}; K1 launches {launches} (plain route {plain_launches})")  # fmt: skip
+        if not (torch.isfinite(kernels).all() and err_kernel <= 2 * err_plain):
+            raise AssertionError(f"sd15 {label}: the kernel route is further from float32 than the plain route: "
+                                 f"{err_kernel} > 2 × {err_plain}")  # fmt: skip
+        if (launches, plain_launches) != (want, 0):
+            raise AssertionError(f"sd15 {label}: one UNet step launched K1 {launches} times (plain route "
+                                 f"{plain_launches}), not {want} (0)")  # fmt: skip
+        return {**out, "bf16_kernels": err_kernel, "bf16_plain": err_plain, "step_launches": launches}
+
+    def check_base(self, label: str) -> None:
+        """After an eject, the bare UNet's step is the one taken before the
+        first injection, bit for bit: the same modules, weights and inputs
+        run the same (deterministic) forward kernels."""
+        again, _ = self.step(BF16, kernel=True)
+        if not torch.equal(again, self.base):
+            raise AssertionError(f"sd15 {label}: after eject the base step moved, max abs {_max_abs(again, self.base)}")
+        print(f"sd15 {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
+
+    def request(self, label: str, want: int, fn: Callable[[], Any]) -> None:
+        """One request, `fn` (its per-request conditions included)."""
+        del self.decoded[:]
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launched = read_launches()["flash_attention_packed"]
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        images = out if isinstance(out, list) else [out]
+        z = torch.cat(self.decoded)
+        print(f"sd15 {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
+              f"{len(images)} image(s), decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
+        if launched != want:
+            raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
+        if tuple(z.shape) != (len(images), 3, SD15_SIZE, SD15_SIZE) or not torch.isfinite(z).all():
+            raise AssertionError(f"sd15 {label}: decoded images of shape {tuple(z.shape)} are not finite")
+        if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
+            raise AssertionError(f"sd15 {label}: an image is constant")
+        self.requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
+
+    def close(self) -> tuple[list[dict[str, Any]], dict[str, int]]:
+        """The requests, and the path's K1 launches (the requests' own)."""
+        self.hook.remove()
+        return self.requests, {"flash_attention_packed": sum(r["k1_launches"] for r in self.requests)}
+
+
 def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
     """Phase 7's bf16 SD1.5 with, in turn: two LoRAs, one ControlNet, a stack
     of two, a T2I-Adapter and FreeU, each injected before its request and
-    ejected after it. For each: one CFG UNet step three ways (the 2× gate),
-    one request with its K1 launches counted, then one base step, which must
-    equal the step taken before the first injection bit for bit."""
-    import refiners_tpu_torch.fluxion.layers as fl
+    ejected after it (`AdaptedServing`)."""
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
     from refiners_tpu_torch.foundationals.latent_diffusion import (
         SD1ControlnetAdapter,
@@ -1789,88 +1925,18 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
                   for name in ("canny", "depth", "pose")}  # fmt: skip
     with torch.inference_mode():
         emb = sd.compute_clip_text_embedding(*PROMPTS[0])
+    serving = AdaptedServing(dev, sd, x, emb)
     report: dict[str, Any] = {}
-
-    def step(dtype: torch.dtype, kernel: bool, prepare: Callable[[], None] = lambda: None) -> tuple[torch.Tensor, int]:
-        """One CFG UNet step in `dtype`, through the kernels or on the plain
-        path; `prepare` sets the adapters' conditions in the UNet's dtype."""
-        sd.unet.to(dtype=dtype)
-        for layer in sd.unet.layers(fl.ScaledDotProductAttention, recurse=True):
-            layer.is_optimized = kernel
-        prepare()
-        with torch.inference_mode():
-            reset_launches()
-            noise = sd.predict_noise(x.to(dtype), 0, clip_text_embedding=emb.to(dtype), condition_scale=7.5)
-            torch.cuda.synchronize()
-        return noise.float(), read_launches()["flash_attention_packed"]
-
-    def gate(label: str, want: int, prepare: Callable[[], None] = lambda: None, tf32: bool = False) -> dict[str, Any]:
-        """The adapted step three ways, held as phase 7 holds the bare one."""
-        reference, _ = step(F32, kernel=False, prepare=prepare)
-        out: dict[str, Any] = {}
-        if tf32:
-            # PyTorch's default float32 on the card: cuDNN convolutions in TF32, matmuls exact
-            torch.backends.cudnn.allow_tf32 = True
-            reference_tf32, _ = step(F32, kernel=False, prepare=prepare)
-            torch.backends.cudnn.allow_tf32 = False
-            out["f32_tf32_default_rel_err"] = _rel(reference_tf32, reference)
-            print(f"sd15 {label}: float32 step under PyTorch's default (cudnn.allow_tf32=True) vs TF32 off: "
-                  f"rel_err={out['f32_tf32_default_rel_err']:.3e}")  # fmt: skip
-            del reference_tf32
-        plain, plain_launches = step(BF16, kernel=False, prepare=prepare)
-        kernels, launches = step(BF16, kernel=True, prepare=prepare)
-        err_kernel, err_plain = _rel(kernels, reference), _rel(plain, reference)
-        print(f"sd15 {label}: one UNet step vs float32 reference: kernel route rel_err={err_kernel:.3e}, plain bf16 "
-              f"route rel_err={err_plain:.3e}; K1 launches {launches} (plain route {plain_launches})")  # fmt: skip
-        if not (torch.isfinite(kernels).all() and err_kernel <= 2 * err_plain):
-            raise AssertionError(f"sd15 {label}: the kernel route is further from float32 than the plain route: "
-                                 f"{err_kernel} > 2 × {err_plain}")  # fmt: skip
-        if (launches, plain_launches) != (want, 0):
-            raise AssertionError(f"sd15 {label}: one UNet step launched K1 {launches} times (plain route "
-                                 f"{plain_launches}), not {want} (0)")  # fmt: skip
-        return {**out, "bf16_kernels": err_kernel, "bf16_plain": err_plain, "step_launches": launches}
-
-    base, _ = step(BF16, kernel=True)
-
-    def check_base(label: str) -> None:
-        """After an eject, the bare UNet's step is the one taken before the
-        first injection, bit for bit: the same modules, weights and inputs
-        run the same (deterministic) forward kernels."""
-        again, _ = step(BF16, kernel=True)
-        if not torch.equal(again, base):
-            raise AssertionError(f"sd15 {label}: after eject the base step moved, max abs {_max_abs(again, base)}")
-        print(f"sd15 {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
-
-    decoded: list[torch.Tensor] = []
-    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out.float()))
     pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
-    requests: list[dict[str, Any]] = []
 
-    def request(label: str, want: int, seed: int, prepare: Callable[[], None] = lambda: None) -> None:
-        """One text-to-image request (`prepare`, the per-request condition,
-        included) between synchronizes: seconds, peak memory, K1 launches;
-        the decoded image finite and not constant."""
-        del decoded[:]
-        before = read_launches()["flash_attention_packed"]
-        torch.cuda.reset_peak_memory_stats(dev)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        prepare()
-        image = pipe(*PROMPTS[seed % len(PROMPTS)], seed=seed)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        launched = read_launches()["flash_attention_packed"] - before
-        peak = torch.cuda.max_memory_allocated(dev)
-        z = torch.cat(decoded)
-        print(f"sd15 {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
-              f"decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
-        if launched != want:
-            raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
-        if tuple(z.shape) != (1, 3, SD15_SIZE, SD15_SIZE) or not torch.isfinite(z).all() or float(z.std()) == 0.0:
-            raise AssertionError(f"sd15 {label}: the decoded image of shape {tuple(z.shape)} is not finite or is constant")
-        if np.ptp(np.asarray(image)) == 0:
-            raise AssertionError(f"sd15 {label}: the image is constant")
-        requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
+    def served(seed: int, prepare: Callable[[], None] = lambda: None) -> Callable[[], Any]:
+        """A text-to-image request, `prepare` (the per-request condition) included."""
+
+        def run() -> Any:
+            prepare()
+            return pipe(*PROMPTS[seed % len(PROMPTS)], seed=seed)
+
+        return run
 
     per_request = {n: SD15_LAUNCHES_PER_STEP * steps + 1 + 4 * n * steps for n in range(3)}  # n ControlNets
 
@@ -1887,20 +1953,20 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
     if n_lora != 2 * LORA_LAYERS:
         raise AssertionError(f"{n_lora} LoRA layers attached, not 2 × {LORA_LAYERS}")
     manager.update_scales({name: 0.0 for name in LORA_SCALES})
-    zero, _ = step(BF16, kernel=True)
+    zero, _ = serving.step(BF16, kernel=True)
     manager.update_scales(LORA_SCALES)
-    scaled, _ = step(BF16, kernel=True)
-    moved = _rel(scaled, base)
-    print(f"sd15 LoRA: at scale 0 the step equals the base step: {torch.equal(zero, base)}; at scales "
+    scaled, _ = serving.step(BF16, kernel=True)
+    moved = _rel(scaled, serving.base)
+    print(f"sd15 LoRA: at scale 0 the step equals the base step: {torch.equal(zero, serving.base)}; at scales "
           f"{LORA_SCALES} it moves rel {moved:.3e}")  # fmt: skip
-    if not torch.equal(zero, base) or not moved > 1e-3:
-        raise AssertionError(f"sd15 LoRA: scale 0 differs from the base step ({_max_abs(zero, base)}) "
+    if not torch.equal(zero, serving.base) or not moved > 1e-3:
+        raise AssertionError(f"sd15 LoRA: scale 0 differs from the base step ({_max_abs(zero, serving.base)}) "
                              f"or the scales move it by only {moved}")  # fmt: skip
-    report["lora"] = {"layers": n_lora, "rank": LORA_RANK, "scaled_rel_move": moved, **gate("LoRA", SD15_LAUNCHES_PER_STEP)}
-    reset_launches()
-    request("LoRA x2", per_request[0], seed=50)
+    report["lora"] = {"layers": n_lora, "rank": LORA_RANK, "scaled_rel_move": moved,
+                      **serving.gate("LoRA", SD15_LAUNCHES_PER_STEP)}  # fmt: skip
+    serving.request("LoRA x2", per_request[0], served(50))
     manager.remove_all()
-    check_base("LoRA")
+    serving.check_base("LoRA")
 
     # (b) one ControlNet, "canny", at scale 1.0; (c) "depth" at 0.3 under "canny" at 0.7
     t0 = time.perf_counter()
@@ -1922,24 +1988,24 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
         canny.set_controlnet_condition(conditions["canny"])
 
     canny.inject()
-    report["controlnet"] = gate("ControlNet", SD15_LAUNCHES_PER_STEP + 4, set_canny, tf32=True)
+    report["controlnet"] = serving.gate("ControlNet", SD15_LAUNCHES_PER_STEP + 4, set_canny, tf32=True)
     set_canny()
     with torch.inference_mode():
         x16, emb16 = x.to(BF16), emb.to(BF16)
         report["controlnet"]["unet_step_profile"] = _profile(
             "sd15 ControlNet: one UNet step (512², CFG batch 2, bf16, kernels)",
             lambda: sd.predict_noise(x16, 0, clip_text_embedding=emb16), unit="step")  # fmt: skip
-    request("ControlNet canny", per_request[1], seed=51, prepare=set_canny)
+    serving.request("ControlNet canny", per_request[1], served(51, set_canny))
     canny.eject()
-    check_base("ControlNet")
+    serving.check_base("ControlNet")
     depth.inject()
     canny.scale = 0.7
     canny.inject()
-    report["controlnet_stack"] = gate("ControlNet stack", SD15_LAUNCHES_PER_STEP + 8, set_both)
-    request("ControlNet stack depth + canny", per_request[2], seed=52, prepare=set_both)
+    report["controlnet_stack"] = serving.gate("ControlNet stack", SD15_LAUNCHES_PER_STEP + 8, set_both)
+    serving.request("ControlNet stack depth + canny", per_request[2], served(52, set_both))
     canny.eject()
     depth.eject()
-    check_base("ControlNet stack")
+    serving.check_base("ControlNet stack")
     del canny, depth
     _free()
 
@@ -1953,24 +2019,278 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
             pose.set_condition_features(pose.compute_condition_features(conditions["pose"]))
 
     pose.inject()
-    report["t2i_adapter"] = gate("T2I-Adapter", SD15_LAUNCHES_PER_STEP, set_pose)
-    request("T2I-Adapter pose", per_request[0], seed=53, prepare=set_pose)
+    report["t2i_adapter"] = serving.gate("T2I-Adapter", SD15_LAUNCHES_PER_STEP, set_pose)
+    serving.request("T2I-Adapter pose", per_request[0], served(53, set_pose))
     pose.eject()
-    check_base("T2I-Adapter")
+    serving.check_base("T2I-Adapter")
     del pose, set_pose
     _free()
 
     # (e) FreeU
     freeu = SDFreeUAdapter(sd.unet, backbone_scales=[1.2, 1.4], skip_scales=[0.9, 0.2]).inject()
-    report["freeu"] = gate("FreeU", SD15_LAUNCHES_PER_STEP)
-    request("FreeU", per_request[0], seed=54)
+    report["freeu"] = serving.gate("FreeU", SD15_LAUNCHES_PER_STEP)
+    serving.request("FreeU", per_request[0], served(54))
     freeu.eject()
-    check_base("FreeU")
+    serving.check_base("FreeU")
 
-    hook.remove()
-    report["requests"] = requests
-    launches = {"flash_attention_packed": sum(r["k1_launches"] for r in requests)}
-    del sd, pipe, manager, weights, freeu, decoded, base, x, emb, conditions
+    report["requests"], launches = serving.close()
+    del pipe, manager, weights, freeu, serving, x, emb, conditions
+    _free()
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: SD1.5 with guidance and image prompts
+# ---------------------------------------------------------------------------
+
+
+def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 7's bf16 SD1.5 with, in turn: self-attention guidance,
+    StyleAligned, reference-only control, Restart, IP-Adapter, IP-Adapter
+    plus and a textual-inversion concept, each injected before its request
+    and ejected after it (`AdaptedServing`)."""
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights, tensor_to_images
+    from refiners_tpu_torch.foundationals.clip import ConceptExtender
+    from refiners_tpu_torch.foundationals.latent_diffusion import (
+        DDIM,
+        ReferenceOnlyControlAdapter,
+        Restart,
+        SD1IPAdapter,
+        StyleAlignedAdapter,
+    )
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    steps = sd.solver.num_inference_steps
+    per_call = SD15_LAUNCHES_PER_STEP
+    latent = SD15_SIZE // 8
+    gen = torch.Generator(dev).manual_seed(60)
+    x = torch.randn((1, 4, latent, latent), generator=gen, device=dev)
+    x2 = torch.randn((2, 4, latent, latent), generator=gen, device=dev)
+    guide_noise = torch.randn((2, 4, latent, latent), generator=gen, device=dev)
+    concept = torch.randn(768, generator=gen, device=dev) * 768**-0.5  # rows of the synthetic token table have norm ≈ 1
+    guide_image, prompt_image = (
+        Image.fromarray((np.random.RandomState(seed).rand(SD15_SIZE, SD15_SIZE, 3) * 255).astype(np.uint8))
+        for seed in (61, 62)
+    )
+    pair_prompts = ([PROMPTS[0][0], PROMPTS[1][0]], [PROMPTS[0][1], PROMPTS[1][1]])  # the first is StyleAligned's reference
+    with torch.inference_mode():
+        emb = sd.compute_clip_text_embedding(*PROMPTS[0])
+        emb2 = sd.compute_clip_text_embedding(*pair_prompts)
+    serving = AdaptedServing(dev, sd, x, emb)
+    report: dict[str, Any] = {}
+    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+
+    # (a) self-attention guidance at 0.75: a second UNet call a step (batch 1) on the degraded latents.
+    # Its mask thresholds the middle block's attention mass, so routes that differ by bf16 rounding
+    # can flip mask pixels: for the gate, every route takes the float32 step's mask, and the pixels
+    # each route's own mask would flip are printed.
+    sd.set_self_attention_guidance(True, scale=SAG_SCALE)
+    sag = sd._find_sag_adapter()
+    own_mask = sag.compute_sag_mask
+    masks: dict[str, Any] = {"flips": []}
+
+    def float32_mask(latents: torch.Tensor, classifier_free_guidance: bool = True) -> torch.Tensor:
+        mask = own_mask(latents, classifier_free_guidance)
+        masks.setdefault("float32", mask.float())  # the gate's first step is the float32 one
+        masks["flips"].append(int((mask[:, 0].float() != masks["float32"][:, 0]).sum()))
+        return masks["float32"].to(mask.dtype)
+
+    sag.compute_sag_mask = float32_mask
+    report["sag"] = serving.gate("SAG", 2 * per_call)
+    del sag.compute_sag_mask
+    masked = int(masks["float32"][:, 0].sum())
+    print(f"sd15 SAG: the float32 step's mask holds {masked} of {latent * latent} pixels; each route's own mask "
+          f"flips (plain bf16, kernels bf16) {masks['flips'][1:]}")  # fmt: skip
+    report["sag"].update({"mask_pixels": masked, "own_mask_flips": masks["flips"][1:]})
+    serving.request("SAG", 2 * per_call * steps + 1, lambda: pipe(*PROMPTS[0], seed=70))
+    sd.set_self_attention_guidance(False)
+    if sd.has_self_attention_guidance():
+        raise AssertionError("sd15 SAG: still injected after set_self_attention_guidance(False)")
+    serving.check_base("SAG")
+
+    # (b) StyleAligned at 0.8 on two prompts in one batch (CFG batch 4), the first the reference:
+    # every self-attention's keys and values extended by the reference's
+    # the reference sample attends to its own keys twice (the same softmax) after AdaIN onto itself:
+    # in float32 its step stays the bare step's, the other sample's moves
+    pair = (x2, emb2)
+    bare_pair, _ = serving.step(F32, kernel=False, inputs=pair)
+    shared = StyleAlignedAdapter(sd.unet, scale=0.8).inject()
+    adapted_pair, _ = serving.step(F32, kernel=False, inputs=pair)
+    reference_rel, other_rel = _rel(adapted_pair[:1], bare_pair[:1]), _rel(adapted_pair[1:], bare_pair[1:])
+    print(f"sd15 StyleAligned: float32 step against the bare one on the pair: the reference sample rel "
+          f"{reference_rel:.3e}, the other sample rel {other_rel:.3e}")  # fmt: skip
+    report["style_aligned"] = {"reference_sample_rel": reference_rel, "other_sample_rel": other_rel,
+                               **serving.gate("StyleAligned", per_call, inputs=pair)}  # fmt: skip
+
+    def style_aligned_request() -> list[Any]:
+        generator = torch.Generator(dev).manual_seed(71)
+        with torch.inference_mode():
+            embedding = sd.compute_clip_text_embedding(*pair_prompts)
+            noise = torch.randn((2, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
+            z = sd.diffuse(sd.solver.scale_model_input(noise, step=-1), clip_text_embedding=embedding,
+                           condition_scale=7.5, generator=generator)  # fmt: skip
+            return tensor_to_images((sd.lda.decode(z) + 1) / 2)
+
+    serving.request("StyleAligned (2 images)", per_call * steps + 1, style_aligned_request)
+    shared.eject()
+    serving.check_base("StyleAligned")
+    del shared, bare_pair, adapted_pair
+
+    # (c) reference-only control, style_cfg 0.5: the guide UNet (a structural copy: no new weights)
+    # on the guide's latents noised to each step, then guided (Lk = 2·Lq) and unguided self-attention
+    parameters = {id(p) for p in sd.unet.parameters()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    refonly = ReferenceOnlyControlAdapter(sd.unet, style_cfg=0.5).inject()
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated(dev) - allocated
+    print(f"sd15 reference-only: injected; the UNet's parameters the same tensors: "
+          f"{({id(p) for p in sd.unet.parameters()} == parameters)}, device memory added at the peak {added} bytes")  # fmt: skip
+    if {id(p) for p in sd.unet.parameters()} != parameters or added > 2**20:
+        raise AssertionError(f"sd15 reference-only: the guide UNet added weights ({added} bytes)")
+    with torch.inference_mode():
+        guide = sd.lda.image_to_latents(guide_image)
+    guide2 = torch.cat([guide, guide])
+
+    def set_guide() -> None:
+        refonly.set_controlnet_condition(sd.solver.add_noise(guide2, guide_noise, 0))
+
+    report["reference_only"] = serving.gate("reference-only", 3 * per_call, set_guide)
+    report["reference_only"]["added_bytes"] = added
+    set_guide()
+    with torch.inference_mode():
+        x16, emb16 = x.to(BF16), emb.to(BF16)
+        profile = _profile("sd15 reference-only: one UNet step (512², CFG batch 2, bf16, kernels)",
+                           lambda: sd.predict_noise(x16, 0, clip_text_embedding=emb16), unit="step")  # fmt: skip
+    profile["k1_share"] = profile["by_kind_ms"].get("attention (flash kernels)", 0.0) / profile["device_ms"]
+    print(f"sd15 reference-only: K1's share of the step's device time {profile['k1_share']:.3f}")
+    report["reference_only"]["unet_step_profile"] = profile
+
+    def refonly_request() -> Any:
+        generator = torch.Generator(dev).manual_seed(72)
+        with torch.inference_mode():
+            latents = sd.lda.image_to_latents(guide_image)  # the guide encoded once a request
+            pair_latents = torch.cat([latents, latents])
+            embedding = sd.compute_clip_text_embedding(*PROMPTS[1])
+            noise = torch.randn((1, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
+            z = sd.solver.scale_model_input(noise, step=-1)
+            for i in sd.steps:
+                step_noise = torch.randn(pair_latents.shape, generator=generator, device=dev)
+                refonly.set_controlnet_condition(sd.solver.add_noise(pair_latents, step_noise, i))
+                z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+            return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
+
+    serving.request("reference-only", 3 * per_call * steps + 2, refonly_request)
+    refonly.eject()
+    serving.check_base("reference-only")
+    del refonly, guide, guide2
+
+    # (d) Restart on DDIM 30 steps: 10 restart timesteps, 2 iterations at its start step
+    dpm = sd.solver
+    sd.solver = DDIM(steps, device=dev)
+    restart = Restart(ldm=sd, num_steps=10, num_iterations=2)
+    restart_solver = DDIM(steps, device=dev)
+    restart_solver.timesteps = restart.timesteps.to(dev)
+    ddim = sd.solver
+    print(f"sd15 Restart: start step {restart.start_step}, timesteps {restart.timesteps.tolist()}")
+
+    def use_restart_solver() -> None:
+        sd.solver = restart_solver
+
+    report["restart"] = {"start_step": restart.start_step, "timesteps": restart.timesteps.tolist(),
+                         **serving.gate("Restart (its first timestep)", per_call, use_restart_solver)}  # fmt: skip
+    sd.solver = ddim
+
+    def restart_request() -> Any:
+        generator = torch.Generator(dev).manual_seed(73)
+        with torch.inference_mode():
+            embedding = sd.compute_clip_text_embedding(*PROMPTS[2])
+            z = torch.randn((1, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
+            for i in sd.steps:
+                z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5)
+                if i == restart.start_step:
+                    z = restart(z, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+            return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
+
+    extra = restart.num_iterations * (restart.num_steps - 1)
+    serving.request(f"Restart ({extra} extra UNet calls)", per_call * (steps + extra) + 1, restart_request)
+    sd.solver = dpm
+    serving.check_base("Restart")
+
+    # (e) IP-Adapter: a full-width ViT-H/14 (on the UNet's device, in its dtype) on a 512² image
+    t0 = time.perf_counter()
+    ip = SD1IPAdapter(sd.unet, scale=1.0)
+    synthesize_weights(ip.clip_image_encoder, seed=46)
+    synthesize_weights(ip.image_proj, seed=47)
+    torch.cuda.synchronize()
+    n_encoder = sum(p.numel() for p in ip.clip_image_encoder.parameters())
+    print(f"sd15 IP-Adapter: CLIPImageEncoderH ({n_encoder} parameters, {ip.clip_image_encoder.dtype}, "
+          f"{ip.clip_image_encoder.device}) built in {time.perf_counter() - t0:.2f} s")  # fmt: skip
+    if n_encoder != VIT_H_PARAMETERS or ip.clip_image_encoder.device != dev:
+        raise AssertionError(f"the image encoder has {n_encoder} parameters on {ip.clip_image_encoder.device}")
+    ip.inject()
+    with torch.inference_mode():
+        image_embedding = ip.compute_clip_image_embedding(prompt_image)
+    print(f"sd15 IP-Adapter: image tokens {tuple(image_embedding.shape)} {image_embedding.dtype}")
+
+    def set_image() -> None:
+        ip.set_clip_image_embedding(image_embedding)
+
+    report["ip_adapter"] = serving.gate("IP-Adapter", per_call, set_image)
+    ip.scale = 0.0
+    zero, _ = serving.step(BF16, kernel=True, prepare=set_image)
+    ip.scale = 1.0
+    print(f"sd15 IP-Adapter: at scale 0 the step equals the base step: {torch.equal(zero, serving.base)}")
+    if not torch.equal(zero, serving.base):
+        raise AssertionError(f"sd15 IP-Adapter: scale 0 differs from the base step ({_max_abs(zero, serving.base)})")
+
+    def ip_request(adapter: Any, seed: int) -> Callable[[], Any]:
+        def run() -> Any:
+            with torch.inference_mode():
+                adapter.set_clip_image_embedding(adapter.compute_clip_image_embedding(prompt_image))
+            return pipe(*PROMPTS[1], seed=seed)
+
+        return run
+
+    serving.request("IP-Adapter", per_call * steps + 1, ip_request(ip, 74))
+    ip.eject()
+    serving.check_base("IP-Adapter")
+
+    # (f) IP-Adapter plus: the same encoder's penultimate grid features through a perceiver resampler
+    plus = SD1IPAdapter(sd.unet, clip_image_encoder=ip.clip_image_encoder, fine_grained=True)
+    synthesize_weights(plus.image_proj, seed=48)
+    plus.inject()
+    with torch.inference_mode():
+        plus_embedding = plus.compute_clip_image_embedding(prompt_image)
+    print(f"sd15 IP-Adapter plus: image tokens {tuple(plus_embedding.shape)}")
+    report["ip_adapter_plus"] = serving.gate("IP-Adapter plus", per_call, lambda: plus.set_clip_image_embedding(plus_embedding))
+    serving.request("IP-Adapter plus", per_call * steps + 1, ip_request(plus, 75))
+    plus.eject()
+    serving.check_base("IP-Adapter plus")
+    del ip, plus, image_embedding, plus_embedding
+    _free()
+
+    # (g) textual inversion: one 768-d concept added to CLIP-L
+    extender = ConceptExtender(sd.clip_text_encoder)
+    extender.add_concept(ZOO_CONCEPT, concept)
+    extender.inject()
+    ids = sd.clip_text_encoder[0](ZOO_PROMPT)
+    if 49408 not in ids[0].tolist():
+        raise AssertionError(f"the concept's token is not in the prompt's ids {ids[0].tolist()[:12]}")
+    with torch.inference_mode():
+        emb_concept = sd.compute_clip_text_embedding(ZOO_PROMPT, PROMPTS[0][1])
+    report["textual_inversion"] = serving.gate("textual inversion", per_call, inputs=(x, emb_concept))
+    serving.request("textual inversion", per_call * steps + 1, lambda: pipe(ZOO_PROMPT, negative_prompt=PROMPTS[0][1], seed=76))
+    extender.eject()
+    with torch.inference_mode():
+        again = sd.compute_clip_text_embedding(*PROMPTS[0])
+    if not torch.equal(again, emb):
+        raise AssertionError("sd15 textual inversion: after eject the text embedding moved")
+    serving.check_base("textual inversion")
+
+    report["requests"], launches = serving.close()
+    del pipe, serving, x, x2, emb, emb2
     _free()
     return report, launches
 
@@ -2036,7 +2356,7 @@ def main() -> int:
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     sd15_packed = {label: next(r for r in packed if r["shape"] == shape and r["dtype"] == str(BF16) and not r["causal"])
-                   for label, shape in SD15_SHAPES.items()}  # fmt: skip
+                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES}.items()}  # fmt: skip
     for label, result in sd15_packed.items():
         _print_row(label, result["ms"], rows[label])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
@@ -2051,6 +2371,7 @@ def main() -> int:
     passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
     sd15_report, sd15_launches, sd15 = run_sd15(dev)
     adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
+    zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
     del sd15
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
@@ -2073,10 +2394,19 @@ def main() -> int:
                                     ("SDXL VAE, d = 512", "K1 VAE", vae),
                                     ("SD1.5 UNet 64², d = 40", "K1 SD1.5 64²", sd15_packed["K1 SD1.5 64²"]),
                                     ("SD1.5 UNet 32², d = 80", "K1 SD1.5 32²", sd15_packed["K1 SD1.5 32²"]),
-                                    ("SD1.5 VAE, d = 512", "K1 SD1.5 VAE", sd15_packed["K1 SD1.5 VAE"]))
+                                    ("SD1.5 VAE, d = 512", "K1 SD1.5 VAE", sd15_packed["K1 SD1.5 VAE"]),
+                                    ("SD1.5 StyleAligned 64², d = 40, Lk = 2·Lq", "K1 StyleAligned 64²",
+                                     sd15_packed["K1 StyleAligned 64²"]),
+                                    ("SD1.5 StyleAligned 32², d = 80, Lk = 2·Lq", "K1 StyleAligned 32²",
+                                     sd15_packed["K1 StyleAligned 32²"]),
+                                    ("SD1.5 reference-only 64², d = 40, Lk = 2·Lq", "K1 ref-only 64²",
+                                     sd15_packed["K1 ref-only 64²"]),
+                                    ("SD1.5 reference-only 32², d = 80, Lk = 2·Lq", "K1 ref-only 32²",
+                                     sd15_packed["K1 ref-only 32²"]))
     ]  # fmt: skip
     k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"],
-                   "sd15_adapters": adapters_launches["flash_attention_packed"]}  # fmt: skip
+                   "sd15_adapters": adapters_launches["flash_attention_packed"],
+                   "sd15_zoo": zoo_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -2133,6 +2463,7 @@ def main() -> int:
         "sdxl_passes": passes_report,
         "sd15": sd15_report,
         "sd15_adapters": adapters_report,
+        "sd15_zoo": zoo_report,
     }
     print(json.dumps(summary))
     print(smi)

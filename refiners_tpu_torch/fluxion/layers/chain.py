@@ -276,6 +276,19 @@ class Chain(ContextModule):
     def append(self, module: Module) -> None:
         self.insert(-1, module)
 
+    def pop(self, index: int = -1) -> Module:
+        """Remove and return the child at `index`."""
+        modules = list(self)
+        if index < 0:
+            index = len(modules) + index
+        if index < 0 or index >= len(modules):
+            raise IndexError("Index out of range.")
+        removed = modules.pop(index)
+        if isinstance(removed, ContextModule):
+            removed._set_parent(None)
+        self._regenerate_keys(modules)
+        return removed
+
     def remove(self, module: Module) -> None:
         modules = [m for m in self if m is not module]
         if len(modules) == len(self):

@@ -1,3 +1,9 @@
+from refiners_tpu_torch.foundationals.clip.concepts import ConceptExtender
+from refiners_tpu_torch.foundationals.clip.image_encoder import (
+    CLIPImageEncoder,
+    CLIPImageEncoderG,
+    CLIPImageEncoderH,
+)
 from refiners_tpu_torch.foundationals.clip.text_encoder import (
     CLIPTextEncoder,
     CLIPTextEncoderG,
@@ -5,4 +11,13 @@ from refiners_tpu_torch.foundationals.clip.text_encoder import (
 )
 from refiners_tpu_torch.foundationals.clip.tokenizer import CLIPTokenizer
 
-__all__ = ["CLIPTextEncoder", "CLIPTextEncoderG", "CLIPTextEncoderL", "CLIPTokenizer"]
+__all__ = [
+    "ConceptExtender",
+    "CLIPImageEncoder",
+    "CLIPImageEncoderG",
+    "CLIPImageEncoderH",
+    "CLIPTextEncoder",
+    "CLIPTextEncoderG",
+    "CLIPTextEncoderL",
+    "CLIPTokenizer",
+]

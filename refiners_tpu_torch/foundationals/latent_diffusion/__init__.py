@@ -2,6 +2,8 @@ from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import Laten
 from refiners_tpu_torch.foundationals.latent_diffusion.freeu import SDFreeUAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.lora import SDLoraManager
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
+from refiners_tpu_torch.foundationals.latent_diffusion.reference_only_control import ReferenceOnlyControlAdapter
+from refiners_tpu_torch.foundationals.latent_diffusion.restart import Restart
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import (
     DDIM,
     DDPM,
@@ -20,6 +22,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import
     Controlnet,
     SD1Autoencoder,
     SD1ControlnetAdapter,
+    SD1IPAdapter,
     SD1T2IAdapter,
     SD1UNet,
     StableDiffusion_1,
@@ -31,6 +34,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl impor
     SDXLUNet,
     StableDiffusion_XL,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.style_aligned import StyleAlignedAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import T2IAdapter, T2IFeatures
 
 __all__ = [
@@ -47,8 +51,11 @@ __all__ = [
     "LatentDiffusionModel",
     "ModelPredictionType",
     "NoiseSchedule",
+    "ReferenceOnlyControlAdapter",
+    "Restart",
     "SD1Autoencoder",
     "SD1ControlnetAdapter",
+    "SD1IPAdapter",
     "SD1T2IAdapter",
     "SD1UNet",
     "SDFreeUAdapter",
@@ -60,6 +67,7 @@ __all__ = [
     "StableDiffusion_1",
     "StableDiffusion_1_Inpainting",
     "StableDiffusion_XL",
+    "StyleAlignedAdapter",
     "T2IAdapter",
     "T2IFeatures",
     "TimestepSpacing",

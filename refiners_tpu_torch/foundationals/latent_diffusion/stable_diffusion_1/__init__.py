@@ -2,11 +2,13 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.contro
     Controlnet,
     SD1ControlnetAdapter,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.image_prompt import SD1IPAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.model import (
     SD1Autoencoder,
     StableDiffusion_1,
     StableDiffusion_1_Inpainting,
 )
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.self_attention_guidance import SD1SAGAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.t2i_adapter import SD1T2IAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.unet import SD1UNet
 
@@ -14,6 +16,8 @@ __all__ = [
     "Controlnet",
     "SD1Autoencoder",
     "SD1ControlnetAdapter",
+    "SD1IPAdapter",
+    "SD1SAGAdapter",
     "SD1T2IAdapter",
     "SD1UNet",
     "StableDiffusion_1",

@@ -1,8 +1,9 @@
 """Stable Diffusion 1.5 model facades; counterpart of
 ``refiners_tpu/foundationals/latent_diffusion/stable_diffusion_1/model.py``.
 
-Self-attention guidance belongs to the adapter zoo, which is not ported yet:
-`has_self_attention_guidance()` is always False and enabling it raises.
+Self-attention guidance is an `SD1SAGAdapter` around the UNet:
+`set_self_attention_guidance(True)` injects it, and each step then makes a
+second UNet call at batch 1 on the degraded latents.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from refiners_tpu_torch.foundationals.clip.text_encoder import CLIPTextEncoderL
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import DPMSolver, Solver
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.self_attention_guidance import SD1SAGAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.unet import SD1UNet
 
 
@@ -87,15 +89,47 @@ class StableDiffusion_1(LatentDiffusionModel):
 
     def set_self_attention_guidance(self, enable: bool, scale: float = 1.0) -> None:
         if enable:
-            raise NotImplementedError("self-attention guidance is not ported to refiners_tpu_torch yet")
+            if sag := self._find_sag_adapter():
+                sag.scale = scale
+            else:
+                SD1SAGAdapter(target=self.unet, scale=scale).inject()
+        else:
+            if sag := self._find_sag_adapter():
+                sag.eject()
 
     def has_self_attention_guidance(self) -> bool:
-        return False
+        return self._find_sag_adapter() is not None
+
+    def _find_sag_adapter(self) -> SD1SAGAdapter | None:
+        for p in self.unet.get_parents():
+            if isinstance(p, SD1SAGAdapter):
+                return p
+        return None
 
     def compute_self_attention_guidance(
         self, x: torch.Tensor, noise: torch.Tensor, step: int, *, clip_text_embedding: torch.Tensor, **kwargs: Any
     ) -> torch.Tensor:
-        raise NotImplementedError("self-attention guidance is not ported to refiners_tpu_torch yet")
+        """SAG's term: its scale times the unconditional noise less the
+        noise predicted, unconditioned, on the degraded latents (the negative
+        half of the text embedding and, with an IP-Adapter, of the image
+        tokens)."""
+        sag = self._find_sag_adapter()
+        assert sag is not None
+        degraded_latents = sag.compute_degraded_latents(
+            solver=self.solver, latents=x, noise=noise, step=step, classifier_free_guidance=True
+        )
+        timestep = self.solver.timesteps[step][None]
+        negative_embedding = clip_text_embedding.chunk(2)[0]
+        self.set_unet_context(timestep=timestep, clip_text_embedding=negative_embedding, **kwargs)
+        if "ip_adapter" in self.unet.provider.contexts:
+            ip_adapter_context = self.unet.use_context("ip_adapter")
+            image_embedding = ip_adapter_context["clip_image_embedding"]
+            ip_adapter_context["clip_image_embedding"] = image_embedding.chunk(2)[0]
+            degraded_noise = self.unet(degraded_latents)
+            ip_adapter_context["clip_image_embedding"] = image_embedding
+        else:
+            degraded_noise = self.unet(degraded_latents)
+        return sag.scale * (noise - degraded_noise)
 
 
 class StableDiffusion_1_Inpainting(StableDiffusion_1):
@@ -158,3 +192,21 @@ class StableDiffusion_1_Inpainting(StableDiffusion_1):
         masked_init_image = init_image_tensor * (1 - mask_tensor)
         self.target_image_latents = self.lda.encode(masked_init_image)
         return self.mask_latents, self.target_image_latents
+
+    def compute_self_attention_guidance(
+        self, x: torch.Tensor, noise: torch.Tensor, step: int, *, clip_text_embedding: torch.Tensor, **kwargs: Any
+    ) -> torch.Tensor:
+        """As the text-to-image model's, with the mask and the masked image's
+        latents joined to the degraded latents (and, as in the JAX package,
+        no split of an IP-Adapter's image tokens)."""
+        sag = self._find_sag_adapter()
+        assert sag is not None
+        assert self.mask_latents is not None
+        assert self.target_image_latents is not None
+        degraded_latents = sag.compute_degraded_latents(
+            solver=self.solver, latents=x, noise=noise, step=step, classifier_free_guidance=True
+        )
+        degraded = torch.cat((degraded_latents, self.mask_latents, self.target_image_latents), dim=1)
+        timestep = self.solver.timesteps[step][None]
+        self.set_unet_context(timestep=timestep, clip_text_embedding=clip_text_embedding.chunk(2)[0], **kwargs)
+        return sag.scale * (noise - self.unet(degraded))

@@ -85,6 +85,9 @@ def _launches() -> list[int]:
         (1, 130, 150, 2, 160, False, torch.float32),  # the D = 256 template
         (1, 256, 256, 1, 512, False, torch.float32),
         (1, 4096, 4096, 1, 512, False, torch.bfloat16),  # the wgmma kernel at a VAE mid-block of 64×64 latents
+        # keys twice as long as the queries: StyleAligned (batch 4) and reference-only (batch 2) at 512²
+        (4, 4096, 8192, 8, 40, False, torch.bfloat16),  # the 64² sites: 128 key tiles of 64 at d = 40
+        (2, 1024, 2048, 8, 80, False, torch.bfloat16),  # the 32² sites
     ],
 )
 def test_kernel_matches_plain(

@@ -13,7 +13,7 @@ in the port as in `golden_cfg`, so that the state dict keys line up.
 from __future__ import annotations
 
 import gc
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import pytest
@@ -22,7 +22,7 @@ from PIL import Image
 
 import refiners_tpu_torch.fluxion.layers as fl
 from refiners_tpu_torch.conversion import load_jax_state_dict, nchw_to_nhwc, nhwc_to_nchw
-from refiners_tpu_torch.foundationals.clip import CLIPTextEncoder
+from refiners_tpu_torch.foundationals.clip import CLIPImageEncoder, CLIPTextEncoder, ConceptExtender
 from refiners_tpu_torch.foundationals.latent_diffusion import (
     DDIM,
     DPMSolver,
@@ -34,9 +34,14 @@ from refiners_tpu_torch.foundationals.latent_diffusion import (
     StableDiffusion_XL,
 )
 from refiners_tpu_torch.foundationals.latent_diffusion import (
+    ReferenceOnlyControlAdapter,
+    Restart,
     SD1ControlnetAdapter,
+    SD1IPAdapter,
     SD1T2IAdapter,
     SDFreeUAdapter,
+    StableDiffusion_1_Inpainting,
+    StyleAlignedAdapter,
 )
 from tests.e2e import golden_cfg
 from tests.e2e.golden_cfg import GOLDEN_DIR, build_sd15_full, build_sd15_reduced, build_sdxl_full, to_pil
@@ -67,16 +72,21 @@ def _sd15(sd: StableDiffusion_1, latent: int, scale_input: bool) -> torch.Tensor
         return sd.lda.decode(sd.diffuse(x, clip_text_embedding=emb, condition_scale=7.5))
 
 
-def test_sd15_reduced_10step_golden() -> None:
-    """`build_sd15_reduced`: SD1UNet(base_channels=32), a 2-layer CLIP-L, the
-    full VAE, 10 DDIM steps at 128²."""
-    port = StableDiffusion_1(
+def _sd15_reduced() -> StableDiffusion_1:
+    """`build_sd15_reduced` in the port: SD1UNet(base_channels=32), a 2-layer CLIP-L, the full VAE, DDIM 10 steps."""
+    return StableDiffusion_1(
         unet=SD1UNet(in_channels=4, base_channels=32),
         lda=SD1Autoencoder(),
         clip_text_encoder=CLIPTextEncoder(embedding_dim=768, num_layers=2, num_attention_heads=12),
         solver=DDIM(num_inference_steps=10),
         device="cpu",
     )
+
+
+def test_sd15_reduced_10step_golden() -> None:
+    """`build_sd15_reduced`: SD1UNet(base_channels=32), a 2-layer CLIP-L, the
+    full VAE, 10 DDIM steps at 128²."""
+    port = _sd15_reduced()
     _bridge(port, build_sd15_reduced())
     _check("sd15_reduced_10step_128", _sd15(port, latent=16, scale_input=True))
 
@@ -120,15 +130,29 @@ def _sd15_stub_clip() -> StableDiffusion_1:
     return StableDiffusion_1(solver=DDIM(num_inference_steps=10), clip_text_encoder=fl.Chain(fl.Identity()), device="cpu")
 
 
-def _traj(sd: StableDiffusion_1, noise_seed: int = 50, emb_seed: int = 51) -> torch.Tensor:
-    """`golden_cfg._traj` through the port: 16×16 latents, CFG 7.5, step by step, then the decode."""
-    noise = np.random.RandomState(noise_seed).randn(1, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)
-    emb = torch.tensor(np.random.RandomState(emb_seed).randn(2, 77, 768).astype(np.float32))
+def _traj(
+    sd: StableDiffusion_1,
+    noise_seed: int = 50,
+    emb_seed: int = 51,
+    batch: int = 1,
+    pre_step: Callable[[int], None] | None = None,
+    per_step: Callable[[int, torch.Tensor], torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """`golden_cfg._traj` through the port: 16×16 latents, CFG 7.5, step by
+    step (`pre_step` before and `per_step` after each), then the decode; a
+    batch's images side by side, as the golden tiles them."""
+    noise = np.random.RandomState(noise_seed).randn(batch, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)
+    emb = torch.tensor(np.random.RandomState(emb_seed).randn(2 * batch, 77, 768).astype(np.float32))
     x = torch.tensor(nhwc_to_nchw(noise))
     with torch.inference_mode():
         for step in sd.steps:
+            if pre_step is not None:
+                pre_step(step)
             x = sd(x, step, clip_text_embedding=emb, condition_scale=7.5)
-        return sd.lda.decode(x)
+            if per_step is not None:
+                x = per_step(step, x)
+        image = sd.lda.decode(x)
+    return torch.cat(list(image), dim=2)[None] if batch > 1 else image
 
 
 def _condition(rs: np.random.RandomState) -> torch.Tensor:
@@ -188,3 +212,152 @@ def test_freeu_10step_golden() -> None:
     _bridge(port, golden_cfg.build_freeu())
     gc.collect()
     _check("freeu_10step_128", _traj(port))
+
+
+def test_textual_inversion_10step_golden() -> None:
+    """`build_textual_inversion`: the reduced SD1.5 with a concept,
+    "<test-artwork>", added to its CLIP through `ConceptExtender`; the
+    prompt uses it. Its text path is real, so this one is fast."""
+    port = _sd15_reduced()
+    extender = ConceptExtender(port.clip_text_encoder)
+    extender.add_concept("<test-artwork>", torch.tensor(np.random.RandomState(64).randn(768).astype(np.float32)))
+    extender.inject()
+    _bridge(port, golden_cfg.build_textual_inversion())  # the added row too: Sum.EmbeddingExtender.new_weight
+    noise = torch.tensor(nhwc_to_nchw(np.random.RandomState(65).randn(1, 16, 16, 4).astype(np.float32)))
+    with torch.inference_mode():
+        emb = port.compute_clip_text_embedding("a cute cat on a <test-artwork>", negative_text="low quality")
+        image = port.lda.decode(port.diffuse(noise, clip_text_embedding=emb, condition_scale=7.5))
+    _check("textual_inversion_10step_128", image)
+
+
+@pytest.mark.slow
+def test_sag_10step_golden() -> None:
+    """`build_sag`: self-attention guidance at 0.75."""
+    port = _sd15_stub_clip()
+    port.set_self_attention_guidance(True, scale=0.75)
+    _bridge(port, golden_cfg.build_sag())
+    gc.collect()
+    _check("sag_10step_128", _traj(port))
+
+
+@pytest.mark.slow
+def test_style_aligned_10step_golden() -> None:
+    """`build_style_aligned`: StyleAligned at 0.8 on a batch of 2, the images side by side."""
+    port = _sd15_stub_clip()
+    StyleAlignedAdapter(port.unet, scale=0.8).inject()
+    _bridge(port, golden_cfg.build_style_aligned())
+    gc.collect()
+    _check("style_aligned_10step_128", _traj(port, batch=2, noise_seed=55, emb_seed=56))
+
+
+@pytest.mark.slow
+def test_restart_10step_golden() -> None:
+    """`build_restart`: Restart(num_steps=4, num_iterations=1) at its start
+    step, its noise the JAX key's (`jax.random.key(57)`), injected."""
+    import jax
+
+    port = _sd15_stub_clip()
+    jax_sd, _ = golden_cfg.build_restart()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    restart = Restart(ldm=port, num_steps=4, num_iterations=1)
+    key = jax.random.key(57)
+    shape = (1, golden_cfg._LATENT, golden_cfg._LATENT, 4)
+
+    def jax_noise(generator: Any, _shape: tuple[int, ...], device: Any, iteration: int) -> torch.Tensor:
+        return torch.tensor(nhwc_to_nchw(np.asarray(jax.random.normal(jax.random.fold_in(key, iteration), shape))))
+
+    restart._restart_noise = jax_noise  # type: ignore[method-assign]
+    emb = torch.tensor(np.random.RandomState(51).randn(2, 77, 768).astype(np.float32))
+
+    def per_step(step: int, x: torch.Tensor) -> torch.Tensor:
+        return restart(x, clip_text_embedding=emb, condition_scale=7.5) if step == restart.start_step else x
+
+    _check("restart_10step_128", _traj(port, per_step=per_step))
+
+
+def _refonly_pre_step(sd: StableDiffusion_1, adapter: ReferenceOnlyControlAdapter, g: np.random.RandomState,
+                      nine: bool) -> Callable[[int], None]:  # fmt: skip
+    """`golden_cfg.run_refonly`'s guide, noised each step (with `nine`, `run_inpainting_refonly`'s layout)."""
+    guide = g.randn(1, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)
+    guide = torch.tensor(nhwc_to_nchw(np.concatenate([guide, guide])))
+    noises = [torch.tensor(nhwc_to_nchw(g.randn(2, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)))
+              for _ in range(golden_cfg._STEPS)]  # fmt: skip
+
+    def pre_step(step: int) -> None:
+        noised = sd.solver.add_noise(guide, noises[step], step)
+        if nine:
+            noised = torch.cat([noised, torch.zeros_like(noised[:, :1]), guide], dim=1)
+        adapter.set_controlnet_condition(noised)
+
+    return pre_step
+
+
+@pytest.mark.slow
+def test_refonly_10step_golden() -> None:
+    """`build_refonly`: reference-only control on a guide noised each step."""
+    port = _sd15_stub_clip()
+    adapter = ReferenceOnlyControlAdapter(port.unet).inject()
+    jax_sd, _ = golden_cfg.build_refonly()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    _check("refonly_10step_128", _traj(port, pre_step=_refonly_pre_step(port, adapter, np.random.RandomState(59), False)))
+
+
+@pytest.mark.slow
+def test_inpainting_refonly_10step_golden() -> None:
+    """`build_inpainting_refonly`: the 9-channel model, its mask and masked
+    image set, and reference-only control on sd-webui's 9-channel guide."""
+    port = StableDiffusion_1_Inpainting(solver=DDIM(num_inference_steps=10), clip_text_encoder=fl.Chain(fl.Identity()),
+                                        device="cpu")  # fmt: skip
+    adapter = ReferenceOnlyControlAdapter(port.unet).inject()
+    jax_sd, _ = golden_cfg.build_inpainting_refonly()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    g = np.random.RandomState(81)
+    target = Image.fromarray((g.rand(128, 128, 3) * 255).astype(np.uint8))
+    mask = Image.fromarray((np.indices((128, 128)).sum(0) // 64 % 2 * 255).astype(np.uint8), mode="L")
+    with torch.inference_mode():
+        port.set_inpainting_conditions(target, mask, latents_size=(golden_cfg._LATENT, golden_cfg._LATENT))
+    pre_step = _refonly_pre_step(port, adapter, g, True)
+    _check("inpainting_refonly_10step_128", _traj(port, noise_seed=82, emb_seed=83, pre_step=pre_step))
+
+
+@pytest.mark.slow
+def test_ip_adapter_10step_golden() -> None:
+    """`build_ip_adapter`: a stand-in encoder; the image tokens given (zeros as the negative)."""
+    port = _sd15_stub_clip()
+    encoder = fl.Chain()
+    encoder.embedding_dim, encoder.output_dim = 1280, 1024  # type: ignore[attr-defined]
+    adapter = SD1IPAdapter(port.unet, clip_image_encoder=encoder).inject()  # type: ignore[arg-type]
+    jax_sd, _ = golden_cfg.build_ip_adapter()
+    _bridge(port, jax_sd)  # the image keys' and values' projections are the UNet's after injection
+    del jax_sd
+    gc.collect()
+    tokens = np.random.RandomState(53).randn(1, 4, 768).astype(np.float32)
+    adapter.set_clip_image_embedding(torch.tensor(np.concatenate([np.zeros_like(tokens), tokens])))
+    _check("ip_adapter_10step_128", _traj(port))
+
+
+@pytest.mark.slow
+def test_ip_adapter_plus_10step_golden() -> None:
+    """`build_ip_adapter_plus`: a reduced CLIP image encoder's grid features
+    through the perceiver resampler, both bridged apart (not modules of the UNet)."""
+    port = _sd15_stub_clip()
+    encoder = CLIPImageEncoder(image_size=32, embedding_dim=64, output_dim=48, patch_size=16, num_layers=32,
+                               num_attention_heads=4, feedforward_dim=128)  # fmt: skip
+    adapter = SD1IPAdapter(port.unet, clip_image_encoder=encoder, fine_grained=True).inject()
+    jax_sd, jax_adapter = golden_cfg.build_ip_adapter_plus()
+    _bridge(port, jax_sd)
+    for name in ("clip_image_encoder", "image_proj"):
+        state = getattr(jax_adapter, name).state_dict()
+        load_jax_state_dict(getattr(adapter, name), {k: np.asarray(v) for k, v in state.items()})
+    del jax_sd, jax_adapter
+    gc.collect()
+    image = torch.tensor(nhwc_to_nchw(np.random.RandomState(75).randn(1, 32, 32, 3).astype(np.float32)))
+    with torch.inference_mode():
+        adapter.set_clip_image_embedding(adapter.compute_clip_image_embedding(image))
+    _check("ip_adapter_plus_10step_128", _traj(port, noise_seed=76, emb_seed=77))

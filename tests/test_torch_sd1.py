@@ -258,11 +258,17 @@ def test_full_width_keys_on_meta() -> None:
 
 
 def test_self_attention_guidance_is_not_ported(models: tuple[Any, StableDiffusion_1]) -> None:
+    """Named when enabling self-attention guidance raised; it is ported now
+    (`tests/test_torch_sd_zoo.py` holds it against JAX). Off by default;
+    enabling injects one adapter around the UNet; disabling ejects it, and
+    disabling again does nothing."""
     _, port_sd = models
     assert not port_sd.has_self_attention_guidance()
-    with pytest.raises(NotImplementedError):
-        port_sd.set_self_attention_guidance(True)
+    port_sd.set_self_attention_guidance(True, scale=0.5)
+    assert port_sd.has_self_attention_guidance() and port_sd.unet.parent is not None
     port_sd.set_self_attention_guidance(False)
+    port_sd.set_self_attention_guidance(False)
+    assert not port_sd.has_self_attention_guidance() and port_sd.unet.parent is None
 
 
 def test_structural_copy_shares_weights_not_contexts(models: tuple[Any, StableDiffusion_1]) -> None:
