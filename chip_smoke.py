@@ -20,7 +20,10 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      d = 512 on the wide one), at SD1.5's inference shapes (the UNet's
      d = 40 and d = 80, no lse; the VAE's d = 512 at 64×64 latents), at
      phase 9's sites with keys twice as long as the queries (StyleAligned
-     at batch 4, reference-only at batch 2, d = 40 and d = 80)
+     at batch 4, reference-only at batch 2, d = 40 and d = 80), at phase
+     10's MultiUpscaler sites (a 144 × 112 latent tile: 16128 tokens at
+     d = 40 and 4032 at d = 80; the tiled VAE's 9216 and 5184 tokens at
+     d = 512, the second a ragged 40.5 key tiles)
      plus ragged, causal, d = 80, d = 128,
      d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
      against the plain version in float32; uniform weights on causal rows
@@ -177,10 +180,28 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    step; the text embedding bit-equal after the concept's eject; one
    reference-only step traced (device time by kind, idle share, K1's
    share).
+10. SD1.5's ELLA, IC-Light, MultiDiffusion and MultiUpscaler: (a) phase
+   7's model with ``SD1ELLAAdapter`` injected (its encoder's synthetic
+   weights damped ×0.2, as ``golden_cfg.build_ella`` damps them) on a
+   (2, 128, 2048) LLM embedding: one step three ways (10 K1 launches), one
+   request (301), the base step bit-equal after the eject; (b) an
+   ``ICLight`` from phase 7's UNet weights plus a seeded 0.02·randn patch,
+   its condition a gray composite of a seeded 512² image: one step three
+   ways (10), one request at CFG 2.0 (302: the condition's encode); (c)
+   ``SD1MultiDiffusion`` over a 512 × 1024 panorama, three 64² tiles with
+   their own DDIM, 30 steps (901); (d) ``MultiUpscaler`` built from
+   safetensors files written under ``build/`` (phase 7's UNet, CLIP-L and
+   VAE, a seeded tile ControlNet, two rank-32 LoRAs, a (4, 768) negative
+   embedding), at clarity-upscaler's defaults: one tile-step (UNet +
+   ControlNet at 144 × 112 latents) three ways (14) and traced, one tiled
+   decode of 192² latents three ways (6: the frozen pass and four tiles),
+   then a seeded 768² image upscaled ×2 (402: 7 steps × 4 tiles × 14, and
+   10 on the VAE's tiles and frozen pass), 1536² and finite, the VAE's
+   decode bit-equal after ``tiled_inference`` exits.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6, 7b, 8b and 9b, each with the counts set to 0 just
-before it; K1's over phases 3, 7b, 8b and 9b, by path), the
+phases 3, 4b, 5b, 6, 7b, 8b, 9b and 10's requests, each with the counts
+set to 0 just before it; K1's over phases 3, 7b, 8b, 9b and 10, by path), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -243,6 +264,12 @@ ATTENTION_SHAPES = [
     (4, 1024, 2048, 8, 80, False, BF16),  # StyleAligned, the 32² sites
     (2, 4096, 8192, 8, 40, False, BF16),  # reference-only's guided self-attention, the 64² sites
     (2, 1024, 2048, 8, 80, False, BF16),  # reference-only, the 32² sites
+    # the MultiUpscaler's sites (phase 10): a 144 × 112 latent tile and its 72 × 56 level; the tiled
+    # VAE's 128 × 72 and 72² latent tiles (ragged: 40.5 key tiles of 128)
+    (2, 16128, 16128, 8, 40, False, BF16),
+    (2, 4032, 4032, 8, 80, False, BF16),
+    (1, 9216, 9216, 1, 512, False, BF16),
+    (1, 5184, 5184, 1, 512, False, BF16),
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
@@ -253,6 +280,11 @@ SD15_SHAPES = {"K1 SD1.5 64²": [2, 4096, 4096, 8, 40], "K1 SD1.5 32²": [2, 102
 # reference-only's guided pass (its guide and unguided passes run at Lk = Lq)
 SD15_ZOO_SHAPES = {"K1 StyleAligned 64²": [4, 4096, 8192, 8, 40], "K1 StyleAligned 32²": [4, 1024, 2048, 8, 80],
                    "K1 ref-only 64²": [2, 4096, 8192, 8, 40], "K1 ref-only 32²": [2, 1024, 2048, 8, 80]}  # fmt: skip
+# K1 at the MultiUpscaler's sites (phase 10): 5 + 5 launches per UNet call and 2 + 2 per ControlNet
+# call on a 144 × 112 latent tile; the tiled VAE's encoder and decoder mid-blocks on tiles of 128 × 72
+# and 72 × 72 latents (its 128² tiles are the SDXL VAE row's shape)
+SD15_UPSCALER_SHAPES = {"K1 upscaler 144×112": [2, 16128, 16128, 8, 40], "K1 upscaler 72×56": [2, 4032, 4032, 8, 80],
+                        "K1 tiled VAE 128×72": [1, 9216, 9216, 1, 512], "K1 tiled VAE 72²": [1, 5184, 5184, 1, 512]}  # fmt: skip
 TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
@@ -341,6 +373,20 @@ VIT_H_PARAMETERS = 632_076_800  # CLIPImageEncoderH, IP-Adapter's image encoder
 SAG_SCALE = 0.75  # the golden's (tests/e2e/golden_cfg.py, build_sag)
 ZOO_CONCEPT = "<zoo-style>"  # phase 9's textual-inversion token
 ZOO_PROMPT = f"a cute cat sitting on a windowsill, in the style of {ZOO_CONCEPT}"
+ELLA_DAMP = 0.2  # golden_cfg.build_ella: undamped random ELLA latents saturate the softmax into chaos
+ELLA_TOKENS = 128  # phase 10's LLM embedding: a flan-t5-xl prompt's length
+IC_LIGHT_CONV_IN = "DownBlocks.Chain_1.Conv2d.weight"
+IC_LIGHT_PATCH_STD, IC_LIGHT_SCALE = 0.02, 2.0  # golden_cfg.build_ic_light's patch; ICLight's default CFG
+PANORAMA = (512, 1024)  # phase 10's MultiDiffusion image (height, width)
+# the MultiUpscaler's defaults (clarity-upscaler's): ×2, 18 DPM++ steps at denoise 0.35 (first step 11),
+# MultiDiffusion tiles of 144 × 112 latents, ControlNet scale 0.6 and decay 0.825, VAE tiles of 1024 px
+UPSCALE_INPUT = 768
+UPSCALER_TILE = (144, 112)
+UPSCALER_STEPS, UPSCALER_DENOISE = 18, 0.35
+UPSCALER_CONTROLNET = (0.6, 0.825)
+UPSCALER_VAE_TILE = 1024
+UPSCALER_TILES, UPSCALER_VAE_TILES = 4, 4  # over 192 × 192 latents: 2 × 2 of each
+UPSCALER_PROMPTS = ("masterpiece, best quality, highres", "worst quality, low quality, normal quality")
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -726,7 +772,7 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     # self-attention, and at the VAE decoder's mid-block (one head of d = 512
     # over 128×128 latents)
     sites = [("K1", (2, 4096, 4096, 10, 64)), ("K1 32²", (2, 1024, 1024, 20, 64)), ("K1 VAE", (1, 16384, 16384, 1, 512))]
-    sites += [(label, tuple(shape)) for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES}.items()]
+    sites += [(label, tuple(shape)) for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES}.items()]
     for label, (b, lq, lk, h, d) in sites:
         q, k, v = randn(b, lq, h * d), randn(b, lk, h * d), randn(b, lk, h * d)
         heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
@@ -1874,8 +1920,10 @@ class AdaptedServing:
             raise AssertionError(f"sd15 {label}: after eject the base step moved, max abs {_max_abs(again, self.base)}")
         print(f"sd15 {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
 
-    def request(self, label: str, want: int, fn: Callable[[], Any]) -> None:
-        """One request, `fn` (its per-request conditions included)."""
+    def request(self, label: str, want: int, fn: Callable[[], Any], size: tuple[int, int] | None = None) -> None:
+        """One request, `fn` (its per-request conditions included), of images of `size` (height, width;
+        SD15_SIZE² by default)."""
+        size = size if size is not None else (SD15_SIZE, SD15_SIZE)
         del self.decoded[:]
         torch.cuda.reset_peak_memory_stats(self.dev)
         torch.cuda.synchronize()
@@ -1892,7 +1940,7 @@ class AdaptedServing:
               f"{len(images)} image(s), decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
         if launched != want:
             raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
-        if tuple(z.shape) != (len(images), 3, SD15_SIZE, SD15_SIZE) or not torch.isfinite(z).all():
+        if tuple(z.shape) != (len(images), 3, *size) or not torch.isfinite(z).all():
             raise AssertionError(f"sd15 {label}: decoded images of shape {tuple(z.shape)} are not finite")
         if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
             raise AssertionError(f"sd15 {label}: an image is constant")
@@ -2295,6 +2343,281 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: SD1.5's ELLA, IC-Light, MultiDiffusion and the MultiUpscaler
+# ---------------------------------------------------------------------------
+
+
+def run_sd15_slice(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 7's bf16 SD1.5 with ELLA injected and ejected, an IC-Light model
+    from its UNet plus a patch, a MultiDiffusion panorama, and the
+    MultiUpscaler built from files of its weights, a tile ControlNet, two
+    LoRAs and a negative embedding, upscaling a 768² image ×2."""
+    import shutil
+    from pathlib import Path
+
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion.utils import save_to_safetensors, synthesize_weights, tensor_to_images
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, Controlnet, SD1ELLAAdapter, SD1UNet
+    from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import FixedGroupNorm
+    from refiners_tpu_torch.foundationals.latent_diffusion.multi_diffusion import MultiDiffusion, Size
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import (
+        ICLight,
+        MultiUpscaler,
+        SD1DiffusionTarget,
+        SD1MultiDiffusion,
+        UpscalerCheckpoints,
+    )
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    steps = sd.solver.num_inference_steps
+    per_call = SD15_LAUNCHES_PER_STEP
+    latent = SD15_SIZE // 8
+    gen = torch.Generator(dev).manual_seed(90)
+    x = torch.randn((1, 4, latent, latent), generator=gen, device=dev)
+    with torch.inference_mode():
+        emb = sd.compute_clip_text_embedding(*PROMPTS[0])
+    serving = AdaptedServing(dev, sd, x, emb)
+    report: dict[str, Any] = {}
+    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+
+    # (a) ELLA: its encoder first in the UNet, the 32 text UseContexts of the cross-attentions pointed at
+    # its latents; synthetic weights damped as golden_cfg.build_ella damps them
+    t0 = time.perf_counter()
+    ella = SD1ELLAAdapter(sd.unet)
+    synthesize_weights(ella.latents_encoder, seed=91)
+    with torch.no_grad():
+        for p in ella.latents_encoder.parameters():
+            p.mul_(ELLA_DAMP)
+    llm = ELLA_DAMP * torch.randn((2, ELLA_TOKENS, 2048), generator=gen, device=dev)
+    n_ella = sum(p.numel() for p in ella.latents_encoder.parameters())
+    ella.inject()
+    print(f"sd15 ELLA: encoder of {n_ella} parameters ({ella.latents_encoder.dtype}) built and injected in "
+          f"{time.perf_counter() - t0:.2f} s; {len(ella.sub_adapters)} cross-attention inputs adapted")  # fmt: skip
+
+    def set_llm() -> None:
+        ella.set_llm_text_embedding(llm)
+
+    def ella_request() -> Any:
+        set_llm()
+        return pipe(*PROMPTS[1], seed=100)
+
+    report["ella"] = {"parameters": n_ella, **serving.gate("ELLA", per_call, set_llm)}
+    serving.request(f"ELLA ({ELLA_TOKENS} LLM tokens)", per_call * steps + 1, ella_request)
+    ella.eject()
+    if any(isinstance(m, type(ella.latents_encoder)) for m in sd.unet):
+        raise AssertionError("sd15 ELLA: the encoder is still in the UNet after eject")
+    serving.check_base("ELLA")
+    del ella, llm
+
+    # (b) IC-Light: a second UNet with phase 7's weights, its conv_in widened to 8 channels, plus a
+    # seeded patch (golden_cfg.build_ic_light); the condition a gray composite encoded once a request
+    t0 = time.perf_counter()
+    unet = SD1UNet(in_channels=4, device=dev, dtype=BF16)
+    unet.load_state_dict(sd.unet.state_dict())
+    shapes = {k: tuple(v.shape) for k, v in unet.state_dict().items()}
+    shapes[IC_LIGHT_CONV_IN] = (shapes[IC_LIGHT_CONV_IN][0], 8, *shapes[IC_LIGHT_CONV_IN][2:])
+    patch_gen = torch.Generator(dev).manual_seed(92)
+    patch = {k: (IC_LIGHT_PATCH_STD * torch.randn(shape, generator=patch_gen, device=dev)).to(BF16)
+             for k, shape in sorted(shapes.items())}  # fmt: skip
+    ic = ICLight(patch_weights=patch, unet=unet, lda=sd.lda, clip_text_encoder=sd.clip_text_encoder, device=dev, dtype=BF16)
+    del patch
+    torch.cuda.synchronize()
+    print(f"sd15 IC-Light: built from phase 7's UNet and a patch in {time.perf_counter() - t0:.2f} s, conv_in "
+          f"{tuple(ic.unet.state_dict()[IC_LIGHT_CONV_IN].shape)}")  # fmt: skip
+    rs = np.random.RandomState(93)
+    foreground = Image.fromarray((rs.rand(SD15_SIZE, SD15_SIZE, 3) * 255).astype(np.uint8))
+    yy, xx = np.indices((SD15_SIZE, SD15_SIZE)) - SD15_SIZE // 2
+    subject = Image.fromarray(np.where(yy**2 + xx**2 < (SD15_SIZE // 3) ** 2, 255, 0).astype(np.uint8), mode="L")
+    with torch.inference_mode():
+        ic.set_ic_light_condition(foreground, subject)
+    ic_serving = AdaptedServing(dev, ic, x, emb)
+    report["ic_light"] = ic_serving.gate("IC-Light", per_call)
+    ic_pipe = TextToImage(ic, size=(SD15_SIZE, SD15_SIZE), condition_scale=IC_LIGHT_SCALE)
+
+    def ic_request() -> Any:
+        with torch.inference_mode():
+            ic.set_ic_light_condition(foreground, subject)  # the condition's encode: one wide K1 launch
+        return ic_pipe(*PROMPTS[0], seed=101)
+
+    ic_serving.request(f"IC-Light (CFG {IC_LIGHT_SCALE})", per_call * steps + 2, ic_request)
+    ic_requests, _ = ic_serving.close()
+    del ic, unet, ic_serving, ic_pipe
+    _free()
+
+    # (c) MultiDiffusion: a 512 × 1024 panorama, three 64² tiles of 64 × 128 latents (overlap 32), each
+    # with its own DDIM, 30 steps, CFG 7.5
+    md = SD1MultiDiffusion(sd)
+    height, width = PANORAMA
+    tiles = MultiDiffusion.generate_latent_tiles(Size(height // 8, width // 8), Size(latent, latent), min_overlap=latent // 2)
+    print(f"sd15 MultiDiffusion: {len(tiles)} tiles {[tuple(t) for t in tiles]}")
+    if len(tiles) != 3:
+        raise AssertionError(f"the panorama has {len(tiles)} tiles, not 3")
+
+    def panorama() -> Any:
+        generator = torch.Generator(dev).manual_seed(102)
+        with torch.inference_mode():
+            embedding = sd.compute_clip_text_embedding(*PROMPTS[2])
+            targets = [SD1DiffusionTarget(tile=t, solver=DDIM(steps, device=dev), clip_text_embedding=embedding,
+                                          condition_scale=7.5) for t in tiles]  # fmt: skip
+            noise = torch.randn((1, 4, height // 8, width // 8), generator=generator, device=dev).to(sd.unet.dtype)
+            z = noise
+            for step in sd.steps:
+                z = md(z, noise=noise, step=step, targets=targets)
+            return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
+
+    serving.request(f"MultiDiffusion {height} × {width}", len(tiles) * per_call * steps + 1, panorama, size=PANORAMA)
+    serving.check_base("MultiDiffusion")
+    requests, launches = serving.close()
+    requests += ic_requests
+    launches = {"flash_attention_packed": sum(r["k1_launches"] for r in requests)}
+    del serving, pipe, md
+    _free()
+
+    # (d) the MultiUpscaler at clarity-upscaler's defaults, from files of phase 7's weights, a seeded
+    # tile ControlNet, two rank-32 LoRAs and a (4, 768) negative embedding
+    folder = Path(__file__).resolve().parent / "build" / "sd15_upscaler"
+    folder.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    files = {name: folder / f"{name}.safetensors" for name in ("unet", "clip", "lda", "controlnet", "negative")}
+    for name, module in (("unet", sd.unet), ("clip", sd.clip_text_encoder), ("lda", sd.lda)):
+        save_to_safetensors(files[name], module.state_dict())
+    controlnet = Controlnet(name="tile", device=dev, dtype=BF16)
+    synthesize_weights(controlnet, seed=94)
+    save_to_safetensors(files["controlnet"], controlnet.state_dict())
+    del controlnet
+    loras = {name: folder / f"lora_{name}.safetensors" for name in LORA_SCALES}
+    for (name, path), seed in zip(loras.items(), (95, 96)):
+        save_to_safetensors(path, _lora_weights(sd, seed, dev))
+    negative = torch.randn((4, 768), generator=gen, device=dev) * 768**-0.5
+    save_to_safetensors(files["negative"], {"emb_params": negative})
+    written = sum(f.stat().st_size for f in folder.iterdir())
+    print(f"sd15 MultiUpscaler: {written / 2**30:.2f} GiB of checkpoints written in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    upscaler = MultiUpscaler(
+        UpscalerCheckpoints(unet=files["unet"], clip_text_encoder=files["clip"], lda=files["lda"],
+                            controlnet_tile=files["controlnet"], negative_embedding=files["negative"],
+                            negative_embedding_key="emb_params", loras=loras),
+        device=dev, dtype=BF16,
+    )  # fmt: skip
+    torch.cuda.synchronize()
+    usd, lda = upscaler.sd, upscaler.sd.lda
+    n_lora = len(upscaler.manager.loras) if upscaler.manager is not None else 0
+    print(f"sd15 MultiUpscaler: loaded in {time.perf_counter() - t0:.2f} s ({usd.unet.dtype}, {usd.unet.device}); "
+          f"{n_lora} LoRA layers; negative tokens {upscaler.negative_embedding_token!r}")  # fmt: skip
+    if n_lora != 2 * LORA_LAYERS or upscaler.negative_embedding_token != ", <0> <1> <2> <3> ":
+        raise AssertionError(f"sd15 MultiUpscaler: {n_lora} LoRA layers, tokens {upscaler.negative_embedding_token!r}")
+    if any(not torch.equal(v, sd.unet.state_dict()[k]) for k, v in usd.unet.state_dict().items() if k in sd.unet.state_dict()):
+        raise AssertionError("sd15 MultiUpscaler: the UNet read from its file differs from phase 7's")
+    upscaler.controlnet.scale, upscaler.controlnet.scale_decay = UPSCALER_CONTROLNET
+
+    # one tile-step (UNet + tile ControlNet at 144 × 112 latents, CFG) three ways, and traced
+    tile_h, tile_w = UPSCALER_TILE
+    x_tile = torch.randn((1, 4, tile_h, tile_w), generator=gen, device=dev)
+    tile_condition = torch.rand((1, 3, 8 * tile_h, 8 * tile_w), generator=gen, device=dev)
+    with torch.inference_mode():
+        tile_emb = upscaler.compute_clip_text_embedding(UPSCALER_PROMPTS[0], UPSCALER_PROMPTS[1])
+
+    def set_tile() -> None:
+        upscaler.controlnet.set_controlnet_condition(tile_condition)
+
+    set_tile()
+    tile_serving = AdaptedServing(dev, usd, x_tile, tile_emb)
+    report["upscaler_tile_step"] = tile_serving.gate(f"MultiUpscaler tile-step ({tile_h} × {tile_w})", per_call + 4, set_tile)
+    tile_serving.close()
+    set_tile()
+    with torch.inference_mode():
+        x16, emb16 = x_tile.to(BF16), tile_emb.to(BF16)
+        profile = _profile("sd15 MultiUpscaler: one tile-step (144 × 112 latents, CFG batch 2, UNet + ControlNet, bf16, kernels)",
+                           lambda: usd.predict_noise(x16, 0, clip_text_embedding=emb16, condition_scale=6.0),
+                           unit="step")  # fmt: skip
+    profile["k1_share"] = profile["by_kind_ms"].get("attention (flash kernels)", 0.0) / profile["device_ms"]
+    print(f"sd15 MultiUpscaler: K1's share of the tile-step's device time {profile['k1_share']:.3f}")
+    report["upscaler_tile_step"]["unet_step_profile"] = profile
+    del tile_serving, x16, emb16
+
+    # one tiled decode of 192² latents (four tiles, statistics frozen on the 1536² image) three ways
+    source = Image.fromarray((np.random.RandomState(97).rand(UPSCALE_INPUT, UPSCALE_INPUT, 3) * 255).astype(np.uint8))
+    upscaled_input = upscaler.pre_upscale(source, upscale_factor=2)
+    side = upscaled_input.width // 8
+    z_tiles = torch.randn((1, 4, side, side), generator=gen, device=dev)
+    z_small = torch.randn((1, 4, latent, latent), generator=gen, device=dev).to(BF16)
+    vae_sdpa = list(lda.layers(fl.ScaledDotProductAttention, recurse=True))
+    with torch.inference_mode():
+        untiled = lda.decode(z_small)
+
+    def tiled_decode(dtype: torch.dtype, kernel: bool) -> tuple[torch.Tensor, int, int]:
+        lda.to(dtype=dtype)
+        for layer in vae_sdpa:
+            layer.is_optimized = kernel
+        with torch.inference_mode():
+            reset_launches()
+            with lda.tiled_inference(upscaled_input, (UPSCALER_VAE_TILE, UPSCALER_VAE_TILE)):
+                frozen = sum(1 for _ in lda.layers(FixedGroupNorm, recurse=True))
+                out = lda._tiled_decode(z_tiles.to(dtype), lda._tile_size, lda._blending)
+            torch.cuda.synchronize()
+        return out.float(), read_launches()["flash_attention_packed"], frozen
+
+    reference, _, frozen = tiled_decode(F32, kernel=False)
+    plain, plain_launches, _ = tiled_decode(BF16, kernel=False)
+    kernels, decode_launches, _ = tiled_decode(BF16, kernel=True)
+    err_kernel, err_plain = _rel(kernels, reference), _rel(plain, reference)
+    print(f"sd15 MultiUpscaler: one tiled decode of {side}² latents ({frozen} GroupNorms frozen) vs float32 reference: "
+          f"kernel route rel_err={err_kernel:.3e}, plain bf16 route rel_err={err_plain:.3e}; K1 launches "
+          f"{decode_launches} (plain route {plain_launches})")  # fmt: skip
+    if not (torch.isfinite(kernels).all() and err_kernel <= 2 * err_plain):
+        raise AssertionError(f"the tiled decode's kernel route is further from float32 than the plain route: "
+                             f"{err_kernel} > 2 × {err_plain}")  # fmt: skip
+    if (decode_launches, plain_launches) != (2 + UPSCALER_VAE_TILES, 0):
+        raise AssertionError(f"one tiled decode launched K1 {decode_launches} times (plain route {plain_launches}), "
+                             f"not {2 + UPSCALER_VAE_TILES} (0)")  # fmt: skip
+    report["upscaler_tiled_decode"] = {"bf16_kernels": err_kernel, "bf16_plain": err_plain,
+                                       "launches": decode_launches, "frozen_group_norms": frozen}  # fmt: skip
+    del reference, plain, kernels
+
+    # the request: 768² ×2 at the defaults, timed between synchronizes
+    finite: list[bool] = []
+    hook = lda[1].register_forward_hook(lambda _m, _i, out: finite.append(bool(torch.isfinite(out).all())))
+    first_step = int(UPSCALER_STEPS * (1 - UPSCALER_DENOISE))
+    want = (UPSCALER_STEPS - first_step) * UPSCALER_TILES * (per_call + 4) + 2 + 2 * UPSCALER_VAE_TILES
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    image = upscaler.upscale(source, prompt=UPSCALER_PROMPTS[0], negative_prompt=UPSCALER_PROMPTS[1],
+                             tile_size=UPSCALER_TILE, autoencoder_tile_length=UPSCALER_VAE_TILE,
+                             generator=torch.Generator(dev).manual_seed(103))  # fmt: skip
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launched = read_launches()["flash_attention_packed"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    hook.remove()
+    pixels = np.asarray(image)
+    print(f"sd15 MultiUpscaler {UPSCALE_INPUT}² ×2 (first step {first_step} of {UPSCALER_STEPS}, {UPSCALER_TILES} "
+          f"tiles): {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, image {image.size}, "
+          f"{len(finite)} decodes finite: {all(finite)}, pixel mean {pixels.mean():.2f} std {pixels.std():.2f}")  # fmt: skip
+    if launched != want:
+        raise AssertionError(f"sd15 MultiUpscaler launched K1 {launched} times, not {want}")
+    if image.size != (2 * UPSCALE_INPUT, 2 * UPSCALE_INPUT) or not all(finite) or np.ptp(pixels) == 0:
+        raise AssertionError(f"sd15 MultiUpscaler: the image {image.size} is not finite or is constant")
+    if any(True for _ in lda.layers(FixedGroupNorm, recurse=True)):
+        raise AssertionError("sd15 MultiUpscaler: a FixedGroupNorm is left after the tiled inference")
+    with torch.inference_mode():
+        again = lda.decode(z_small)
+    if not torch.equal(again, untiled):
+        raise AssertionError(f"sd15 MultiUpscaler: after the tiled inference the VAE's decode moved, "
+                             f"max abs {_max_abs(again, untiled)}")  # fmt: skip
+    print("sd15 MultiUpscaler: after tiled_inference the VAE's decode is bit-equal to the one before")
+    requests.append({"request": f"MultiUpscaler {UPSCALE_INPUT}² x2", "seconds": seconds, "peak_memory_bytes": peak,
+                     "k1_launches": launched})  # fmt: skip
+    launches["flash_attention_packed"] += launched
+    report["requests"] = requests
+    del upscaler, usd, lda, image, z_tiles, z_small, untiled, again, x_tile, tile_condition, tile_emb
+    shutil.rmtree(folder)
+    _free()
+    return report, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -2356,7 +2679,7 @@ def main() -> int:
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     sd15_packed = {label: next(r for r in packed if r["shape"] == shape and r["dtype"] == str(BF16) and not r["causal"])
-                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES}.items()}  # fmt: skip
+                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES}.items()}  # fmt: skip
     for label, result in sd15_packed.items():
         _print_row(label, result["ms"], rows[label])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
@@ -2372,6 +2695,7 @@ def main() -> int:
     sd15_report, sd15_launches, sd15 = run_sd15(dev)
     adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
+    slice_report, slice_launches = run_sd15_slice(dev, sd15)
     del sd15
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
@@ -2402,11 +2726,14 @@ def main() -> int:
                                     ("SD1.5 reference-only 64², d = 40, Lk = 2·Lq", "K1 ref-only 64²",
                                      sd15_packed["K1 ref-only 64²"]),
                                     ("SD1.5 reference-only 32², d = 80, Lk = 2·Lq", "K1 ref-only 32²",
-                                     sd15_packed["K1 ref-only 32²"]))
+                                     sd15_packed["K1 ref-only 32²"]),
+                                    *((f"SD1.5 {label.removeprefix('K1 ')}, d = {shape[4]}", label, sd15_packed[label])
+                                      for label, shape in SD15_UPSCALER_SHAPES.items()))
     ]  # fmt: skip
     k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"],
                    "sd15_adapters": adapters_launches["flash_attention_packed"],
-                   "sd15_zoo": zoo_launches["flash_attention_packed"]}  # fmt: skip
+                   "sd15_zoo": zoo_launches["flash_attention_packed"],
+                   "sd15_slice": slice_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -2464,6 +2791,7 @@ def main() -> int:
         "sd15": sd15_report,
         "sd15_adapters": adapters_report,
         "sd15_zoo": zoo_report,
+        "sd15_slice": slice_report,
     }
     print(json.dumps(summary))
     print(smi)

@@ -49,6 +49,17 @@ class Module(torch.nn.Module):
             return p.device
         return None
 
+    # -- safetensors --------------------------------------------------------
+
+    def load_from_safetensors(self: T, path: Any, strict: bool = True) -> T:
+        """Load weights from a safetensors file in the port's (torch) layout;
+        each tensor is copied into the parameter of its key, on that
+        parameter's device and in its dtype."""
+        from refiners_tpu_torch.fluxion.utils import load_from_safetensors
+
+        self.load_state_dict(load_from_safetensors(path), strict=strict)
+        return self
+
     # -- introspection ------------------------------------------------------
 
     def basic_attributes(self, init_attrs_only: bool = False) -> dict[str, Any]:

@@ -1,7 +1,9 @@
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
+from refiners_tpu_torch.foundationals.latent_diffusion.ella_adapter import ELLA, ELLAAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.freeu import SDFreeUAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.lora import SDLoraManager
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
+from refiners_tpu_torch.foundationals.latent_diffusion.multi_diffusion import DiffusionTarget, MultiDiffusion
 from refiners_tpu_torch.foundationals.latent_diffusion.reference_only_control import ReferenceOnlyControlAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.restart import Restart
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import (
@@ -22,6 +24,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import
     Controlnet,
     SD1Autoencoder,
     SD1ControlnetAdapter,
+    SD1ELLAAdapter,
     SD1IPAdapter,
     SD1T2IAdapter,
     SD1UNet,
@@ -43,18 +46,23 @@ __all__ = [
     "DDIM",
     "DDPM",
     "DPMSolver",
+    "DiffusionTarget",
     "DoubleTextEncoder",
+    "ELLA",
+    "ELLAAdapter",
     "Euler",
     "FrankenSolver",
     "LCMSolver",
     "LatentDiffusionAutoencoder",
     "LatentDiffusionModel",
     "ModelPredictionType",
+    "MultiDiffusion",
     "NoiseSchedule",
     "ReferenceOnlyControlAdapter",
     "Restart",
     "SD1Autoencoder",
     "SD1ControlnetAdapter",
+    "SD1ELLAAdapter",
     "SD1IPAdapter",
     "SD1T2IAdapter",
     "SD1UNet",

@@ -34,18 +34,30 @@ from refiners_tpu_torch.foundationals.latent_diffusion import (
     StableDiffusion_XL,
 )
 from refiners_tpu_torch.foundationals.latent_diffusion import (
+    Euler,
+    LCMSolver,
+    ModelPredictionType,
     ReferenceOnlyControlAdapter,
     Restart,
     SD1ControlnetAdapter,
+    SD1ELLAAdapter,
     SD1IPAdapter,
     SD1T2IAdapter,
     SDFreeUAdapter,
+    SolverParams,
     StableDiffusion_1_Inpainting,
     StyleAlignedAdapter,
+    TimestepSpacing,
+)
+from refiners_tpu_torch.foundationals.latent_diffusion.multi_diffusion import MultiDiffusion, Size
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import (
+    ICLight,
+    SD1DiffusionTarget,
+    SD1MultiDiffusion,
 )
 from tests.e2e import golden_cfg
 from tests.e2e.golden_cfg import GOLDEN_DIR, build_sd15_full, build_sd15_reduced, build_sdxl_full, to_pil
-from tests.utils import ensure_similar_images
+from tests.utils import compute_psnr, ensure_similar_images, image_to_array
 
 PROMPT, NEGATIVE = "a cute cat, best quality", "low quality, blurry"  # golden_cfg.run_sd15_*
 
@@ -59,8 +71,11 @@ def _bridge(port: Any, jax_model: Any) -> Any:
 
 
 def _check(name: str, image: torch.Tensor) -> None:
+    """The envelope, and the PSNR printed (`pytest -s`)."""
     golden = Image.open(GOLDEN_DIR / f"{name}.png")
-    ensure_similar_images(to_pil(nchw_to_nhwc(image.numpy())), golden, min_psnr=35, min_ssim=0.98, min_dino_cosine=0.99)
+    got = to_pil(nchw_to_nhwc(image.numpy()))
+    print(f"{name}: PSNR {compute_psnr(image_to_array(got), image_to_array(golden)):.2f} dB")
+    ensure_similar_images(got, golden, min_psnr=35, min_ssim=0.98, min_dino_cosine=0.99)
 
 
 def _sd15(sd: StableDiffusion_1, latent: int, scale_input: bool) -> torch.Tensor:
@@ -125,9 +140,10 @@ def test_sdxl_full_30step_golden() -> None:
     _check("sdxl_full_30step_256", image)
 
 
-def _sd15_stub_clip() -> StableDiffusion_1:
-    """`golden_cfg._sd15_stub_clip` in the port: full-width SD1.5, 10 DDIM steps, no text encoder."""
-    return StableDiffusion_1(solver=DDIM(num_inference_steps=10), clip_text_encoder=fl.Chain(fl.Identity()), device="cpu")
+def _sd15_stub_clip(steps: int = 10, solver: Any = None) -> StableDiffusion_1:
+    """`golden_cfg._sd15_stub_clip` in the port: full-width SD1.5, 10 DDIM steps (or `solver`), no text encoder."""
+    solver = solver if solver is not None else DDIM(num_inference_steps=steps)
+    return StableDiffusion_1(solver=solver, clip_text_encoder=fl.Chain(fl.Identity()), device="cpu")
 
 
 def _traj(
@@ -137,10 +153,11 @@ def _traj(
     batch: int = 1,
     pre_step: Callable[[int], None] | None = None,
     per_step: Callable[[int, torch.Tensor], torch.Tensor] | None = None,
+    scale: float = 7.5,
 ) -> torch.Tensor:
-    """`golden_cfg._traj` through the port: 16×16 latents, CFG 7.5, step by
-    step (`pre_step` before and `per_step` after each), then the decode; a
-    batch's images side by side, as the golden tiles them."""
+    """`golden_cfg._traj` through the port: 16×16 latents, CFG at `scale`,
+    step by step (`pre_step` before and `per_step` after each), then the
+    decode; a batch's images side by side, as the golden tiles them."""
     noise = np.random.RandomState(noise_seed).randn(batch, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)
     emb = torch.tensor(np.random.RandomState(emb_seed).randn(2 * batch, 77, 768).astype(np.float32))
     x = torch.tensor(nhwc_to_nchw(noise))
@@ -148,7 +165,7 @@ def _traj(
         for step in sd.steps:
             if pre_step is not None:
                 pre_step(step)
-            x = sd(x, step, clip_text_embedding=emb, condition_scale=7.5)
+            x = sd(x, step, clip_text_embedding=emb, condition_scale=scale)
             if per_step is not None:
                 x = per_step(step, x)
         image = sd.lda.decode(x)
@@ -361,3 +378,112 @@ def test_ip_adapter_plus_10step_golden() -> None:
     with torch.inference_mode():
         adapter.set_clip_image_embedding(adapter.compute_clip_image_embedding(image))
     _check("ip_adapter_plus_10step_128", _traj(port, noise_seed=76, emb_seed=77))
+
+
+@pytest.mark.slow
+def test_ella_10step_golden() -> None:
+    """`build_ella`: `SD1ELLAAdapter` (its encoder damped ×0.2, as there) on
+    a 12-token LLM embedding, also ×0.2; ELLA's keys are the UNet's after
+    injection, so the bridge carries them."""
+    port = _sd15_stub_clip()
+    adapter = SD1ELLAAdapter(port.unet).inject()
+    jax_sd, _ = golden_cfg.build_ella()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    adapter.set_llm_text_embedding(torch.tensor(0.2 * np.random.RandomState(58).randn(2, 12, 2048).astype(np.float32)))
+    _check("ella_10step_128", _traj(port))
+
+
+@pytest.mark.slow
+def test_ic_light_10step_golden() -> None:
+    """`build_ic_light`: `ICLight` from a zero patch, then JAX's patched
+    UNet bridged (conv_in of 8 channels); the condition a gray composite,
+    CFG 2.0."""
+    unet = SD1UNet(in_channels=4)
+    zero = {k: torch.zeros(v.shape) for k, v in unet.state_dict().items()}
+    zero["DownBlocks.Chain_1.Conv2d.weight"] = torch.zeros((320, 8, 3, 3))  # OIHW: 8 input channels
+    port = ICLight(patch_weights=zero, unet=unet, lda=SD1Autoencoder(), clip_text_encoder=fl.Chain(fl.Identity()),
+                   solver=DDIM(num_inference_steps=10), device="cpu")  # fmt: skip
+    _bridge(port, golden_cfg.build_ic_light())
+    gc.collect()
+    g = np.random.RandomState(61)
+    image = Image.fromarray((g.rand(128, 128, 3) * 255).astype(np.uint8))
+    mask = Image.fromarray((np.indices((128, 128)).sum(0) % 2 * 255).astype(np.uint8), mode="L")
+    with torch.inference_mode():
+        port.set_ic_light_condition(ICLight.compute_gray_composite(image=image, mask=mask))
+    _check("ic_light_10step_128", _traj(port, scale=2.0, noise_seed=62, emb_seed=63))
+
+
+@pytest.mark.slow
+def test_multi_diffusion_4step_golden() -> None:
+    """`build_multi_diffusion`: two 16² tiles over 16 × 24 latents, each with its own DDIM, 4 steps."""
+    port = _sd15_stub_clip(steps=4)
+    jax_sd, _, _ = golden_cfg.build_multi_diffusion()
+    _bridge(port, jax_sd)
+    del jax_sd
+    gc.collect()
+    md = SD1MultiDiffusion(port)
+    emb = torch.tensor(np.random.RandomState(72).randn(2, 77, 768).astype(np.float32))
+    targets = [SD1DiffusionTarget(tile=t, solver=DDIM(num_inference_steps=4), clip_text_embedding=emb)
+               for t in MultiDiffusion.generate_latent_tiles(size=Size(16, 24), tile_size=Size(16, 16))]  # fmt: skip
+    noise = torch.tensor(nhwc_to_nchw(np.random.RandomState(73).randn(1, 16, 24, 4).astype(np.float32)))
+    x = noise
+    with torch.inference_mode():
+        for step in port.steps:
+            x = md(x, noise=noise, step=step, targets=targets)
+        image = port.lda.decode(x)
+    _check("multi_diffusion_4step_128", image)
+
+
+@pytest.mark.slow
+def test_lcm_4step_golden() -> None:
+    """`build_lcm`: `LCMSolver` 4 steps at CFG 1.5, re-noised between steps
+    with the JAX key's noise (`fold_in(key(68), step)`), injected through
+    `_renoising_noise`."""
+    import jax
+
+    port = _sd15_stub_clip(solver=LCMSolver(num_inference_steps=4))
+    _bridge(port, golden_cfg.build_lcm())
+    gc.collect()
+    shape = (1, golden_cfg._LATENT, golden_cfg._LATENT, 4)
+    noises = iter([np.asarray(jax.random.normal(jax.random.fold_in(jax.random.key(68), step), shape))
+                   for step in port.steps])  # fmt: skip
+    port.solver._renoising_noise = lambda generator, _shape: torch.tensor(nhwc_to_nchw(next(noises)))  # type: ignore[method-assign]
+    _check("lcm_4step_128", _traj(port, scale=1.5, noise_seed=66, emb_seed=67))
+
+
+@pytest.mark.slow
+def test_inpainting_10step_golden() -> None:
+    """`build_inpainting`: the 9-channel model, a checkerboard mask of 64² squares, 10 DDIM steps."""
+    port = StableDiffusion_1_Inpainting(solver=DDIM(num_inference_steps=10), clip_text_encoder=fl.Chain(fl.Identity()),
+                                        device="cpu")  # fmt: skip
+    _bridge(port, golden_cfg.build_inpainting())
+    gc.collect()
+    g = np.random.RandomState(69)
+    target = Image.fromarray((g.rand(128, 128, 3) * 255).astype(np.uint8))
+    mask = Image.fromarray((np.indices((128, 128)).sum(0) // 64 % 2 * 255).astype(np.uint8), mode="L")
+    with torch.inference_mode():
+        port.set_inpainting_conditions(target, mask, latents_size=(golden_cfg._LATENT, golden_cfg._LATENT))
+    _check("inpainting_10step_128", _traj(port, noise_seed=70, emb_seed=71))
+
+
+@pytest.mark.slow
+def test_lightning_4step_golden() -> None:
+    """`build_lightning_4step`: full-width SDXL, 4 trailing Euler steps, no CFG."""
+    params = SolverParams(timesteps_spacing=TimestepSpacing.TRAILING, model_prediction_type=ModelPredictionType.NOISE)
+    port = StableDiffusion_XL(unet=SDXLUNet(in_channels=4), lda=SDXLAutoencoder(), clip_text_encoder=fl.Chain(fl.Identity()),
+                              solver=Euler(num_inference_steps=4, params=params), device="cpu")  # fmt: skip
+    port.classifier_free_guidance = False
+    _bridge(port, golden_cfg.build_lightning_4step())
+    gc.collect()
+    rs = np.random.RandomState(84)
+    emb = torch.tensor(rs.randn(1, 77, 2048).astype(np.float32))
+    pooled = torch.tensor(rs.randn(1, 1280).astype(np.float32))
+    noise = torch.tensor(nhwc_to_nchw(rs.randn(1, golden_cfg._LATENT, golden_cfg._LATENT, 4).astype(np.float32)))
+    with torch.inference_mode():
+        x = port.solver.scale_model_input(noise, step=-1)
+        for step in port.steps:
+            x = port(x, step, clip_text_embedding=emb, pooled_text_embedding=pooled, time_ids=port.default_time_ids)
+        image = port.lda.decode(x)
+    _check("lightning_4step_128", image)
