@@ -199,10 +199,40 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    10 on the VAE's tiles and frozen pass), 1536² and finite, the VAE's
    decode bit-equal after ``tiled_inference`` exits.
 
+11. SDXL's adapter zoo: phase 3's bf16 SDXL (rebuilt from its seeds) at
+   1024², two bare requests first (2101 K1 launches each), then one
+   request for each adapter set, injected before it and ejected after it:
+   (a) self-attention guidance at 1.0 through ``set_self_attention_guidance``
+   (a batch-1 UNet call a step on the degraded latents; 30 DDIM steps, CFG
+   5.0); (b) ``SDXLT2IAdapter`` "canny" at 0.8 on a seeded 1024² condition;
+   (c) ``SDXLIPAdapter`` and (d) its plus variant on a full-width
+   ``CLIPImageEncoderH`` and a seeded image; (e) two rank-32 LoRAs through
+   ``SDLoraManager`` (every Linear of the UNet's transformers, of CLIP-L
+   and of CLIP-G) at 1.0 and 0.5; (f) ``SDXLLcmAdapter`` with ``LCMSolver``,
+   (g) an LCM-LoRA at rank 64 through ``add_lcm_lora`` with ``LCMSolver``
+   and (h) an SDXL-Lightning LoRA through ``add_lcm_lora(name="lightning",
+   scale=1.0)`` with 4 trailing ``Euler`` steps, each 4 steps without
+   classifier-free guidance; (i) ``ControlLoraAdapter`` "depth" at rank
+   128 from a seeded checkpoint in stability-ai's original format
+   (``load_original_weights``) on a seeded condition; (j)
+   ``SDXLMultiDiffusion`` over a 1024 × 2048 panorama (three 128² latent
+   tiles, 30 DDIM steps) and one decode of the whole image. For (a)-(i):
+   one UNet step three ways, gated as in phase 8 (K1 launches 140, 70, 70,
+   70, 70, 70, 70, 70, 104; SAG's routes take the float32 step's mask; the
+   sets without guidance at batch 1); each request's seconds, peak memory
+   and K1 launches (4201, 2101 × 4, 281 × 3, 3121, the panorama 6301),
+   every image finite and not constant; after each eject the base step
+   bit-equal to the one before the first injection. The Control-LoRA's
+   copy shares the UNet's tensors (device memory added at most its own
+   parameters' plus 64 MiB) and its LoRAs leave the UNet's own path
+   alone; one Control-LoRA step is traced (device time by kind, idle and
+   K1 share). Phase 2 holds K1 at the new sites: (1, 4096, 4096, 10, 64),
+   (1, 1024, 1024, 20, 64) and (1, 32768, 32768, 1, 512).
+
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6, 7b, 8b, 9b and 10's requests, each with the counts
-set to 0 just before it; K1's over phases 3, 7b, 8b, 9b and 10, by path), the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+phases 3, 4b, 5b, 6, 7b, 8b, 9b, 10 and 11's requests, each with the counts
+set to 0 just before it; K1's over phases 3, 7b, 8b, 9b, 10 and 11, by path),
+the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -270,6 +300,11 @@ ATTENTION_SHAPES = [
     (2, 4032, 4032, 8, 80, False, BF16),
     (1, 9216, 9216, 1, 512, False, BF16),
     (1, 5184, 5184, 1, 512, False, BF16),
+    # phase 11's sites: the SDXL UNet at batch 1 (SAG's degraded pass, LCM, Lightning), and the VAE
+    # decoder's mid-block on a 1024 × 2048 panorama's 128 × 256 latents (512 blocks of 64 rows)
+    (1, 4096, 4096, 10, 64, False, BF16),
+    (1, 1024, 1024, 20, 64, False, BF16),
+    (1, 32768, 32768, 1, 512, False, BF16),
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
@@ -285,6 +320,9 @@ SD15_ZOO_SHAPES = {"K1 StyleAligned 64²": [4, 4096, 8192, 8, 40], "K1 StyleAlig
 # and 72 × 72 latents (its 128² tiles are the SDXL VAE row's shape)
 SD15_UPSCALER_SHAPES = {"K1 upscaler 144×112": [2, 16128, 16128, 8, 40], "K1 upscaler 72×56": [2, 4032, 4032, 8, 80],
                         "K1 tiled VAE 128×72": [1, 9216, 9216, 1, 512], "K1 tiled VAE 72²": [1, 5184, 5184, 1, 512]}  # fmt: skip
+# K1 at phase 11's sites: 10 + 60 launches per UNet call at batch 1, one per panorama decode
+SDXL_ZOO_SHAPES = {"K1 SDXL 64² batch 1": [1, 4096, 4096, 10, 64], "K1 SDXL 32² batch 1": [1, 1024, 1024, 20, 64],
+                   "K1 SDXL VAE 128×256": [1, 32768, 32768, 1, 512]}  # fmt: skip
 TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
@@ -387,6 +425,15 @@ UPSCALER_CONTROLNET = (0.6, 0.825)
 UPSCALER_VAE_TILE = 1024
 UPSCALER_TILES, UPSCALER_VAE_TILES = 4, 4  # over 192 × 192 latents: 2 × 2 of each
 UPSCALER_PROMPTS = ("masterpiece, best quality, highres", "worst quality, low quality, normal quality")
+# phase 11: SDXL's adapter zoo at 1024² (the panorama 1024 × 2048), bf16, phase 3's weights
+SDXL_SIZE = 1024
+SDXL_PANORAMA = (1024, 2048)  # (height, width)
+SDXL_LAUNCHES_PER_CALL = 70  # K1's UNet sites: 10 self-attentions at 4096 tokens, 60 at 1024
+CONTROL_LORA_SITES = 4 + 20 + 10  # the half-UNet's: its down blocks at 4096 and 1024 tokens, its middle block
+SDXL_SAG_SCALE = 1.0
+SDXL_LORA_RANK, SDXL_LORA_SCALES = 32, {"style": 1.0, "detail": 0.5}
+LCM_LORA_RANK = 64  # the LCM-LoRA's and the Lightning LoRA's
+CONTROL_LORA_RANK = 128  # stability-ai's published Control-LoRAs: rank 128 and 256
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -772,7 +819,8 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     # self-attention, and at the VAE decoder's mid-block (one head of d = 512
     # over 128×128 latents)
     sites = [("K1", (2, 4096, 4096, 10, 64)), ("K1 32²", (2, 1024, 1024, 20, 64)), ("K1 VAE", (1, 16384, 16384, 1, 512))]
-    sites += [(label, tuple(shape)) for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES}.items()]
+    sites += [(label, tuple(shape)) for label, shape in
+              {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES}.items()]  # fmt: skip
     for label, (b, lq, lk, h, d) in sites:
         q, k, v = randn(b, lq, h * d), randn(b, lk, h * d), randn(b, lk, h * d)
         heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
@@ -1849,25 +1897,32 @@ def _lora_weights(sd: Any, seed: int, dev: torch.device) -> dict[str, torch.Tens
 
 
 class AdaptedServing:
-    """Phases 8 and 9: phase 7's bf16 SD1.5 with adapter sets injected in
-    turn. One CFG UNet step (at step 0 of the model's solver) three ways,
-    gated; after each eject the bare step, which must equal the one taken
-    before the first injection bit for bit; and requests, each between
-    synchronizes with its seconds, peak memory and K1 launches (counted
-    from 0), every image it decodes finite and not constant."""
+    """Phases 8 to 11: a bf16 model (phase 7's SD1.5, or SDXL) with adapter
+    sets injected in turn. One UNet step (at step 0 of the model's solver)
+    three ways, gated; after each eject the bare CFG step, which must equal
+    the one taken before the first injection bit for bit; and requests, each
+    between synchronizes with its seconds, peak memory and K1 launches
+    (counted from 0), every image it decodes finite and not constant.
+    `extra` holds the model's other step inputs (SDXL: the pooled
+    embedding and the time ids), `prefix` names the model in the log."""
 
-    def __init__(self, dev: torch.device, sd: Any, x: torch.Tensor, emb: torch.Tensor) -> None:
+    def __init__(self, dev: torch.device, sd: Any, x: torch.Tensor, emb: torch.Tensor, prefix: str = "sd15",
+                 condition_scale: float = 7.5, extra: dict[str, torch.Tensor] | None = None,
+                 size: tuple[int, int] | None = None) -> None:  # fmt: skip
         self.dev, self.sd, self.x, self.emb = dev, sd, x, emb
+        self.prefix, self.condition_scale, self.extra = prefix, condition_scale, extra or {}
+        self.size = size if size is not None else (SD15_SIZE, SD15_SIZE)
         self.decoded: list[torch.Tensor] = []
         self.hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: self.decoded.append(out.float()))
         self.requests: list[dict[str, Any]] = []
         self.base, _ = self.step(BF16, kernel=True)
 
     def step(self, dtype: torch.dtype, kernel: bool, prepare: Callable[[], None] = lambda: None,
-             inputs: tuple[torch.Tensor, torch.Tensor] | None = None) -> tuple[torch.Tensor, int]:  # fmt: skip
-        """One CFG UNet step in `dtype`, through the kernels or on the plain
+             inputs: tuple[torch.Tensor, ...] | None = None,
+             extra: dict[str, torch.Tensor] | None = None) -> tuple[torch.Tensor, int]:  # fmt: skip
+        """One UNet step in `dtype`, through the kernels or on the plain
         path; `prepare` sets the adapters' inputs in the UNet's dtype;
-        `inputs` (latents, text embedding) replace the default ones."""
+        `inputs` (latents, text embedding) and `extra` replace the default ones."""
         import refiners_tpu_torch.fluxion.layers as fl
 
         self.sd.unet.to(dtype=dtype)
@@ -1875,39 +1930,41 @@ class AdaptedServing:
             layer.is_optimized = kernel
         prepare()
         latents, embedding = inputs if inputs is not None else (self.x, self.emb)
+        kwargs = {k: v.to(dtype) if v.is_floating_point() else v for k, v in (extra or self.extra).items()}
         with torch.inference_mode():
             reset_launches()
             noise = self.sd.predict_noise(latents.to(dtype), 0, clip_text_embedding=embedding.to(dtype),
-                                          condition_scale=7.5)  # fmt: skip
+                                          condition_scale=self.condition_scale, **kwargs)  # fmt: skip
             torch.cuda.synchronize()
         return noise.float(), read_launches()["flash_attention_packed"]
 
     def gate(self, label: str, want: int, prepare: Callable[[], None] = lambda: None,
-             inputs: tuple[torch.Tensor, torch.Tensor] | None = None, tf32: bool = False) -> dict[str, Any]:  # fmt: skip
+             inputs: tuple[torch.Tensor, ...] | None = None, tf32: bool = False,
+             extra: dict[str, torch.Tensor] | None = None) -> dict[str, Any]:  # fmt: skip
         """The adapted step three ways, held as phase 7 holds the bare one:
         the bf16 kernel route at most twice as far from float32 (TF32 off)
         as the bf16 plain route, and exactly `want` K1 launches (0 plain)."""
-        reference, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs)
+        reference, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs, extra=extra)
         out: dict[str, Any] = {}
         if tf32:
             # PyTorch's default float32 on the card: cuDNN convolutions in TF32, matmuls exact
             torch.backends.cudnn.allow_tf32 = True
-            reference_tf32, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs)
+            reference_tf32, _ = self.step(F32, kernel=False, prepare=prepare, inputs=inputs, extra=extra)
             torch.backends.cudnn.allow_tf32 = False
             out["f32_tf32_default_rel_err"] = _rel(reference_tf32, reference)
-            print(f"sd15 {label}: float32 step under PyTorch's default (cudnn.allow_tf32=True) vs TF32 off: "
+            print(f"{self.prefix} {label}: float32 step under PyTorch's default (cudnn.allow_tf32=True) vs TF32 off: "
                   f"rel_err={out['f32_tf32_default_rel_err']:.3e}")  # fmt: skip
             del reference_tf32
-        plain, plain_launches = self.step(BF16, kernel=False, prepare=prepare, inputs=inputs)
-        kernels, launches = self.step(BF16, kernel=True, prepare=prepare, inputs=inputs)
+        plain, plain_launches = self.step(BF16, kernel=False, prepare=prepare, inputs=inputs, extra=extra)
+        kernels, launches = self.step(BF16, kernel=True, prepare=prepare, inputs=inputs, extra=extra)
         err_kernel, err_plain = _rel(kernels, reference), _rel(plain, reference)
-        print(f"sd15 {label}: one UNet step vs float32 reference: kernel route rel_err={err_kernel:.3e}, plain bf16 "
-              f"route rel_err={err_plain:.3e}; K1 launches {launches} (plain route {plain_launches})")  # fmt: skip
+        print(f"{self.prefix} {label}: one UNet step vs float32 reference: kernel route rel_err={err_kernel:.3e}, "
+              f"plain bf16 route rel_err={err_plain:.3e}; K1 launches {launches} (plain route {plain_launches})")  # fmt: skip
         if not (torch.isfinite(kernels).all() and err_kernel <= 2 * err_plain):
-            raise AssertionError(f"sd15 {label}: the kernel route is further from float32 than the plain route: "
-                                 f"{err_kernel} > 2 × {err_plain}")  # fmt: skip
+            raise AssertionError(f"{self.prefix} {label}: the kernel route is further from float32 than the plain "
+                                 f"route: {err_kernel} > 2 × {err_plain}")  # fmt: skip
         if (launches, plain_launches) != (want, 0):
-            raise AssertionError(f"sd15 {label}: one UNet step launched K1 {launches} times (plain route "
+            raise AssertionError(f"{self.prefix} {label}: one UNet step launched K1 {launches} times (plain route "
                                  f"{plain_launches}), not {want} (0)")  # fmt: skip
         return {**out, "bf16_kernels": err_kernel, "bf16_plain": err_plain, "step_launches": launches}
 
@@ -1917,13 +1974,14 @@ class AdaptedServing:
         run the same (deterministic) forward kernels."""
         again, _ = self.step(BF16, kernel=True)
         if not torch.equal(again, self.base):
-            raise AssertionError(f"sd15 {label}: after eject the base step moved, max abs {_max_abs(again, self.base)}")
-        print(f"sd15 {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
+            raise AssertionError(f"{self.prefix} {label}: after eject the base step moved, "
+                                 f"max abs {_max_abs(again, self.base)}")  # fmt: skip
+        print(f"{self.prefix} {label}: ejected; the base UNet step is bit-equal to the one before the first injection")
 
     def request(self, label: str, want: int, fn: Callable[[], Any], size: tuple[int, int] | None = None) -> None:
         """One request, `fn` (its per-request conditions included), of images of `size` (height, width;
-        SD15_SIZE² by default)."""
-        size = size if size is not None else (SD15_SIZE, SD15_SIZE)
+        the serving's size by default)."""
+        size = size if size is not None else self.size
         del self.decoded[:]
         torch.cuda.reset_peak_memory_stats(self.dev)
         torch.cuda.synchronize()
@@ -1936,14 +1994,14 @@ class AdaptedServing:
         peak = torch.cuda.max_memory_allocated(self.dev)
         images = out if isinstance(out, list) else [out]
         z = torch.cat(self.decoded)
-        print(f"sd15 {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
+        print(f"{self.prefix} {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
               f"{len(images)} image(s), decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
         if launched != want:
-            raise AssertionError(f"sd15 {label} launched K1 {launched} times, not {want}")
+            raise AssertionError(f"{self.prefix} {label} launched K1 {launched} times, not {want}")
         if tuple(z.shape) != (len(images), 3, *size) or not torch.isfinite(z).all():
-            raise AssertionError(f"sd15 {label}: decoded images of shape {tuple(z.shape)} are not finite")
+            raise AssertionError(f"{self.prefix} {label}: decoded images of shape {tuple(z.shape)} are not finite")
         if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
-            raise AssertionError(f"sd15 {label}: an image is constant")
+            raise AssertionError(f"{self.prefix} {label}: an image is constant")
         self.requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
 
     def close(self) -> tuple[list[dict[str, Any]], dict[str, int]]:
@@ -2618,6 +2676,412 @@ def run_sd15_slice(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: SDXL's adapter zoo
+# ---------------------------------------------------------------------------
+
+
+def _pair(gen: torch.Generator, dev: torch.device, rank: int, out_features: int, fan_in: tuple[int, ...],
+          up_kernel: tuple[int, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:  # fmt: skip
+    """A LoRA's (down, up) in the reference (torch) layout: down of `rank`
+    rows over `fan_in` (in_features, or in_channels and a kernel) with unit
+    output scale, up scaled so that the LoRA at scale 1 moves its layer's
+    output by about 30 %."""
+    down = torch.randn((rank, *fan_in), generator=gen, device=dev) * math.prod(fan_in) ** -0.5
+    up = torch.randn((out_features, rank, *up_kernel), generator=gen, device=dev) * (0.3 * rank**-0.5)
+    return down, up
+
+
+def _sdxl_lora_weights(sd: Any, seed: int, dev: torch.device, rank: int) -> dict[str, torch.Tensor]:
+    """A kohya-style SDXL LoRA: `lora_unet_*` on every Linear of the UNet's
+    11 transformers (projections, attention, feed-forward), `lora_te1_*` on
+    CLIP-L's and `lora_te2_*` on CLIP-G's, keyed in the order of the tree."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.unet import SDXLCrossAttention
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    parallel = sd.clip_text_encoder.layer("Parallel", fl.Parallel)
+    groups = (("lora_unet", [l for a in sd.unet.layers(SDXLCrossAttention, recurse=True) for l in a.layers(fl.Linear, recurse=True)]),
+              ("lora_te1_text_model", list(parallel[0].layers(fl.Linear, recurse=True))),
+              ("lora_te2_text_model", list(parallel[1].layers(fl.Linear, recurse=True))))  # fmt: skip
+    tensors: dict[str, torch.Tensor] = {}
+    for prefix, linears in groups:
+        for n, linear in enumerate(linears):
+            down, up = _pair(gen, dev, rank, linear.out_features, (linear.in_features,))
+            tensors[f"{prefix}_{n:04d}.lora_down.weight"], tensors[f"{prefix}_{n:04d}.lora_up.weight"] = down, up
+    return tensors
+
+
+def _lcm_lora_weights(unet: Any, seed: int, dev: torch.device, rank: int) -> dict[str, torch.Tensor]:
+    """An LCM-LoRA (or SDXL-Lightning LoRA) in diffusers' key names: each
+    transformer's `proj_in`/`proj_out` (`lora_unet_down_blocks_1_attentions_0_proj_in`, ...)
+    and every Linear of its transformer blocks."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion.cross_attention import CrossAttentionBlock
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.unet import SDXLCrossAttention
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    diffusers = {"DownBlocks": ("down_blocks", [0, 0, 0, 0, 1, 1, 1, 2, 2]), "UpBlocks": ("up_blocks", [0, 0, 0, 1, 1, 1, 2, 2, 2])}
+    tensors: dict[str, torch.Tensor] = {}
+    attentions: dict[str, int] = {}
+
+    def add(key: str, linear: Any) -> None:
+        down, up = _pair(gen, dev, rank, linear.out_features, (linear.in_features,))
+        tensors[f"{key}.lora_down.weight"], tensors[f"{key}.lora_up.weight"] = down, up
+
+    for name in ("DownBlocks", "MiddleBlock", "UpBlocks"):
+        chains = [unet.layer(name, fl.Chain)] if name == "MiddleBlock" else list(unet.layer(name, fl.Chain))
+        for i, chain in enumerate(chains):
+            for attention in chain.layers(SDXLCrossAttention):
+                block = "mid_block" if name == "MiddleBlock" else f"{diffusers[name][0]}_{diffusers[name][1][i]}"
+                prefix = f"lora_unet_{block}_attentions_{attentions.setdefault(block, 0)}"
+                attentions[block] += 1
+                linears = list(attention.layers(fl.Linear, recurse=True))
+                add(f"{prefix}_proj_in", linears[0])
+                add(f"{prefix}_proj_out", linears[-1])
+                for j, transformer in enumerate(attention.layers(CrossAttentionBlock, recurse=True)):
+                    for n, linear in enumerate(transformer.layers(fl.Linear, recurse=True)):
+                        add(f"{prefix}_transformer_blocks_{j}_lin_{n}", linear)
+    return tensors
+
+
+def _control_lora_checkpoint(control: Any, seed: int, dev: torch.device, rank: int) -> tuple[dict[str, torch.Tensor], int]:
+    """A stability-ai-format Control-LoRA of `rank` shaped from the
+    ControlLora's tree (torch layouts): a `.down`/`.up` pair for every Linear
+    and Conv2d outside its zero convolutions and condition encoder, in the
+    order of the tree (conv LoRAs down at the layer's kernel, up 1×1);
+    `input_hint_block.{2i}` for the condition encoder's convolutions;
+    `zero_convs.{i}.0` and `middle_block_out.0` at a tenth of unit scale.
+    Also the number of layers the LoRAs are for."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.control_lora import (
+        ConditionEncoder,
+        ZeroConvolution,
+    )
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    excluded = {id(w) for kind in (ConditionEncoder, ZeroConvolution) for sub in control.layers(kind, recurse=True)
+                for w in sub.layers(fl.WeightedModule, recurse=True)}  # fmt: skip
+    layers = [m for m, _ in control.walk(lambda m, _: isinstance(m, (fl.Linear, fl.Conv2d)), recurse=True)
+              if id(m) not in excluded]  # fmt: skip
+    tensors: dict[str, torch.Tensor] = {}
+    for n, layer in enumerate(layers):
+        if isinstance(layer, fl.Linear):
+            down, up = _pair(gen, dev, rank, layer.out_features, (layer.in_features,))
+        else:
+            down, up = _pair(gen, dev, rank, layer.out_channels, (layer.in_channels, *layer.weight.shape[2:]), (1, 1))
+        tensors[f"lora.a{n:04d}.down"], tensors[f"lora.a{n:04d}.up"] = down, up
+
+    def conv(stem: str, layer: Any, gain: float) -> None:
+        fan_in = math.prod(layer.weight.shape[1:])
+        tensors[f"{stem}.weight"] = gain * fan_in**-0.5 * torch.randn(layer.weight.shape, generator=gen, device=dev)
+        tensors[f"{stem}.bias"] = torch.zeros(layer.out_channels, device=dev)
+
+    for i, layer in enumerate(control.ensure_find(ConditionEncoder).layers(fl.Conv2d, recurse=True)):
+        conv(f"input_hint_block.{2 * i}", layer, 1.0)
+    zero_convs = [z.ensure_find(fl.Conv2d) for z in control.layers(ZeroConvolution, recurse=True)]
+    for i, layer in enumerate(zero_convs):
+        conv(f"zero_convs.{i}.0" if i < len(zero_convs) - 1 else "middle_block_out.0", layer, 0.1)
+    return tensors, len(layers)
+
+
+def build_sdxl(dev: torch.device) -> Any:
+    """Phase 3's model: full-width SDXL in bf16, synthetic weights from phase 3's seeds, DDIM 30 steps."""
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, StableDiffusion_XL
+
+    manual_seed(0)
+    sd = StableDiffusion_XL(solver=DDIM(num_inference_steps=30, device=dev), device=dev, dtype=BF16)
+    synthesize_weights(sd, seed=7)
+    return sd
+
+
+def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 3's bf16 SDXL with, in turn: self-attention guidance, a
+    T2I-Adapter, IP-Adapter and IP-Adapter plus, two LoRAs, the LCM adapter,
+    an LCM-LoRA, an SDXL-Lightning LoRA and a Control-LoRA, each injected
+    before its request and ejected after it (`AdaptedServing`), then a
+    MultiDiffusion panorama. `image_encoder` is the IP-Adapters' (a
+    full-width `CLIPImageEncoderH` on the UNet's device and dtype when None)."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion.adapters import LoraAdapter
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights, tensor_to_images
+    from refiners_tpu_torch.foundationals.clip import CLIPImageEncoderH
+    from refiners_tpu_torch.foundationals.latent_diffusion import (
+        DDIM,
+        Euler,
+        LCMSolver,
+        ModelPredictionType,
+        SDLoraManager,
+        SolverParams,
+        TimestepSpacing,
+    )
+    from refiners_tpu_torch.foundationals.latent_diffusion.multi_diffusion import MultiDiffusion, Size
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl import (
+        ControlLoraAdapter,
+        SDXLIPAdapter,
+        SDXLLcmAdapter,
+        SDXLMultiDiffusion,
+        SDXLT2IAdapter,
+        SDXLTarget,
+        add_lcm_lora,
+    )
+    from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.lcm import ConditionScaleBlock
+    from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import ConditionEncoderXL
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    steps = sd.solver.num_inference_steps
+    per_call = SDXL_LAUNCHES_PER_CALL
+    per_request = per_call * steps + 1
+    size, latent = SDXL_SIZE, SDXL_SIZE // 8
+    gen = torch.Generator(dev).manual_seed(110)
+    x = torch.randn((1, 4, latent, latent), generator=gen, device=dev)
+    conditions = {name: torch.rand((1, 3, size, size), generator=gen, device=dev) for name in ("canny", "depth")}
+    prompt_image = Image.fromarray((np.random.RandomState(111).rand(size, size, 3) * 255).astype(np.uint8))
+    with torch.inference_mode():
+        emb, pooled = sd.compute_clip_text_embedding(*PROMPTS[0])
+    time_ids = sd.default_time_ids
+    extra = {"pooled_text_embedding": pooled, "time_ids": time_ids}
+    # the conditional halves: the batch-1 inputs of the sets without classifier-free guidance
+    single = {"inputs": (x, emb[1:]), "extra": {"pooled_text_embedding": pooled[1:], "time_ids": time_ids[1:]}}
+    serving = AdaptedServing(dev, sd, x, emb, prefix="sdxl", condition_scale=5.0, extra=extra, size=(size, size))
+    report: dict[str, Any] = {}
+    pipe = TextToImage(sd, size=(size, size))
+
+    def served(seed: int, prepare: Callable[[], None] = lambda: None) -> Callable[[], Any]:
+        """A text-to-image request, `prepare` (the per-request condition) included."""
+
+        def run() -> Any:
+            prepare()
+            return pipe(*PROMPTS[seed % len(PROMPTS)], seed=seed, condition_scale=5.0)
+
+        return run
+
+    # bare requests, for comparison within this call
+    for seed in (112, 113):
+        serving.request(f"bare (seed {seed})", per_request, served(seed))
+
+    # (a) self-attention guidance at 1.0: a second UNet call a step (batch 1) on the degraded latents;
+    # every route takes the float32 step's mask in the gate (its threshold flips pixels under bf16 rounding)
+    sd.set_self_attention_guidance(True, scale=SDXL_SAG_SCALE)
+    sag = sd._find_sag_adapter()
+    own_mask = sag.compute_sag_mask
+    masks: dict[str, Any] = {"flips": []}
+
+    def float32_mask(latents: torch.Tensor, classifier_free_guidance: bool = True) -> torch.Tensor:
+        mask = own_mask(latents, classifier_free_guidance)
+        masks.setdefault("float32", mask.float())  # the gate's first step is the float32 one
+        masks["flips"].append(int((mask[:, 0].float() != masks["float32"][:, 0]).sum()))
+        return masks["float32"].to(mask.dtype)
+
+    sag.compute_sag_mask = float32_mask
+    report["sag"] = serving.gate("SAG", 2 * per_call)
+    del sag.compute_sag_mask
+    masked = int(masks["float32"][:, 0].sum())
+    print(f"sdxl SAG: the float32 step's mask holds {masked} of {latent * latent} pixels; each route's own mask "
+          f"flips (plain bf16, kernels bf16) {masks['flips'][1:]}")  # fmt: skip
+    report["sag"].update({"mask_pixels": masked, "own_mask_flips": masks["flips"][1:]})
+    serving.request("SAG", 2 * per_call * steps + 1, served(114))
+    sd.set_self_attention_guidance(False)
+    if sd.has_self_attention_guidance():
+        raise AssertionError("sdxl SAG: still injected after set_self_attention_guidance(False)")
+    serving.check_base("SAG")
+    del sag
+
+    # (b) a T2I-Adapter, "canny", at 0.8, its encoder of the UNet's widths; it runs once per condition
+    c = sd.unet.base_channels
+    t2i = SDXLT2IAdapter(sd.unet, name="canny", scale=0.8,
+                         condition_encoder=ConditionEncoderXL(channels=(c, 2 * c, 4 * c, 4 * c), device=dev, dtype=BF16))  # fmt: skip
+    synthesize_weights(t2i.condition_encoder, seed=115)
+
+    def set_canny() -> None:
+        t2i.condition_encoder.to(dtype=sd.unet.dtype)
+        with torch.inference_mode():
+            t2i.set_condition_features(t2i.compute_condition_features(conditions["canny"]))
+
+    t2i.inject()
+    report["t2i_adapter"] = serving.gate("T2I-Adapter", per_call, set_canny)
+    serving.request("T2I-Adapter canny", per_request, served(116, set_canny))
+    t2i.eject()
+    serving.check_base("T2I-Adapter")
+    del t2i, set_canny
+    _free()
+
+    # (c) IP-Adapter at 1.0 and (d) IP-Adapter plus, on a full-width ViT-H/14 and a seeded image
+    t0 = time.perf_counter()
+    encoder = image_encoder if image_encoder is not None else CLIPImageEncoderH(device=dev, dtype=BF16)
+    if image_encoder is None:
+        synthesize_weights(encoder, seed=117)
+    ip = SDXLIPAdapter(sd.unet, clip_image_encoder=encoder)
+    synthesize_weights(ip.image_proj, seed=118)
+    torch.cuda.synchronize()
+    n_encoder = sum(p.numel() for p in encoder.parameters())
+    print(f"sdxl IP-Adapter: image encoder of {n_encoder} parameters ({encoder.dtype}, {encoder.device}) and "
+          f"projection built in {time.perf_counter() - t0:.2f} s")  # fmt: skip
+    if image_encoder is None and n_encoder != VIT_H_PARAMETERS:
+        raise AssertionError(f"the image encoder has {n_encoder} parameters, not {VIT_H_PARAMETERS}")
+
+    def ip_request(adapter: Any, seed: int) -> Callable[[], Any]:
+        def prepare() -> None:
+            with torch.inference_mode():
+                adapter.set_clip_image_embedding(adapter.compute_clip_image_embedding(prompt_image))
+
+        return served(seed, prepare)
+
+    for label, adapter, seed in (("IP-Adapter", ip, 119), ("IP-Adapter plus", None, 120)):
+        if adapter is None:
+            adapter = SDXLIPAdapter(sd.unet, clip_image_encoder=encoder, fine_grained=True)
+            synthesize_weights(adapter.image_proj, seed=121)
+        adapter.inject()
+        with torch.inference_mode():
+            image_embedding = adapter.compute_clip_image_embedding(prompt_image)
+        print(f"sdxl {label}: image tokens {tuple(image_embedding.shape)} {image_embedding.dtype}")
+        key = "ip_adapter_plus" if adapter.fine_grained else "ip_adapter"
+        report[key] = serving.gate(label, per_call, lambda: adapter.set_clip_image_embedding(image_embedding))
+        report[key]["image_tokens"] = list(image_embedding.shape)
+        serving.request(label, per_request, ip_request(adapter, seed))
+        adapter.eject()
+        serving.check_base(label)
+    del ip, adapter, encoder, image_embedding
+    _free()
+
+    # (e) two rank-32 LoRAs through SDLoraManager on the UNet and both text encoders, at 1.0 and 0.5
+    manager = SDLoraManager(sd)
+    weights = {name: _sdxl_lora_weights(sd, seed, dev, SDXL_LORA_RANK) for name, seed in zip(SDXL_LORA_SCALES, (122, 123))}
+    t0 = time.perf_counter()
+    for name, scale in SDXL_LORA_SCALES.items():
+        manager.add_loras(name, tensors=weights[name], scale=scale)
+    torch.cuda.synchronize()
+    n_lora, seconds = len(manager.loras), time.perf_counter() - t0
+    print(f"sdxl LoRA: {n_lora} LoRA layers of rank {SDXL_LORA_RANK} ({len(manager.lora_adapters)} adapters: UNet, "
+          f"CLIP-L, CLIP-G) attached in {seconds:.2f} s")  # fmt: skip
+    if n_lora != sum(len(w) // 2 for w in weights.values()):
+        raise AssertionError(f"{n_lora} LoRA layers attached, not {sum(len(w) // 2 for w in weights.values())}")
+    report["lora"] = {"layers": n_lora, "rank": SDXL_LORA_RANK, "attach_seconds": seconds,
+                      **serving.gate("LoRA x2", per_call)}  # fmt: skip
+    serving.request("LoRA x2", per_request, served(124))
+    manager.remove_all()
+    serving.check_base("LoRA x2")
+    del weights
+    _free()
+
+    # (f) LCM: the adapter (guidance scale 8 as an embedding), (g) an LCM-LoRA at rank 64 and
+    # (h) an SDXL-Lightning LoRA, each 4 steps without classifier-free guidance: one UNet call a step
+    ddim = sd.solver
+    lightning_solver = Euler(num_inference_steps=4, params=SolverParams(timesteps_spacing=TimestepSpacing.TRAILING,
+                             model_prediction_type=ModelPredictionType.NOISE), device=dev)  # fmt: skip
+
+    def distilled(label: str, key: str, solver: Any, seed: int) -> None:
+        sd.solver, sd.classifier_free_guidance = solver, False
+        report[key] = serving.gate(label, per_call, **single)
+        serving.request(label, per_call * solver.num_inference_steps + 1, served(seed))
+        sd.solver, sd.classifier_free_guidance = ddim, True
+
+    lcm = SDXLLcmAdapter(sd.unet, condition_scale=8.0).inject()
+    synthesize_weights(next(sd.unet.layers(ConditionScaleBlock, recurse=True)), seed=125)
+    distilled("LCM (4 steps)", "lcm", LCMSolver(num_inference_steps=4, device=dev), 126)
+    lcm.eject()
+    serving.check_base("LCM")
+    for label, key, name, scale, solver, seed in (
+        ("LCM-LoRA (4 steps)", "lcm_lora", "lcm", 8.0 / 64.0, LCMSolver(num_inference_steps=4, device=dev), 127),
+        ("Lightning (4 steps)", "lightning", "lightning", 1.0, lightning_solver, 129),
+    ):
+        manager = SDLoraManager(sd)
+        t0 = time.perf_counter()
+        add_lcm_lora(manager, _lcm_lora_weights(sd.unet, seed + 1, dev, LCM_LORA_RANK), name=name, scale=scale)
+        torch.cuda.synchronize()
+        print(f"sdxl {label}: {len(manager.loras)} LoRA layers of rank {LCM_LORA_RANK} at scale {scale} attached "
+              f"through add_lcm_lora in {time.perf_counter() - t0:.2f} s")  # fmt: skip
+        distilled(label, key, solver, seed)
+        report[key]["layers"] = len(manager.loras)
+        manager.remove_all()
+        serving.check_base(label)
+    del manager
+    _free()
+
+    # (i) a Control-LoRA at rank 128 from a seeded checkpoint in stability-ai's original format, on a
+    # seeded condition: the UNet's first half, copied onto the same weights, runs first in every call
+    parameters = {p.data_ptr() for p in sd.unet.parameters()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(dev)
+    control = ControlLoraAdapter(name="depth", target=sd.unet, scale=1.0)
+    checkpoint, n_layers = _control_lora_checkpoint(control.control_lora, 130, dev, CONTROL_LORA_RANK)
+    t0 = time.perf_counter()
+    control.load_original_weights(checkpoint)
+    control.inject()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_control = len(list(control.control_lora.layers(LoraAdapter, recurse=True)))
+    del checkpoint
+    _free()
+    added = torch.cuda.memory_allocated(dev) - allocated
+    own = [p for p in control.control_lora.parameters() if p.data_ptr() not in parameters]
+    own_bytes = sum(p.numel() * p.element_size() for p in own)
+    print(f"sdxl Control-LoRA: {n_control} LoRAs of rank {CONTROL_LORA_RANK} on the half-UNet's {n_layers} layers, "
+          f"loaded from the original format and injected in {seconds:.2f} s; its own parameters {own_bytes} bytes, "
+          f"device memory added {added} bytes; the UNet's parameters the same tensors: "
+          f"{ {p.data_ptr() for p in sd.unet.parameters()} >= parameters}")  # fmt: skip
+    if n_control != n_layers or added > own_bytes + 64 * 2**20:
+        raise AssertionError(f"sdxl Control-LoRA: {n_control} LoRAs on {n_layers} layers, or the copy added weights "
+                             f"({added} bytes against its own {own_bytes})")  # fmt: skip
+    if list(sd.unet.layer("DownBlocks", fl.Chain).layers(LoraAdapter, recurse=True)):
+        raise AssertionError("sdxl Control-LoRA: a LoRA of the copy landed on the UNet's own path")
+
+    def set_depth() -> None:
+        control.set_condition(conditions["depth"])
+
+    report["control_lora"] = {"loras": n_control, "rank": CONTROL_LORA_RANK, "added_bytes": added,
+                              "own_bytes": own_bytes, "load_seconds": seconds,
+                              **serving.gate("Control-LoRA", per_call + CONTROL_LORA_SITES, set_depth)}  # fmt: skip
+    set_depth()
+    with torch.inference_mode():
+        x16 = x.to(BF16)
+        inputs = {"clip_text_embedding": emb.to(BF16), "pooled_text_embedding": pooled.to(BF16), "time_ids": time_ids}
+        profile = _profile("sdxl Control-LoRA: one UNet step (1024², CFG batch 2, bf16, kernels)",
+                           lambda: sd.predict_noise(x16, 0, condition_scale=5.0, **inputs), unit="step")  # fmt: skip
+    profile["k1_share"] = profile["by_kind_ms"].get("attention (flash kernels)", 0.0) / profile["device_ms"]
+    print(f"sdxl Control-LoRA: K1's share of the step's device time {profile['k1_share']:.3f}")
+    report["control_lora"]["unet_step_profile"] = profile
+    serving.request("Control-LoRA depth", (per_call + CONTROL_LORA_SITES) * steps + 1, served(131, set_depth))
+    control.eject()
+    serving.check_base("Control-LoRA")
+    del control, own, x16, inputs
+    _free()
+
+    # (j) MultiDiffusion: a 1024 × 2048 panorama, three 128² latent tiles (overlap 64), each with its own
+    # DDIM, 30 steps, CFG 5.0; one decode of the whole 128 × 256 latent
+    md = SDXLMultiDiffusion(sd)
+    height, width = SDXL_PANORAMA
+    tiles = MultiDiffusion.generate_latent_tiles(Size(height // 8, width // 8), Size(latent, latent), min_overlap=latent // 2)
+    print(f"sdxl MultiDiffusion: {len(tiles)} tiles {[tuple(t) for t in tiles]}")
+    if len(tiles) != 3:
+        raise AssertionError(f"the panorama has {len(tiles)} tiles, not 3")
+
+    def panorama() -> Any:
+        generator = torch.Generator(dev).manual_seed(132)
+        with torch.inference_mode():
+            embedding, pooled_embedding = sd.compute_clip_text_embedding(*PROMPTS[2])
+            targets = [SDXLTarget(tile=t, solver=DDIM(steps, device=dev), clip_text_embedding=embedding,
+                                  pooled_text_embedding=pooled_embedding, time_ids=sd.default_time_ids,
+                                  condition_scale=5.0) for t in tiles]  # fmt: skip
+            noise = torch.randn((1, 4, height // 8, width // 8), generator=generator, device=dev).to(sd.unet.dtype)
+            z = noise
+            for step in sd.steps:
+                z = md(z, noise=noise, step=step, targets=targets)
+            return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
+
+    serving.request(f"MultiDiffusion {height} × {width}", len(tiles) * per_call * steps + 1, panorama, size=SDXL_PANORAMA)
+    if sd.solver is not ddim:
+        raise AssertionError("sdxl MultiDiffusion: the model's solver was not restored")
+    serving.check_base("MultiDiffusion")
+
+    report["requests"], launches = serving.close()
+    del pipe, serving, md, x, emb, pooled, conditions
+    _free()
+    return report, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -2679,7 +3143,7 @@ def main() -> int:
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     sd15_packed = {label: next(r for r in packed if r["shape"] == shape and r["dtype"] == str(BF16) and not r["causal"])
-                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES}.items()}  # fmt: skip
+                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES}.items()}  # fmt: skip
     for label, result in sd15_packed.items():
         _print_row(label, result["ms"], rows[label])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
@@ -2697,6 +3161,8 @@ def main() -> int:
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
     slice_report, slice_launches = run_sd15_slice(dev, sd15)
     del sd15
+    _free()
+    sdxl_zoo_report, sdxl_zoo_launches = run_sdxl_zoo(dev, build_sdxl(dev))
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -2728,12 +3194,15 @@ def main() -> int:
                                     ("SD1.5 reference-only 32², d = 80, Lk = 2·Lq", "K1 ref-only 32²",
                                      sd15_packed["K1 ref-only 32²"]),
                                     *((f"SD1.5 {label.removeprefix('K1 ')}, d = {shape[4]}", label, sd15_packed[label])
-                                      for label, shape in SD15_UPSCALER_SHAPES.items()))
+                                      for label, shape in SD15_UPSCALER_SHAPES.items()),
+                                    *((f"{label.removeprefix('K1 ')}, d = {shape[4]}", label, sd15_packed[label])
+                                      for label, shape in SDXL_ZOO_SHAPES.items()))
     ]  # fmt: skip
     k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"],
                    "sd15_adapters": adapters_launches["flash_attention_packed"],
                    "sd15_zoo": zoo_launches["flash_attention_packed"],
-                   "sd15_slice": slice_launches["flash_attention_packed"]}  # fmt: skip
+                   "sd15_slice": slice_launches["flash_attention_packed"],
+                   "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -2792,6 +3261,7 @@ def main() -> int:
         "sd15_adapters": adapters_report,
         "sd15_zoo": zoo_report,
         "sd15_slice": slice_report,
+        "sdxl_zoo": sdxl_zoo_report,
     }
     print(json.dumps(summary))
     print(smi)

@@ -11,7 +11,7 @@ both ways. A LoRA on a `QuantizedLinear` is out of scope, as there
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any, Generic, Iterator, TypeVar, cast
+from typing import Any, Generic, Iterable, Iterator, TypeVar, cast
 
 import torch
 
@@ -119,24 +119,33 @@ class Lora(Generic[T], fl.Chain, ABC):
 
         Returns the new adapter and the parent to inject it into, or an
         adapter already there that took this LoRA and None, or None."""
-        for layer, parent in target.walk(self.up.__class__):
+        return self._attach_first(target.walk(self.up.__class__), include=include, exclude=exclude)
+
+    def _attach_first(
+        self,
+        candidates: Iterable[tuple[fl.WeightedModule, fl.Chain]],
+        include: list[str] | None = None,
+        exclude: list[str] | None = None,
+    ) -> "tuple[LoraAdapter, fl.Chain | None] | None":
+        """`auto_attach` over the (layer, parent) pairs of a walk."""
+        for layer, parent in candidates:
             if isinstance(parent, Lora):
                 continue
-
-            all_parents: list[fl.Chain] = []
-            if include is not None or exclude is not None:
-                all_parents = parent.get_parents() + [parent]
-
-            if include is not None and all((p.__class__.__name__ not in include) for p in all_parents):
-                continue
-            if exclude is not None and any((p.__class__.__name__ in exclude) for p in all_parents):
-                continue
+            # the cheap tests first (the shape, a LoRA of this name already there): they rule out
+            # most layers before their parents are listed
             if not self.is_compatible(layer):
                 continue
+            if isinstance(parent, LoraAdapter) and self.name in parent.names:
+                continue
+
+            if include is not None or exclude is not None:
+                names = {p.__class__.__name__ for p in (*parent.get_parents(), parent)}
+                if include is not None and names.isdisjoint(include):
+                    continue
+                if exclude is not None and not names.isdisjoint(exclude):
+                    continue
 
             if isinstance(parent, LoraAdapter):
-                if self.name in parent.names:
-                    continue
                 parent.add_lora(self)
                 return parent, None
 
@@ -287,7 +296,8 @@ class LoraAdapter(fl.Sum, Adapter[fl.WeightedModule]):
 
     @property
     def lora_layers(self) -> Iterator[Lora[Any]]:
-        return cast(Iterator[Lora[Any]], self.layers(Lora))
+        # the adapter's children: its target (a weighted leaf) and the LoRAs
+        return (module for module in self if isinstance(module, Lora))
 
     @property
     def names(self) -> list[str]:
@@ -330,8 +340,17 @@ def _auto_attach_loras(
     debug_map: list[tuple[str, str]] | None = None,
 ) -> list[str]:
     failed_keys: list[str] = []
+    # Each LoRA takes the first fit in the same walk of `target`: the walk is listed once per layer
+    # type and kept current (an injected adapter becomes its layer's parent, at the layer's place;
+    # the LoRAs' own layers, which the walk would skip, are left out), not walked again per LoRA.
+    walks: dict[type, list[tuple[Any, fl.Chain]]] = {}
+    positions: dict[int, int] = {}
     for key, lora in loras.items():
-        if attached := lora.auto_attach(target, include=include, exclude=exclude):
+        layer_type = lora.up.__class__
+        if layer_type not in walks:
+            walks[layer_type] = [(l, p) for l, p in target.walk(layer_type) if not isinstance(p, Lora)]
+            positions.update((id(l), i) for i, (l, _) in enumerate(walks[layer_type]))
+        if attached := lora._attach_first(walks[layer_type], include=include, exclude=exclude):
             adapter, parent = attached
             if parent is None:
                 # an adapter already in place took the LoRA
@@ -341,6 +360,7 @@ def _auto_attach_loras(
             if debug_map is not None:
                 debug_map.append((key, adapter.target.get_path(parent)))
             adapter.inject(parent)
+            walks[layer_type][positions[id(adapter.target)]] = (adapter.target, adapter)
         else:
             failed_keys.append(key)
     return failed_keys

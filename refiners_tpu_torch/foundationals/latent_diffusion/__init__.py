@@ -32,8 +32,12 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1 import
     StableDiffusion_1_Inpainting,
 )
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl import (
+    ControlLoraAdapter,
     DoubleTextEncoder,
     SDXLAutoencoder,
+    SDXLIPAdapter,
+    SDXLLcmAdapter,
+    SDXLT2IAdapter,
     SDXLUNet,
     StableDiffusion_XL,
 )
@@ -42,6 +46,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import T2IAda
 
 __all__ = [
     "BaseSolverParams",
+    "ControlLoraAdapter",
     "Controlnet",
     "DDIM",
     "DDPM",
@@ -69,6 +74,9 @@ __all__ = [
     "SDFreeUAdapter",
     "SDLoraManager",
     "SDXLAutoencoder",
+    "SDXLIPAdapter",
+    "SDXLLcmAdapter",
+    "SDXLT2IAdapter",
     "SDXLUNet",
     "Solver",
     "SolverParams",

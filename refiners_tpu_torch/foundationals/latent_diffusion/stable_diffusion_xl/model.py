@@ -1,8 +1,9 @@
 """Stable Diffusion XL model facade; counterpart of
 ``refiners_tpu/foundationals/latent_diffusion/stable_diffusion_xl/model.py``.
 
-Self-attention guidance is not ported yet: `has_self_attention_guidance()`
-is always False and enabling it raises.
+Self-attention guidance is an `SDXLSAGAdapter` around the UNet:
+`set_self_attention_guidance(True)` injects it, and each step then makes a
+second UNet call at batch 1 on the degraded latents.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import DDIM, Solver
+from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.self_attention_guidance import SDXLSAGAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.text_encoder import DoubleTextEncoder
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.unet import SDXLUNet
 
@@ -114,12 +116,57 @@ class StableDiffusion_XL(LatentDiffusionModel):
 
     def set_self_attention_guidance(self, enable: bool, scale: float = 1.0) -> None:
         if enable:
-            raise NotImplementedError("self-attention guidance is not ported to refiners_tpu_torch yet")
+            if sag := self._find_sag_adapter():
+                sag.scale = scale
+            else:
+                SDXLSAGAdapter(target=self.unet, scale=scale).inject()
+        else:
+            if sag := self._find_sag_adapter():
+                sag.eject()
 
     def has_self_attention_guidance(self) -> bool:
-        return False
+        return self._find_sag_adapter() is not None
+
+    def _find_sag_adapter(self) -> SDXLSAGAdapter | None:
+        for p in self.unet.get_parents():
+            if isinstance(p, SDXLSAGAdapter):
+                return p
+        return None
 
     def compute_self_attention_guidance(
-        self, x: torch.Tensor, noise: torch.Tensor, step: int, *, clip_text_embedding: torch.Tensor, **kwargs: Any
+        self,
+        x: torch.Tensor,
+        noise: torch.Tensor,
+        step: int,
+        *,
+        clip_text_embedding: torch.Tensor,
+        pooled_text_embedding: torch.Tensor,
+        time_ids: torch.Tensor,
+        **kwargs: Any,
     ) -> torch.Tensor:
-        raise NotImplementedError("self-attention guidance is not ported to refiners_tpu_torch yet")
+        """SAG's term: its scale times the unconditional noise less the
+        noise predicted, unconditioned, on the degraded latents (the negative
+        halves of the text embedding, the pooled embedding, the time ids and,
+        with an IP-Adapter, the image tokens)."""
+        sag = self._find_sag_adapter()
+        assert sag is not None
+
+        degraded_latents = sag.compute_degraded_latents(
+            solver=self.solver, latents=x, noise=noise, step=step, classifier_free_guidance=True
+        )
+        timestep = self.solver.timesteps[step][None]
+        self.set_unet_context(
+            timestep=timestep,
+            clip_text_embedding=clip_text_embedding.chunk(2)[0],
+            pooled_text_embedding=pooled_text_embedding.chunk(2)[0],
+            time_ids=time_ids.chunk(2)[0],
+        )
+        if "ip_adapter" in self.unet.provider.contexts:
+            ip_adapter_context = self.unet.use_context("ip_adapter")
+            image_embedding = ip_adapter_context["clip_image_embedding"]
+            ip_adapter_context["clip_image_embedding"] = image_embedding.chunk(2)[0]
+            degraded_noise = self.unet(degraded_latents)
+            ip_adapter_context["clip_image_embedding"] = image_embedding
+        else:
+            degraded_noise = self.unet(degraded_latents)
+        return sag.scale * (noise - degraded_noise)

@@ -92,6 +92,19 @@ class TimestepEncoder(fl.Passthrough):
             fl.SetContext(context="range_adapter", key=context_key),
         )
 
+    @property
+    def context_key(self) -> str:
+        """The "range_adapter" key the timestep embedding is written under."""
+        set_context_module = self.ensure_find(fl.SetContext)
+        assert set_context_module.context == "range_adapter"
+        return set_context_module.key
+
+    @context_key.setter
+    def context_key(self, value: str) -> None:
+        set_context_module = self.ensure_find(fl.SetContext)
+        assert set_context_module.context == "range_adapter"
+        set_context_module.key = value
+
 
 class SDXLCrossAttention(CrossAttentionBlock2d):
     """2048-dim text context, linear projection."""

@@ -88,6 +88,11 @@ def _launches() -> list[int]:
         # keys twice as long as the queries: StyleAligned (batch 4) and reference-only (batch 2) at 512²
         (4, 4096, 8192, 8, 40, False, torch.bfloat16),  # the 64² sites: 128 key tiles of 64 at d = 40
         (2, 1024, 2048, 8, 80, False, torch.bfloat16),  # the 32² sites
+        # SDXL's batch-1 UNet calls (SAG's degraded pass, LCM, Lightning) and a 1024 × 2048 panorama's
+        # decode: one head of d = 512 over 128 × 256 latents, 512 blocks of 64 rows
+        (1, 4096, 4096, 10, 64, False, torch.bfloat16),
+        (1, 1024, 1024, 20, 64, False, torch.bfloat16),
+        (1, 32768, 32768, 1, 512, False, torch.bfloat16),
     ],
 )
 def test_kernel_matches_plain(
