@@ -23,7 +23,9 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      at batch 4, reference-only at batch 2, d = 40 and d = 80), at phase
      10's MultiUpscaler sites (a 144 × 112 latent tile: 16128 tokens at
      d = 40 and 4032 at d = 80; the tiled VAE's 9216 and 5184 tokens at
-     d = 512, the second a ragged 40.5 key tiles)
+     d = 512, the second a ragged 40.5 key tiles), at phase 12's DINOv2
+     sites (1374 and 1370 tokens, ragged on both sides, 24 heads of
+     d = 64 at batch 4, also in float32)
      plus ragged, causal, d = 80, d = 128,
      d = 256, d = 200 and float16 cases: relative Frobenius error ≤ 1e-2
      against the plain version in float32; uniform weights on causal rows
@@ -229,9 +231,32 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    K1 share). Phase 2 holds K1 at the new sites: (1, 4096, 4096, 10, 64),
    (1, 1024, 1024, 20, 64) and (1, 32768, 32768, 1, 512).
 
+12. DINOv2, its Fréchet distance and the BoxSegmenter: (a)
+   ``DINOv2_giant_reg`` and ``DINOv2_giant`` at 518² (1374 and 1370
+   tokens), bf16, seeded weights, a batch of 4 seeded images through
+   ``preprocess``: one forward three ways (float32 plain, bf16 plain, bf16
+   kernels), gated as in phase 8 (the kernel route within twice the bf16
+   plain route's distance from float32), exactly 40 K1 launches a forward
+   (one a layer); seconds per forward (median of 5 warm), peak memory, one
+   forward traced (device time by kind, idle and K1 share). The CLIP
+   tokenizer's merge engine is printed and must be the native one (``g++``
+   is there wherever ``nvcc`` is). (b) ``dinov2_frechet_distance`` with
+   ``DINOv2_small`` (float32, 224², 257 tokens: no K1 launch) between two
+   directories of 16 seeded PNGs written under ``build/`` and deleted after:
+   a set against itself within 1e-6 of its covariance's trace of 0, two
+   sets finite and positive. (c) ``BoxSegmenter`` on a full-width MVANet
+   (Swin-B, depths [2, 2, 18, 2]), float32 under PyTorch's default (cuDNN
+   convolves in TF32), seeded weights, a seeded 1536 × 1024 image with a box
+   prompt: 4 requests (the first warm-up), the mask an ``L`` image of the
+   image's size, every probability finite, no kernel launched; the model's
+   logits on the request's input against the same weights on the CPU once:
+   in true float32 (TF32 off) within 1e-4, under TF32 within 2e-2
+   (relative Frobenius); seconds per request (median of 3), peak memory,
+   one MVANet forward traced.
+
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6, 7b, 8b, 9b, 10 and 11's requests, each with the counts
-set to 0 just before it; K1's over phases 3, 7b, 8b, 9b, 10 and 11, by path),
+phases 3, 4b, 5b, 6, 7b, 8b, 9b, 10, 11 and 12's runs, each with the counts
+set to 0 just before it; K1's over phases 3, 7b, 8b, 9b, 10, 11 and 12a, by path),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -305,6 +330,11 @@ ATTENTION_SHAPES = [
     (1, 4096, 4096, 10, 64, False, BF16),
     (1, 1024, 1024, 20, 64, False, BF16),
     (1, 32768, 32768, 1, 512, False, BF16),
+    # phase 12's sites: DINOv2-g at 518², batch 4, with and without its four registers; ragged on both
+    # sides (1374 = 10·128 + 94), different data in each batch element; also on the float32 kernel
+    (4, 1374, 1374, 24, 64, False, BF16),
+    (4, 1370, 1370, 24, 64, False, BF16),
+    (4, 1374, 1374, 24, 64, False, F32),
 ]
 VAE_SHAPE = [1, 16384, 16384, 1, 512]  # (batch, q_len, kv_len, heads, head_dim) of K1's VAE site
 UNET32_SHAPE = [2, 1024, 1024, 20, 64]  # K1's second UNet site (60 of its 70 launches per step)
@@ -323,6 +353,8 @@ SD15_UPSCALER_SHAPES = {"K1 upscaler 144×112": [2, 16128, 16128, 8, 40], "K1 up
 # K1 at phase 11's sites: 10 + 60 launches per UNet call at batch 1, one per panorama decode
 SDXL_ZOO_SHAPES = {"K1 SDXL 64² batch 1": [1, 4096, 4096, 10, 64], "K1 SDXL 32² batch 1": [1, 1024, 1024, 20, 64],
                    "K1 SDXL VAE 128×256": [1, 32768, 32768, 1, 512]}  # fmt: skip
+# K1 at phase 12's sites: one launch per DINOv2 layer at 518²
+DINOV2_SHAPES = {"K1 DINOv2 518² reg": [4, 1374, 1374, 24, 64], "K1 DINOv2 518²": [4, 1370, 1370, 24, 64]}
 TRAIN32_SHAPE = [2, 1024, 1024, 8, 80]  # K2's and K4's second SD1.5 site (5 of their 10 launches per step)
 FORWARD_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, bias shape or None, dtype)
@@ -434,6 +466,20 @@ SDXL_SAG_SCALE = 1.0
 SDXL_LORA_RANK, SDXL_LORA_SCALES = 32, {"style": 1.0, "detail": 0.5}
 LCM_LORA_RANK = 64  # the LCM-LoRA's and the Lightning LoRA's
 CONTROL_LORA_RANK = 128  # stability-ai's published Control-LoRAs: rank 128 and 256
+# phase 12: DINOv2-g at its native size, the Fréchet distance's sets, the BoxSegmenter's request
+DINOV2_SIZE = 518
+DINOV2_BATCH = 4
+DINOV2_GIANT_LAYERS = 40  # one K1 launch per layer at 1370 or 1374 tokens
+DINOV2_FORWARDS = 5  # timed warm forwards of each model
+FD_IMAGES = 16
+BOX_IMAGE = (1536, 1024)  # (width, height)
+BOX_PROMPT = (300, 120, 1260, 900)
+BOX_REQUESTS = 4  # the first a warm-up
+# the float32 MVANet's logits on the card against the CPU: in true float32, summation order through
+# ~100 layers; under cuDNN's TF32 (PyTorch's default, the port's float32) each of its ~25
+# convolutions rounds its inputs to 10 mantissa bits (unit roundoff 4.9e-4): 25 × 4.9e-4 ≈ 1.2e-2
+BOX_F32_TOL = 1e-4
+BOX_TF32_TOL = 2e-2
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {BF16: 989e12, torch.float16: 989e12, F32: 67e12}
@@ -820,7 +866,7 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
     # over 128×128 latents)
     sites = [("K1", (2, 4096, 4096, 10, 64)), ("K1 32²", (2, 1024, 1024, 20, 64)), ("K1 VAE", (1, 16384, 16384, 1, 512))]
     sites += [(label, tuple(shape)) for label, shape in
-              {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES}.items()]  # fmt: skip
+              {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES, **DINOV2_SHAPES}.items()]  # fmt: skip
     for label, (b, lq, lk, h, d) in sites:
         q, k, v = randn(b, lq, h * d), randn(b, lk, h * d), randn(b, lk, h * d)
         heads = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)  # noqa: E731
@@ -3082,6 +3128,221 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: DINOv2, its Fréchet distance and the BoxSegmenter
+# ---------------------------------------------------------------------------
+
+
+def _timed_runs(fn: Callable[[], Any], runs: int) -> tuple[list[float], Any]:
+    """Host-clock seconds of `runs` calls of `fn`, each between synchronizes; the last output."""
+    seconds, out = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    return seconds, out
+
+
+def run_dinov2(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 12a: DINOv2-g with and without registers at 518², batch 4, bf16."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals import dinov2
+    from refiners_tpu_torch.foundationals.clip.tokenizer import CLIPTokenizer
+
+    engine = CLIPTokenizer().engine
+    print(f"dinov2: the CLIP tokenizer's merge engine: {engine}")
+    if engine != "native":
+        raise AssertionError(f"the tokenizer runs its {engine} engine: the native one did not build")
+    images = torch.stack([dinov2.preprocess(_sam_image(200 + i, (640, 480)), dim=DINOV2_SIZE)
+                          for i in range(DINOV2_BATCH)]).to(dev)  # fmt: skip
+    report: dict[str, Any] = {"tokenizer_engine": engine}
+    launches = dict.fromkeys(_counters(), 0)
+    for seed, name in enumerate(("DINOv2_giant_reg", "DINOv2_giant")):
+        t0 = time.perf_counter()
+        manual_seed(0)
+        model = getattr(dinov2, name)(device=dev, dtype=BF16)
+        synthesize_weights(model, seed=170 + seed)
+        torch.cuda.synchronize()
+        tokens = 1 + model.num_registers + (DINOV2_SIZE // model.patch_size) ** 2
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"dinov2 {name}: built, {n_params} parameters, bf16, {tokens} tokens at {DINOV2_SIZE}², "
+              f"{time.perf_counter() - t0:.1f} s")  # fmt: skip
+        sdpa = list(model.layers(fl.ScaledDotProductAttention, recurse=True))
+
+        # one forward three ways, held as phase 3 holds a UNet step
+        def forward(dtype: torch.dtype, kernel: bool) -> tuple[torch.Tensor, int]:
+            for layer in sdpa:
+                layer.is_optimized = kernel
+            model.to(dtype=dtype)
+            before = read_launches()["flash_attention_packed"]
+            with torch.inference_mode():
+                out = model(images.to(dtype)).float()
+            torch.cuda.synchronize()
+            return out, read_launches()["flash_attention_packed"] - before
+
+        reference, ref_launches = forward(F32, kernel=False)
+        plain, plain_launches = forward(BF16, kernel=False)
+        kernel, kernel_launches = forward(BF16, kernel=True)
+        err_plain, err_kernel = _rel(plain, reference), _rel(kernel, reference)
+        print(f"dinov2 {name}: one forward (batch {DINOV2_BATCH}) vs the float32 plain route: bf16 kernel route "
+              f"rel_err={err_kernel:.3e}, bf16 plain route rel_err={err_plain:.3e}, ratio {err_kernel / err_plain:.3f}; "
+              f"K1 launches float32 plain {ref_launches}, bf16 plain {plain_launches}, bf16 kernels {kernel_launches}")  # fmt: skip
+        if tuple(kernel.shape) != (DINOV2_BATCH, tokens, model.embedding_dim):
+            raise AssertionError(f"dinov2 {name}: output of shape {tuple(kernel.shape)}")
+        if ref_launches or plain_launches or kernel_launches != DINOV2_GIANT_LAYERS:
+            raise AssertionError(f"dinov2 {name}: K1 launches {ref_launches}, {plain_launches}, {kernel_launches}, "
+                                 f"not 0, 0, {DINOV2_GIANT_LAYERS}")  # fmt: skip
+        if not (torch.isfinite(kernel).all() and err_kernel <= 2 * err_plain):
+            raise AssertionError(f"dinov2 {name}: the kernel route is further from float32 than twice the plain "
+                                 f"route: {err_kernel} > 2 × {err_plain}")  # fmt: skip
+        del reference, plain, kernel
+        _free()
+
+        # serving: warm forwards with the counts set to 0 just before them; the input in the model's
+        # dtype (a float32 input would run every layer in float32: the layers cast weights to it)
+        x = images.to(BF16)
+        with torch.inference_mode():
+            model(x)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            seconds, out = _timed_runs(lambda: model(x), DINOV2_FORWARDS)
+            served = read_launches()
+            peak = torch.cuda.max_memory_allocated(dev)
+            if (served["flash_attention_packed"] != DINOV2_FORWARDS * DINOV2_GIANT_LAYERS or out.dtype != BF16
+                    or not torch.isfinite(out).all()):
+                raise AssertionError(f"dinov2 {name}: {served['flash_attention_packed']} K1 launches in "
+                                     f"{DINOV2_FORWARDS} forwards, or a non-finite or {out.dtype} output")  # fmt: skip
+            for key, count in served.items():
+                launches[key] += count
+            median = statistics.median(seconds)
+            print(f"dinov2 {name}: seconds per forward (batch {DINOV2_BATCH}) {[round(x, 4) for x in seconds]}, "
+                  f"median {median:.4f}, {DINOV2_BATCH / median:.1f} images/s, peak memory {peak / 2**30:.2f} GiB")  # fmt: skip
+            profile = _profile(f"dinov2 {name}: one forward ({DINOV2_SIZE}², batch {DINOV2_BATCH}, bf16, kernels)",
+                               lambda: model(x), unit="forward")  # fmt: skip
+        profile["k1_share"] = profile["by_kind_ms"].get("attention (flash kernels)", 0.0) / profile["device_ms"]
+        print(f"dinov2 {name}: K1's share of the forward's device time {profile['k1_share']:.3f}")
+        report[name] = {"parameters": n_params, "tokens": tokens, "rel_err_kernel": err_kernel,
+                        "rel_err_plain": err_plain, "seconds_per_forward": seconds, "median_seconds": median,
+                        "peak_memory_bytes": peak, "launches_per_forward": kernel_launches, "profile": profile}  # fmt: skip
+        del model, sdpa, out, x
+        _free()
+    return report, launches
+
+
+def run_frechet_distance(dev: torch.device) -> dict[str, Any]:
+    """Phase 12b: the DINOv2 Fréchet distance between two directories of PNGs."""
+    import shutil
+    from pathlib import Path
+
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.dinov2 import DINOv2_small
+    from refiners_tpu_torch.training_utils.metrics import DinoDataset, _batched, dinov2_frechet_distance, get_dinov2_representations
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_fd"
+    shutil.rmtree(root, ignore_errors=True)
+    for set_name, seed in (("a", 300), ("b", 400)):
+        (root / set_name).mkdir(parents=True)
+        for i in range(FD_IMAGES):
+            image = _sam_image(seed + i, (320 + 16 * (i % 4), 240))
+            if set_name == "b":
+                image = image.transpose(Image.Transpose.FLIP_LEFT_RIGHT).rotate(90, expand=True)
+            image.save(root / set_name / f"{i:02d}.png")
+    manual_seed(0)
+    model = DINOv2_small(device=dev)
+    synthesize_weights(model, seed=180)
+    reset_launches()
+    seconds, fd_ab = _timed_runs(lambda: dinov2_frechet_distance(root / "a", root / "b", model, batch_size=8), 1)
+    fd_aa = dinov2_frechet_distance(root / "a", root / "a", model, batch_size=8)
+    launches = read_launches()
+    reps = get_dinov2_representations(model, _batched(DinoDataset(root / "a"), 8))
+    trace = float(np.trace(np.cov(reps.T)))
+    print(f"dinov2 Fréchet distance (DINOv2_small, float32, 224², {FD_IMAGES} images a set): between the sets "
+          f"{fd_ab:.6f} in {seconds[0]:.3f} s, a set with itself {fd_aa:.3e} (its covariance's trace {trace:.6f}); "
+          f"launches {launches}")  # fmt: skip
+    shutil.rmtree(root)
+    if any(launches.values()):
+        raise AssertionError(f"the Fréchet distance at 224² launched kernels: {launches}")
+    if not (abs(fd_aa) <= 1e-6 * trace and math.isfinite(fd_ab) and fd_ab > 0):
+        raise AssertionError(f"Fréchet distances {fd_aa} (a set with itself, trace {trace}) and {fd_ab}")
+    del model
+    _free()
+    return {"between_sets": fd_ab, "with_itself": fd_aa, "trace": trace, "seconds": seconds[0], "images": FD_IMAGES}
+
+
+def run_box_segmenter(dev: torch.device) -> dict[str, Any]:
+    """Phase 12c: the BoxSegmenter on a full-width MVANet, float32 under PyTorch's default TF32 convolutions."""
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.swin.mvanet import MVANet
+    from refiners_tpu_torch.solutions import BoxSegmenter
+
+    t0 = time.perf_counter()
+    manual_seed(0)
+    segmenter = BoxSegmenter(device=dev)
+    synthesize_weights(segmenter.model, seed=190)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in segmenter.model.parameters())
+    print(f"box segmenter: MVANet (Swin-B) built, {n_params} parameters, float32, {time.perf_counter() - t0:.1f} s")
+    image = _sam_image(210, BOX_IMAGE)
+    captured: dict[str, torch.Tensor] = {}
+    hook = segmenter.model.register_forward_hook(lambda _m, inputs, out: captured.update(input=inputs[0], logits=out))
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the port's float32
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        seconds, mask = _timed_runs(lambda: segmenter(image, BOX_PROMPT), BOX_REQUESTS)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        hook.remove()
+        x, logits_tf32 = captured["input"], captured["logits"].float().cpu()
+        with torch.inference_mode():
+            profile = _profile("box segmenter: one MVANet forward (1024², float32, TF32 convolutions)",
+                               lambda: segmenter.model(x), unit="forward")  # fmt: skip
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            logits_f32 = segmenter.model(x).float().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    median = statistics.median(seconds[1:])
+    arr = np.asarray(mask)
+    probabilities = torch.sigmoid(logits_tf32)
+    print(f"box segmenter: {BOX_IMAGE[0]} × {BOX_IMAGE[1]} image, box {BOX_PROMPT}: seconds per request "
+          f"{[round(s, 4) for s in seconds]} (median of the warm {median:.4f}), peak memory {peak / 2**30:.2f} GiB, "
+          f"mask {mask.mode} {mask.size}, share above 127 {float((arr > 127).mean()):.4f}, probabilities "
+          f"{float(probabilities.min()):.4f}..{float(probabilities.max()):.4f}; launches {launches}")  # fmt: skip
+    if mask.mode != "L" or mask.size != image.size or not torch.isfinite(probabilities).all():
+        raise AssertionError(f"box segmenter: mask {mask.mode} {mask.size}, or non-finite probabilities")
+    if any(launches.values()):
+        raise AssertionError(f"box segmenter: kernels launched {launches}")
+
+    # the same weights and input on the CPU, once, in float32
+    cpu_model = MVANet().eval()
+    cpu_model.load_state_dict(segmenter.model.state_dict())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits_cpu = cpu_model(x.cpu())
+    cpu_seconds = time.perf_counter() - t0
+    err_f32, err_tf32 = _rel(logits_f32, logits_cpu), _rel(logits_tf32, logits_cpu)
+    probability_err = float((probabilities - torch.sigmoid(logits_cpu)).abs().max())
+    print(f"box segmenter: logits against the CPU (float32, {cpu_seconds:.1f} s on {torch.get_num_threads()} "
+          f"threads): card in float32 rel_err={err_f32:.3e}, card under TF32 rel_err={err_tf32:.3e} (probabilities "
+          f"max abs {probability_err:.3e}); logits std {float(logits_cpu.std()):.4f}")  # fmt: skip
+    if not (err_f32 <= BOX_F32_TOL and err_tf32 <= BOX_TF32_TOL):
+        raise AssertionError(f"box segmenter: the card's logits are {err_f32} (float32) and {err_tf32} (TF32) "
+                             f"from the CPU's, not within {BOX_F32_TOL} and {BOX_TF32_TOL}")  # fmt: skip
+    del segmenter, cpu_model, captured, x
+    _free()
+    return {"parameters": n_params, "seconds_per_request": seconds, "median_seconds": median,
+            "peak_memory_bytes": peak, "rel_err_float32": err_f32, "rel_err_tf32": err_tf32,
+            "probability_max_abs_err_tf32": probability_err, "cpu_seconds": cpu_seconds, "forward_profile": profile}  # fmt: skip
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -3143,7 +3404,8 @@ def main() -> int:
     unet32 = next(r for r in packed if r["shape"] == UNET32_SHAPE and r["dtype"] == str(BF16))
     _print_row("K1 32²", unet32["ms"], rows["K1 32²"])
     sd15_packed = {label: next(r for r in packed if r["shape"] == shape and r["dtype"] == str(BF16) and not r["causal"])
-                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES}.items()}  # fmt: skip
+                   for label, shape in {**SD15_SHAPES, **SD15_ZOO_SHAPES, **SD15_UPSCALER_SHAPES, **SDXL_ZOO_SHAPES,
+                                        **DINOV2_SHAPES}.items()}  # fmt: skip
     for label, result in sd15_packed.items():
         _print_row(label, result["ms"], rows[label])
     windowed = next(r for r in relpos if r["grid"] == [14, 14] and r["dtype"] == str(BF16))
@@ -3163,6 +3425,10 @@ def main() -> int:
     del sd15
     _free()
     sdxl_zoo_report, sdxl_zoo_launches = run_sdxl_zoo(dev, build_sdxl(dev))
+    _free()
+    dinov2_report, dinov2_launches = run_dinov2(dev)
+    fd_report = run_frechet_distance(dev)
+    box_report = run_box_segmenter(dev)
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -3196,13 +3462,14 @@ def main() -> int:
                                     *((f"SD1.5 {label.removeprefix('K1 ')}, d = {shape[4]}", label, sd15_packed[label])
                                       for label, shape in SD15_UPSCALER_SHAPES.items()),
                                     *((f"{label.removeprefix('K1 ')}, d = {shape[4]}", label, sd15_packed[label])
-                                      for label, shape in SDXL_ZOO_SHAPES.items()))
+                                      for label, shape in {**SDXL_ZOO_SHAPES, **DINOV2_SHAPES}.items()))
     ]  # fmt: skip
     k1_launches = {"sdxl": sdxl_launches["flash_attention_packed"], "sd15": sd15_launches["flash_attention_packed"],
                    "sd15_adapters": adapters_launches["flash_attention_packed"],
                    "sd15_zoo": zoo_launches["flash_attention_packed"],
                    "sd15_slice": slice_launches["flash_attention_packed"],
-                   "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"]}  # fmt: skip
+                   "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"],
+                   "dinov2": dinov2_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -3262,6 +3529,9 @@ def main() -> int:
         "sd15_zoo": zoo_report,
         "sd15_slice": slice_report,
         "sdxl_zoo": sdxl_zoo_report,
+        "dinov2": dinov2_report,
+        "dinov2_frechet_distance": fd_report,
+        "box_segmenter": box_report,
     }
     print(json.dumps(summary))
     print(smi)

@@ -96,11 +96,35 @@ def synthesize_weights(module: torch.nn.Module, seed: int) -> None:
                 p.normal_(generator=gen).mul_(math.prod(p.shape[1:]) ** -0.5)
 
 
+def _lanczos3_weights(in_size: int, out_size: int, antialias: bool) -> np.ndarray:
+    """(out, in) lanczos3 weights of ``jax.image.resize``: half-pixel
+    centres, rows normalized, and the kernel widened by in/out at a
+    downscale only with `antialias`."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+    centers = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    d = np.abs(centers[:, None] - np.arange(in_size, dtype=np.float64)[None, :]) / kernel_scale
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = np.where(d > 1e-3, 3.0 * np.sin(np.pi * d) * np.sin(np.pi * d / 3.0) / (np.pi**2 * d**2), 1.0)
+    w = np.where(d > 3.0, 0.0, w)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1.0), 0.0)
+    return w.astype(np.float32)
+
+
 def interpolate(x: torch.Tensor, size: tuple[int, int], mode: str = "nearest", antialias: bool = False) -> torch.Tensor:
     """Resize NCHW `x` to spatial `size`. Nearest takes source index
-    floor(i·in/out), as the JAX package's nearest resize does."""
+    floor(i·in/out), as the JAX package's nearest resize does; lanczos is
+    the JAX package's lanczos3 (``jax.image.resize``), with or without
+    `antialias`, as two separable products in float32."""
     if mode == "nearest":
         return F.interpolate(x, size=tuple(size), mode="nearest")
+    if mode == "lanczos":
+        wh, ww = (
+            torch.from_numpy(_lanczos3_weights(n, m, antialias)).to(x.device)
+            for n, m in zip(x.shape[-2:], size)
+        )
+        return torch.einsum("oh,...hw,pw->...op", wh, x.float(), ww).to(x.dtype)
     y = F.interpolate(x.float(), size=tuple(size), mode=mode, antialias=antialias)
     return y.to(x.dtype)
 

@@ -1,8 +1,10 @@
-"""CLIP BPE tokenizer, pure Python, on the host.
+"""CLIP BPE tokenizer, on the host.
 
 Counterpart of ``refiners_tpu/foundationals/clip/tokenizer.py``: byte-level
 BPE over the OpenAI CLIP merge table (``bpe_simple_vocab_16e6.txt.gz``,
 shipped beside this file), SOT/EOT wrapping and fixed-length padding. The
+merges run in the native C++ engine (``native/bpe.cpp``, built with ``g++``
+at first use) where it builds, else in Python; ``engine`` says which. The
 output is a (batch, sequence_length) int64 tensor on the CPU; the text
 encoder's Converter moves it to the model's device.
 """
@@ -67,6 +69,19 @@ class CLIPTokenizer(fl.Module):
             r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[a-zA-Z]+|[0-9]|(?:[^\s\w]|_)+",
             flags=re.IGNORECASE,
         )
+        self._native = None
+        try:
+            from refiners_tpu_torch.native.bpe_binding import NativeBPE
+
+            byte_decoder = {v: k for k, v in self._byte_encoder.items()}
+            self._native = NativeBPE(self._encoder, self._bpe_ranks, byte_decoder)  # type: ignore[arg-type]
+        except RuntimeError:
+            pass  # no C++ compiler: the Python merges
+
+    @property
+    def engine(self) -> str:
+        """The merge engine in use: ``"native"`` (C++) or ``"python"``."""
+        return "python" if self._native is None else "native"
 
     def _bpe(self, token: str) -> list[str]:
         if token in self._cache:
@@ -94,10 +109,19 @@ class CLIPTokenizer(fl.Module):
     def encode_str(self, text: str) -> list[int]:
         """Text → BPE token ids, without special tokens."""
         text = re.sub(r"\s+", " ", text.lower()).strip()
+        chunks = self._pattern.findall(text)
+        if self._native is not None and not self._cache:
+            # one call of the native engine for the whole prompt
+            return self._native.encode_words([c.encode("utf-8") for c in chunks])
         ids: list[int] = []
-        for chunk in self._pattern.findall(text):
+        for chunk in chunks:
             mapped = "".join(self._byte_encoder[b] for b in chunk.encode("utf-8"))
-            ids.extend(self._encoder[sub] for sub in self._bpe(mapped))
+            if mapped in self._cache:  # includes concept tokens
+                ids.extend(self._encoder[sub] for sub in self._cache[mapped])
+            elif self._native is not None:
+                ids.extend(self._native.encode_word(chunk.encode("utf-8")))
+            else:
+                ids.extend(self._encoder[sub] for sub in self._bpe(mapped))
         return ids
 
     def encode(self, text: str, max_length: int | None = None) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Training harness; counterpart of ``refiners_tpu/training_utils/``.
 
 Ported: the Trainer, callbacks, the clock, the TOML config (dataclasses and
-`tomllib`, no pydantic), the time values and seeding helpers. Not ported yet
-(ROADMAP.md, Queue 1 step 10): checkpointing, the data loader, metrics, the
-wandb/neptune loggers, the Hugging Face datasets helper and ForceCommit.
+`tomllib`, no pydantic), the time values and seeding helpers, and the DINOv2
+Fréchet distance (``training_utils.metrics``, imported from its module as in
+the JAX package). Not ported yet (ROADMAP.md, Queue 1 step 10):
+checkpointing, the data loader, the wandb/neptune loggers, the Hugging Face
+datasets helper and ForceCommit.
 """
 
 from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig

@@ -93,6 +93,11 @@ def _launches() -> list[int]:
         (1, 4096, 4096, 10, 64, False, torch.bfloat16),
         (1, 1024, 1024, 20, 64, False, torch.bfloat16),
         (1, 32768, 32768, 1, 512, False, torch.bfloat16),
+        # DINOv2-g at 518², batch 4, with and without its four registers: ragged on both sides
+        # (1374 = 10·128 + 94), so no tail may read or write the next batch element's rows
+        (4, 1374, 1374, 24, 64, False, torch.bfloat16),
+        (4, 1370, 1370, 24, 64, False, torch.bfloat16),
+        (4, 1374, 1374, 24, 64, False, torch.float32),
     ],
 )
 def test_kernel_matches_plain(
