@@ -42,7 +42,15 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      d = 80 with Lq < Lk, and through strided heads of a packed fused
      projection: dq, dk, dv each ≤ 2e-2 against
      ``flash_attention_backward_plain`` in float32; the registers and spill
-     bytes of every dQ instance from the build's ptxas output;
+     bytes of every dQ instance from the build's ptxas output; at
+     128 < d ≤ 512 (``flash_bwd_wide_kernel``, mma.sync, one kernel for both
+     gradients; the float32 kernels' wide instances): the SD1.5 VAE
+     decoder's mid-block at 512² (2, 4096, 4096, 1, 512) and
+     (1, 1024, 1024, 2, 256), timed single and queued against their bounds
+     (0.139 and 0.104 ms at the VAE site) and the memory-efficient
+     attention's backward, a ragged causal d = 512, d = 200, float16 and
+     float32 at d = 512, strided heads of a fused (1, 4096, 3·512)
+     projection; the registers and spills of the 12 wide instances;
    - the forward with SAM's decomposed relative-position bias
      (``flash_attention_relpos``) at the SAM-H global and windowed layers'
      shapes and at a 10 × 10 key grid, in bf16 and float32, against
@@ -100,6 +108,22 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    and grad norm finite, every weight of two or more dims changed, every
    parameter finite, and exactly 10 forward + 10 dK/dV + 10 dQ launches per
    step.
+   (c) the SD1.5 VAE's decoder trained on the MSE of its reconstruction
+   (sd-vae-ft-mse's fine-tune), full-width ``SD1Autoencoder`` with seeded
+   synthetic weights, the encoder frozen, batches of 2 seeded 512² images
+   from ``create_data_loader``: one decoder step four ways as in (a)
+   (exactly one forward with lse, one dK/dV and one dQ launch, all at the
+   mid-block's one head of d = 512); in bf16, 4 steps of Lion straight
+   against 2 steps, a ``CheckpointCallback`` save and a fresh trainer
+   restored for the last 2 (cuDNN deterministic; losses within 1e-3 and
+   every weight within Lion's bound of the straight run's); 2 steps of
+   Prodigy in float32 (finite losses and parameters, every weight of two or
+   more dims moved); 2 steps with ``apply_remat`` on the decoder's Resnet,
+   SelfAttention2d and Upsample blocks against 2 without (lower peak
+   memory, the same first loss). Every step launches the frozen encoder's
+   K1 once, the decoder's forward with lse once (twice under remat) and
+   K4a and K4b once each; seconds, peak memory and launches a step; one
+   step traced.
 5. SAM serving: full-width ``SegmentAnythingH`` (ViT-H, 1280 wide, 32
    layers, 16 heads) in bf16 with seeded synthetic weights and a
    single-mask decoder. (a) One image embedding four ways: float32 on the
@@ -255,8 +279,9 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    one MVANet forward traced.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 5b, 6, 7b, 8b, 9b, 10, 11 and 12's runs, each with the counts
-set to 0 just before it; K1's over phases 3, 7b, 8b, 9b, 10, 11 and 12a, by path),
+phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11 and 12's runs, each with the
+counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b, 9b, 10, 11
+and 12a, by path),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -297,6 +322,46 @@ TRAINING_STEP_LAUNCHES = {
     "quantize_int8": 0,
     "quantize_rows_int8": 0,
 }
+# phase 4c: the SD1.5 VAE's decoder trained on the MSE of its reconstruction (sd-vae-ft-mse's fine-tune)
+VAE_SIZE = 512
+VAE_IMAGES = 4  # seeded images: batches of 2, two steps an epoch
+VAE_WEIGHTS_SEED = 21
+VAE_LION_LR = 1e-4
+VAE_LION_WD = 1e-2  # the config's default weight decay, which Lion8bit takes
+VAE_TRAIN_CONFIG = """
+[clock]
+verbose = false
+
+[training]
+duration = "{steps}:step"
+dtype = "{dtype}"
+device = "cuda"
+seed = 0
+
+[optimizer]
+optimizer = "{optimizer}"
+learning_rate = {lr}
+
+[lr_scheduler]
+type = "ConstantLR"
+
+[encoder]
+requires_grad = false
+
+[decoder]
+requires_grad = true
+"""
+# a decoder step: its mid-block's forward with the lse, and one launch of each backward kernel
+VAE_DECODER_LAUNCHES = {"flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+# a training step also encodes the batch: the frozen encoder's mid-block, no lse
+VAE_STEP_LAUNCHES = {"flash_attention_packed": 1, **VAE_DECODER_LAUNCHES}
+# with the mid-block under remat its forward runs again in the backward
+VAE_REMAT_LAUNCHES = {**VAE_STEP_LAUNCHES, "flash_attention": 2}
+# the resumed run against the straight one: a bit-equal run gives 0; a few Lion sign flips change a
+# bf16 loss over 1.5M pixels far less than this
+VAE_RESUME_LOSS_TOL = 1e-3
+# remat recomputes the same forward: the first step's loss within float32 summation order
+VAE_REMAT_LOSS_TOL = 1e-6
 ATTENTION_SHAPES = [
     # (batch, q_len, kv_len, heads, head_dim, causal, dtype)
     (2, 4096, 4096, 10, 64, False, BF16),  # SDXL UNet self-attention at 64×64 latents
@@ -494,7 +559,16 @@ BACKWARD_SHAPES = [
     (2, 4096, 4096, 8, 40, False, F32),
     (2, 1024, 1024, 8, 80, False, F32),
     (2, 1000, 1100, 5, 64, True, F32),
+    # 128 < d <= 512: the wide kernel (bf16, fp16) and the float32 kernels' wide instances
+    (2, 4096, 4096, 1, 512, False, BF16),  # the SD1.5 VAE decoder's mid-block at 512² (phase 4c's site)
+    (1, 1024, 1024, 2, 256, False, BF16),
+    (1, 1000, 1100, 1, 512, True, BF16),  # ragged and causal
+    (1, 1024, 1024, 1, 200, False, BF16),  # d not a multiple of 16, padded to 256
+    (1, 1024, 1024, 1, 512, False, torch.float16),
+    (1, 1024, 1024, 1, 512, False, F32),
 ]
+VAE_TRAIN_SHAPE = [2, 4096, 4096, 1, 512]  # K4a's and K4b's site on phase 4c's path (one launch each a step)
+WIDE_BACKWARD_SHAPES = {"VAE": VAE_TRAIN_SHAPE, "d = 256": [1, 1024, 1024, 2, 256]}
 
 
 def _tols(dtype: torch.dtype) -> tuple[float, float, float]:
@@ -547,8 +621,9 @@ def _kernel_name(ptxas_line: str) -> str:
     template = re.match(r"I(\w*?)EE?v", mangled[pos:])
     if template is None:
         return name
-    types = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "float32"}
-    args = [types.get(tok, tok) for tok in re.findall(r"13__nv_bfloat16|6__half|^f|(?<=Li)\d+", template.group(1))]
+    types = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "float32", "b0": "false", "b1": "true"}
+    tokens = re.findall(r"13__nv_bfloat16|6__half|^f|(?<=Li)\d+|(?<=L)b[01]", template.group(1))
+    args = [types.get(tok, tok) for tok in tokens]
     return f"{name}<{', '.join(args)}>"
 
 
@@ -778,6 +853,9 @@ def check_backward(dev: torch.device) -> tuple[list[dict], list[dict]]:
     qkv = torch.randn((2, 4096, 3 * 320), generator=gen, device=dev).bfloat16()
     q, k, v = (split_heads(qkv[..., i * 320 : (i + 1) * 320], 8) for i in range(3))
     one("strided heads of a fused (2, 4096, 3·8·40) projection", q, k, v, False, timed=False)
+    qkv = torch.randn((1, 4096, 3 * 512), generator=gen, device=dev).bfloat16()
+    q, k, v = (split_heads(qkv[..., i * 512 : (i + 1) * 512], 1) for i in range(3))
+    one("strided heads of a fused (1, 4096, 3·512) projection (the wide kernel)", q, k, v, False, timed=False)
     return dkv_results, dq_results
 
 
@@ -833,9 +911,10 @@ def _bound(flops: float, nbytes: float, dtype: torch.dtype) -> dict[str, Any]:
 
 def _print_row(label: str, ms: float, row: dict[str, Any]) -> None:
     library = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "none"
+    library_queued = f"{row['library_device_ms']:.4f}" if row.get("library_device_ms") is not None else "none"
     queued = (
         f" queued device_ms={row['device_ms']:.4f} (share {row['bound_ms'] / row['device_ms']:.3f}), "
-        f"library {row['library_device_ms']:.4f}"
+        f"library {library_queued}"
         if "device_ms" in row
         else ""
     )
@@ -844,6 +923,35 @@ def _print_row(label: str, ms: float, row: dict[str, Any]) -> None:
         f"row {label}{kernel}: kernel_ms={ms:.4f} bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
         f"share={row['bound_ms'] / ms:.3f} library_ms={library} ({row['library_call']}){queued}"
     )
+
+
+def _library_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor) -> tuple[Any, str]:
+    """One PyTorch call computing dq, dk and dv from the forward's residuals
+    at a wide head: the backward of ``F.scaled_dot_product_attention`` under
+    the memory-efficient backend (its ``aten._scaled_dot_product_efficient_attention_backward``,
+    which takes d = 512 where the flash one stops at 256), through
+    ``torch.autograd.grad`` on a forward taken once; the flash backend where
+    the efficient one refuses; (None, why) where both do."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    reasons = []
+    for backend, op in ((SDPBackend.EFFICIENT_ATTENTION, "_scaled_dot_product_efficient_attention_backward"),
+                        (SDPBackend.FLASH_ATTENTION, "_scaled_dot_product_flash_attention_backward")):  # fmt: skip
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(*leaves)
+
+            def library(out: torch.Tensor = out, leaves: list[torch.Tensor] = leaves) -> Any:
+                return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+            library()
+            torch.cuda.synchronize()
+            return library, f"aten.{op} (dq, dk, dv), through torch.autograd.grad of F.scaled_dot_product_attention"
+        except RuntimeError as e:
+            reasons.append(f"{backend.name}: {str(e).splitlines()[0][:120]}")
+    return None, "none (" + "; ".join(reasons) + ")"
 
 
 def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
@@ -925,6 +1033,36 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
             "device_ms": _device_ms(dq), "library_device_ms": library_backward_device_ms, **together,
         }  # fmt: skip
         del q, k, v, do, out, lse, delta, lib
+        _free()
+    # K4a and K4b at the wide heads: the SD1.5 VAE decoder's mid-block at 512² (phase 4c, one launch
+    # each a step) and d = 256; both on `flash_bwd_wide_kernel`
+    for label, (b, seq, _, h, d) in WIDE_BACKWARD_SHAPES.items():
+        q, k, v, do = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
+        n, scale = b * h * seq * d, 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_forward(q, k, v, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, False, scale)  # noqa: E731
+        dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False, scale)  # noqa: E731
+        library_backward, backward_call = _library_backward(q, k, v, do)
+        library = (
+            {"library_ms": _time_ms(library_backward, reps=10), "library_device_ms": _device_ms(library_backward)}
+            if library_backward is not None
+            else {"library_ms": None, "library_device_ms": None}
+        )
+        backward = lambda: fa.flash_attention_backward(q, k, v, out, lse, do)  # noqa: E731
+        together = {"backward_ms": _time_ms(backward, reps=10), "backward_device_ms": _device_ms(backward)}
+        kernels = fa.backward_kernels(BF16, d)
+        rows[f"K4a {label}"] = {
+            **_bound(8 * b * h * seq * seq * d, 6 * n * 2 + 2 * b * h * seq * 4, BF16), **library,
+            "library_call": backward_call + ", against the delta reduction + K4a + K4b", "cuda_kernel": kernels[0],
+            "ms": _time_ms(dkv, reps=10), "device_ms": _device_ms(dkv), **together,
+        }  # fmt: skip
+        rows[f"K4b {label}"] = {
+            **_bound(6 * b * h * seq * seq * d, 5 * n * 2 + 2 * b * h * seq * 4, BF16), **library,
+            "library_call": backward_call + ", against the delta reduction + K4a + K4b", "cuda_kernel": kernels[1],
+            "ms": _time_ms(dq, reps=10), "device_ms": _device_ms(dq), **together,
+        }  # fmt: skip
+        del q, k, v, do, out, lse, delta
         _free()
     # K3: SAM-H's global and windowed layers; the dense bias is built outside the timed call
     for label, (b, kh, h, d) in (("K3 global", (1, 64, 16, 80)), ("K3 windowed", (25, 14, 16, 80))):
@@ -1454,8 +1592,66 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
 # ---------------------------------------------------------------------------
 
 
-def check_training_step(dev: torch.device) -> dict[str, float]:
+def _training_routes(label: str, module: torch.nn.Module, loss_of: Callable[[torch.dtype], torch.Tensor],
+                     want: dict[str, int]) -> dict[str, float]:
+    """One forward + backward of `loss_of(dtype)` four ways: float32 on the
+    plain path (the reference), float32 through the kernels, bf16 on the
+    plain path and bf16 through the kernels (float32 first: the bf16 routes
+    round the weights). Gates: no launch on the plain routes and exactly
+    `want` on each kernel route; the bf16 kernel route's gradient, over all
+    of `module`'s parameters, at most twice as far from the reference as the
+    bf16 plain route's, and the float32 kernel route's within F32_STEP_TOL."""
     import refiners_tpu_torch.fluxion.layers as fl
+
+    sdpa = list(module.layers(fl.ScaledDotProductAttention, recurse=True))  # type: ignore[attr-defined]
+    params = list(module.parameters())
+
+    def grads(dtype: torch.dtype, kernel: bool) -> tuple[list[torch.Tensor], float, dict[str, int]]:
+        for layer in sdpa:
+            layer.is_optimized = kernel
+        module.to(dtype=dtype)
+        module.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = loss_of(dtype)
+        loss.backward()
+        torch.cuda.synchronize()
+        return [p.grad.float() for p in params], float(loss.detach()), read_launches()
+
+    reference, ref_loss, ref_launches = grads(F32, kernel=False)
+    ref_norm = math.sqrt(sum(float((g * g).sum()) for g in reference))
+
+    def distance(got: list[torch.Tensor]) -> float:
+        return math.sqrt(sum(float(((g - r) ** 2).sum()) for g, r in zip(got, reference))) / ref_norm
+
+    f32_kernel, f32_kernel_loss, f32_launches = grads(F32, kernel=True)
+    err_f32_kernel = distance(f32_kernel)
+    del f32_kernel
+    plain, plain_loss, plain_launches = grads(BF16, kernel=False)
+    err_plain = distance(plain)
+    del plain
+    kernel, kernel_loss, kernel_launches = grads(BF16, kernel=True)
+    err_kernel = distance(kernel)
+    finite = all(bool(torch.isfinite(g).all()) for g in kernel)
+    del kernel, reference
+    print(
+        f"{label} losses float32 plain {ref_loss:.5f}, bf16 plain {plain_loss:.5f}, bf16 kernels {kernel_loss:.5f}, "
+        f"float32 kernels {f32_kernel_loss:.5f}; gradient vs float32 plain: bf16 kernel route rel_err={err_kernel:.3e}, "
+        f"bf16 plain route rel_err={err_plain:.3e} (ratio {err_kernel / err_plain:.3f}), float32 kernel route "
+        f"rel_err={err_f32_kernel:.3e}; launches float32 plain {ref_launches}, bf16 plain {plain_launches}, bf16 "
+        f"kernels {kernel_launches}, float32 kernels {f32_launches}"
+    )
+    if any(ref_launches.values()) or any(plain_launches.values()):
+        raise AssertionError("the plain steps must launch no kernel")
+    if kernel_launches != want or f32_launches != want:
+        raise AssertionError(f"the kernel steps launched {kernel_launches} (bf16), {f32_launches} (float32), not {want}")
+    if not (finite and err_kernel <= 2 * err_plain):
+        raise AssertionError(f"the kernel route's gradient is further from float32 than twice the plain route's: {err_kernel} > 2 × {err_plain}")
+    if not err_f32_kernel <= F32_STEP_TOL:
+        raise AssertionError(f"the float32 kernel route's gradient is {err_f32_kernel} from the plain route's (> {F32_STEP_TOL})")
+    return {"grad_rel_err_kernel": err_kernel, "grad_rel_err_plain_bf16": err_plain, "grad_rel_err_f32_kernel": err_f32_kernel}
+
+
+def check_training_step(dev: torch.device) -> dict[str, float]:
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
     from refiners_tpu_torch.foundationals.latent_diffusion import DDPM, SD1UNet
 
@@ -1470,59 +1666,17 @@ def check_training_step(dev: torch.device) -> dict[str, float]:
     noise = torch.randn((2, 4, 64, 64), generator=gen, device=dev)
     text = torch.randn((2, 77, 768), generator=gen, device=dev)
     steps = [250, 750]
-    sdpa = list(unet.layers(fl.ScaledDotProductAttention, recurse=True))
-    params = list(unet.parameters())
 
-    def grads(dtype: torch.dtype, kernel: bool) -> tuple[list[torch.Tensor], float, dict[str, int]]:
-        for layer in sdpa:
-            layer.is_optimized = kernel
-        unet.to(dtype=dtype)
-        unet.zero_grad(set_to_none=True)
-        reset_launches()
+    def loss_of(dtype: torch.dtype) -> torch.Tensor:
         unet.set_timestep(solver.timesteps[steps])
         unet.set_clip_text_embedding(text.to(dtype))
         noised = solver.add_noise(x.to(dtype), noise.to(dtype), steps)
-        loss = ((unet(noised).float() - noise) ** 2).mean()
-        loss.backward()
-        torch.cuda.synchronize()
-        return [p.grad.float() for p in params], float(loss.detach()), read_launches()
+        return ((unet(noised).float() - noise) ** 2).mean()
 
-    reference, ref_loss, ref_launches = grads(torch.float32, kernel=False)
-    ref_norm = math.sqrt(sum(float((g * g).sum()) for g in reference))
-
-    def distance(got: list[torch.Tensor]) -> float:
-        return math.sqrt(sum(float(((g - r) ** 2).sum()) for g, r in zip(got, reference))) / ref_norm
-
-    # float32 through the kernels first: the bf16 routes round the weights
-    f32_kernel, f32_kernel_loss, f32_launches = grads(torch.float32, kernel=True)
-    err_f32_kernel = distance(f32_kernel)
-    del f32_kernel
-    plain, plain_loss, plain_launches = grads(torch.bfloat16, kernel=False)
-    err_plain = distance(plain)
-    del plain
-    kernel, kernel_loss, kernel_launches = grads(torch.bfloat16, kernel=True)
-    err_kernel = distance(kernel)
-    finite = all(bool(torch.isfinite(g).all()) for g in kernel)
-    del kernel, reference
-    print(
-        f"sd15: one training step (batch 2, 64×64, fwd+bwd) losses float32 plain {ref_loss:.5f}, bf16 plain "
-        f"{plain_loss:.5f}, bf16 kernels {kernel_loss:.5f}, float32 kernels {f32_kernel_loss:.5f}; gradient vs "
-        f"float32 plain: bf16 kernel route rel_err={err_kernel:.3e}, bf16 plain route rel_err={err_plain:.3e}, "
-        f"float32 kernel route rel_err={err_f32_kernel:.3e}; launches float32 plain {ref_launches}, bf16 plain "
-        f"{plain_launches}, bf16 kernels {kernel_launches}, float32 kernels {f32_launches}"
-    )
-    if any(ref_launches.values()) or any(plain_launches.values()):
-        raise AssertionError("the plain steps must launch no kernel")
-    want = TRAINING_STEP_LAUNCHES
-    if kernel_launches != want or f32_launches != want:
-        raise AssertionError(f"the kernel steps launched {kernel_launches} (bf16), {f32_launches} (float32), not {want}")
-    if not (finite and err_kernel <= 2 * err_plain):
-        raise AssertionError(f"the kernel route's gradient is further from float32 than twice the plain route's: {err_kernel} > 2 × {err_plain}")
-    if not err_f32_kernel <= F32_STEP_TOL:
-        raise AssertionError(f"the float32 kernel route's gradient is {err_f32_kernel} from the plain route's (> {F32_STEP_TOL})")
-    del unet, params, sdpa
+    report = _training_routes("sd15: one training step (batch 2, 64×64, fwd+bwd)", unet, loss_of, TRAINING_STEP_LAUNCHES)
+    del unet
     _free()
-    return {"grad_rel_err_kernel": err_kernel, "grad_rel_err_plain_bf16": err_plain, "grad_rel_err_f32_kernel": err_f32_kernel}
+    return report
 
 
 def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]]:
@@ -1577,6 +1731,281 @@ def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]
     del trainer, before, params
     _free()
     return launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: training the SD1.5 VAE's decoder
+# ---------------------------------------------------------------------------
+
+
+def _vae_image(index: int) -> torch.Tensor:
+    """Seeded 512² RGB image `index` in [-1, 1], made on the card: uniform
+    noise at 64², bilinearly upsampled."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(1000 + index)
+    low = torch.rand((1, 3, VAE_SIZE // 8, VAE_SIZE // 8), generator=gen, device="cuda") * 2 - 1
+    return F.interpolate(low, size=(VAE_SIZE, VAE_SIZE), mode="bilinear", align_corners=False)[0]
+
+
+def _vae_autoencoder(dev: torch.device) -> Any:
+    """Full-width `SD1Autoencoder` on the card, float32, seeded weights."""
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import SD1Autoencoder
+
+    manual_seed(VAE_WEIGHTS_SEED)
+    autoencoder = SD1Autoencoder(device=dev)
+    synthesize_weights(autoencoder, seed=VAE_WEIGHTS_SEED)
+    return autoencoder
+
+
+def check_vae_step(dev: torch.device) -> dict[str, float]:
+    """One decoder forward + backward of the MSE reconstruction loss four
+    ways (as phase 4a), on latents of two seeded 512² images encoded once in
+    float32 on the plain path."""
+    import refiners_tpu_torch.fluxion.layers as fl
+
+    autoencoder = _vae_autoencoder(dev)
+    encoder, decoder = autoencoder[0], autoencoder[1]
+    images = torch.stack([_vae_image(i) for i in range(2)])
+    for layer in encoder.layers(fl.ScaledDotProductAttention, recurse=True):
+        layer.is_optimized = False
+    with torch.no_grad():
+        latents = encoder(images)
+
+    def loss_of(dtype: torch.dtype) -> torch.Tensor:
+        return ((decoder(latents.to(dtype)).float() - images) ** 2).mean()
+
+    want = {**{name: 0 for name in read_launches()}, **VAE_DECODER_LAUNCHES}
+    report = _training_routes("vae train: one decoder step (batch 2, 512², fwd+bwd)", decoder, loss_of, want)
+    del autoencoder, encoder, decoder
+    _free()
+    return report
+
+
+def _vae_trainer(dev: torch.device, toml: str, records: list[dict[str, Any]], checkpoints: Any = None) -> Any:
+    """A `Trainer` of sd-vae-ft-mse's fine-tune: the SD1.5 VAE's decoder on
+    the MSE of its reconstruction of seeded 512² images (batches of 2 from
+    `create_data_loader`, shuffled by the training seed), the encoder
+    frozen; it records each step's seconds, loss, peak memory and launches.
+    With `checkpoints`, a `CheckpointCallback` saves into that directory at
+    each epoch's end (two steps)."""
+    from functools import cached_property
+
+    from refiners_tpu_torch import training_utils as tu
+
+    # the field types as objects, not strings: they are resolved here, where the class is made
+    annotations = {"encoder": tu.ModelConfig, "decoder": tu.ModelConfig, "checkpoint": tu.CheckpointConfig | None}
+    VaeConfig = type("VaeConfig", (tu.BaseConfig,), {"__annotations__": annotations, "checkpoint": None})
+
+    class VaeTrainer(tu.Trainer[VaeConfig, torch.Tensor]):
+        @cached_property
+        def autoencoder(self) -> Any:
+            return _vae_autoencoder(dev)
+
+        @tu.register_model()
+        def encoder(self, config: tu.ModelConfig) -> Any:
+            return self.autoencoder[0]
+
+        @tu.register_model()
+        def decoder(self, config: tu.ModelConfig) -> Any:
+            return self.autoencoder[1]
+
+        @tu.register_callback()
+        def checkpoint(self, config: tu.CheckpointConfig) -> Any:
+            return tu.CheckpointCallback(config)
+
+        def create_data_iterable(self) -> Any:
+            config = tu.DataLoaderConfig(batch_size=2, shuffle=True)
+            return tu.create_data_loader(_vae_image, VAE_IMAGES, config, collate_fn=torch.stack, seed=self.config.training.seed)
+
+        def compute_loss(self, batch: torch.Tensor) -> torch.Tensor:
+            images = batch.to(self.dtype)
+            with torch.no_grad():
+                latents = self.encoder(images)
+            return ((self.decoder(latents).float() - batch) ** 2).mean()
+
+        def step(self, batch: torch.Tensor) -> None:
+            before = read_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = time.perf_counter()
+            super().step(batch)
+            torch.cuda.synchronize()
+            after = read_launches()
+            records.append(
+                {"seconds": time.perf_counter() - start, "loss": float(self.loss.detach()), "grad_norm": self.grad_norm,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                 "launches": {k: after[k] - before[k] for k in after}}
+            )  # fmt: skip
+
+    config = VaeConfig.load_from_toml_string(toml)
+    if checkpoints is not None:
+        config.checkpoint = tu.CheckpointConfig(directory=str(checkpoints), interval="1:epoch", keep=2)
+    return VaeTrainer(config)
+
+
+def _print_vae_steps(label: str, records: list[dict[str, Any]]) -> None:
+    for i, r in enumerate(records):
+        print(
+            f"vae train {label} step {i}: {r['seconds']:.3f} s, loss {r['loss']:.6f}, grad norm {r['grad_norm']:.4f}, "
+            f"peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }"
+        )
+
+
+def _check_vae_launches(label: str, records: list[dict[str, Any]], want: dict[str, int]) -> None:
+    for r in records:
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"vae train {label}: a step launched {got}, not {want}")
+
+
+def run_vae_training(dev: torch.device) -> tuple[dict[str, int], dict[str, Any]]:
+    """Phase 4c (b)-(e): Lion with a checkpoint and a resume, Prodigy, remat,
+    one traced step. Returns the launches of the runs and the report."""
+    import shutil
+    from pathlib import Path
+
+    from refiners_tpu_torch.fluxion.layers import SelfAttention2d, Upsample
+    from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import Resnet
+    from refiners_tpu_torch.parallel import Recompute, apply_remat
+
+    directory = Path(__file__).resolve().parent / "build" / "chip_smoke_vae"
+    shutil.rmtree(directory, ignore_errors=True)
+    report: dict[str, Any] = {}
+    launches = {name: 0 for name in read_launches()}
+
+    def config(optimizer: str, lr: float, steps: int, dtype: str = "bfloat16") -> str:
+        return VAE_TRAIN_CONFIG.format(optimizer=optimizer, lr=lr, steps=steps, dtype=dtype)
+
+    def train(trainer: Any, records: list[dict[str, Any]]) -> None:
+        reset_launches()
+        trainer.train()
+        for name, n in read_launches().items():
+            launches[name] += n
+
+    def weights(trainer: Any) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in trainer.decoder.state_dict().items()}
+
+    # (b) Lion, 4 steps straight, against 2 steps, a checkpoint and a fresh trainer resumed for 2;
+    # cuDNN's deterministic algorithms, so that the two runs can agree bit for bit
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    straight_records: list[dict[str, Any]] = []
+    t0 = time.perf_counter()
+    straight = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 4), straight_records, directory / "straight")
+    print(f"vae train: SD1Autoencoder built in {time.perf_counter() - t0:.1f} s, bf16, decoder "
+          f"{straight.learnable_parameter_count} trainable parameters, encoder frozen")  # fmt: skip
+    initial = weights(straight)
+    train(straight, straight_records)
+    _print_vae_steps("Lion straight", straight_records)
+    straight_weights = weights(straight)
+    del straight
+    _free()
+    first_records: list[dict[str, Any]] = []
+    first = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 2), first_records, directory / "resumed")
+    train(first, first_records)
+    del first
+    _free()
+    tags = sorted(p.name for p in (directory / "resumed").iterdir())
+    resumed_records: list[dict[str, Any]] = []
+    resumed = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 4), resumed_records, directory / "resumed")
+    resumed.checkpoint.restore(resumed, "step_2")
+    train(resumed, resumed_records)
+    _print_vae_steps("Lion resumed at step 2", resumed_records)
+    resumed_weights = weights(resumed)
+    meta = json.loads((directory / "resumed" / "step_2" / "meta.json").read_text())
+    del resumed
+    _free()
+    torch.backends.cudnn.deterministic = False
+    losses = [r["loss"] for r in straight_records]
+    resumed_losses = [r["loss"] for r in first_records + resumed_records]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses, losses))
+    # Lion moves an element by lr (1 + weight_decay |w|) a step; an update whose sign flips between the
+    # two runs moves it by twice that, and bf16 rounds each result (at most 2^-8 |w|): over the 2 resumed steps
+    bound = {k: 4 * VAE_LION_LR * (1 + VAE_LION_WD * v.float().abs()) + 2 * 2**-8 * v.float().abs()
+             for k, v in straight_weights.items()}  # fmt: skip
+    excess = max(float(((resumed_weights[k].float() - v.float()).abs() - bound[k]).max()) for k, v in straight_weights.items())
+    differing = sum(int((resumed_weights[k] != v).sum()) for k, v in straight_weights.items())
+    total = sum(v.numel() for v in straight_weights.values())
+    print(
+        f"vae train: checkpoint tags {tags}, meta {meta}; losses straight {losses}, first + resumed {resumed_losses} "
+        f"(largest relative gap {loss_gap:.3e}); resumed weights differ from the straight run's in {differing} of "
+        f"{total} elements, largest excess over the bound {excess:.3e}"
+    )
+    if tags != ["step_2"] or meta != {"step": 2, "epoch": 1, "iteration": 2, "scheduler_steps": 2}:
+        raise AssertionError(f"the checkpoint after step 2 is {tags}, {meta}")
+    if len(losses) != 4 or len(resumed_losses) != 4 or not loss_gap <= VAE_RESUME_LOSS_TOL:
+        raise AssertionError(f"the resumed run's losses {resumed_losses} are not the straight run's {losses}")
+    if not excess <= 0:
+        raise AssertionError(f"the resumed run's weights lie {excess} beyond Lion's bound from the straight run's")
+    # bf16 holds a weight near 0.17 (the 4-channel conv_in's scale) to 2^-10: Lion's 1e-4 steps round away there
+    unmoved = [k for k, v in initial.items() if v.ndim >= 2 and torch.equal(straight_weights[k], v)]
+    print(f"vae train: Lion moved {sum(v.ndim >= 2 for v in initial.values()) - len(unmoved)} of the decoder's weights "
+          f"of two or more dims; unmoved in bf16: {unmoved}")  # fmt: skip
+    if all(torch.equal(straight_weights[k], v) for k, v in initial.items()):
+        raise AssertionError("Lion did not move the decoder")
+    for label, records in (("Lion straight", straight_records), ("Lion first", first_records), ("Lion resumed", resumed_records)):
+        _check_vae_launches(label, records, VAE_STEP_LAUNCHES)
+    report["lion"] = {"losses": losses, "resumed_losses": resumed_losses, "loss_gap": loss_gap,
+                      "differing_elements": differing, "elements": total, "checkpoint_meta": meta,
+                      "seconds": [r["seconds"] for r in straight_records],
+                      "peak_memory_bytes": [r["peak_memory_bytes"] for r in straight_records]}  # fmt: skip
+    del initial, straight_weights, resumed_weights, bound
+
+    # (c) Prodigy, float32: its first steps move a weight by about estim_lr0 = 1e-6, below bf16's resolution
+    prodigy_records: list[dict[str, Any]] = []
+    prodigy = _vae_trainer(dev, config("Prodigy", 1.0, 2, dtype="float32"), prodigy_records)
+    initial = weights(prodigy)
+    train(prodigy, prodigy_records)
+    _print_vae_steps("Prodigy float32", prodigy_records)
+    after = weights(prodigy)
+    unmoved = [k for k, v in initial.items() if v.ndim >= 2 and torch.equal(after[k], v)]
+    estimate = prodigy.models["decoder"].optimizer.param_groups[0]["estim_lr"]
+    finite = all(bool(torch.isfinite(p).all()) for p in prodigy.decoder.parameters())
+    print(f"vae train: Prodigy's estimate after 2 steps {estimate:.3e}; {sum(v.ndim >= 2 for v in initial.values())} "
+          f"weights of two or more dims, {len(unmoved)} unmoved; every parameter finite: {finite}")  # fmt: skip
+    if unmoved or not finite or not all(math.isfinite(r["loss"]) for r in prodigy_records):
+        raise AssertionError(f"Prodigy: unmoved {unmoved[:5]}, finite parameters {finite}, losses {[r['loss'] for r in prodigy_records]}")
+    _check_vae_launches("Prodigy", prodigy_records, VAE_STEP_LAUNCHES)
+    report["prodigy"] = {"losses": [r["loss"] for r in prodigy_records], "estim_lr": estimate,
+                         "seconds": [r["seconds"] for r in prodigy_records]}  # fmt: skip
+    del prodigy, initial, after
+    _free()
+
+    # (d) remat on the decoder's blocks: the second (warm) step with and without it
+    plain_records: list[dict[str, Any]] = []
+    plain = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 2), plain_records)
+    train(plain, plain_records)
+    # (e) one traced step, on the trainer without remat
+    batch = torch.stack([_vae_image(i) for i in range(2)])
+    profile = _profile("vae train: one decoder step (batch 2, 512², bf16, Lion, kernels)", lambda: plain.step(batch), "step")
+    del plain
+    _free()
+    remat_records: list[dict[str, Any]] = []
+    remat = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 2), remat_records)
+    wrapped = apply_remat(remat.decoder, (Resnet, SelfAttention2d, Upsample))
+    train(remat, remat_records)
+    _print_vae_steps("Lion without remat", plain_records)
+    _print_vae_steps(f"Lion with remat ({wrapped} blocks wrapped)", remat_records)
+    if wrapped != sum(1 for _ in remat.decoder.walk(Recompute, recurse=True)):
+        raise AssertionError("apply_remat's count disagrees with the Recompute chains in the decoder")
+    _check_vae_launches("no remat", plain_records, VAE_STEP_LAUNCHES)
+    _check_vae_launches("remat", remat_records, VAE_REMAT_LAUNCHES)
+    gap = abs(remat_records[0]["loss"] - plain_records[0]["loss"]) / plain_records[0]["loss"]
+    peak, remat_peak = plain_records[1]["peak_memory_bytes"], remat_records[1]["peak_memory_bytes"]
+    print(f"vae train: remat peak memory {remat_peak / 2**30:.2f} GiB against {peak / 2**30:.2f} GiB without, "
+          f"{remat_records[1]['seconds']:.3f} s a step against {plain_records[1]['seconds']:.3f}; first loss gap {gap:.3e}")  # fmt: skip
+    if not remat_peak < peak or not gap <= VAE_REMAT_LOSS_TOL:
+        raise AssertionError(f"remat: peak {remat_peak} against {peak}, loss gap {gap}")
+    report["remat"] = {"wrapped": wrapped, "peak_memory_bytes": remat_peak, "peak_memory_bytes_without": peak,
+                       "seconds": remat_records[1]["seconds"], "seconds_without": plain_records[1]["seconds"]}  # fmt: skip
+    report["step_profile"] = profile
+    del remat
+    _free()
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -3375,6 +3804,14 @@ def main() -> int:
         raise AssertionError(f"the build's ptxas output names no {dq_kernel} instance")
     for name, lines in dq_ptxas.items():
         print(f"ptxas K4b {name}: {lines}")
+    # the wide backward's instances (bf16, fp16 at D = 256 and 512; dK/dV true, dQ false) and the
+    # float32 kernels' wide ones
+    wide_ptxas = {name: "; ".join(lines) for name, lines in ptxas.items()
+                  if name.startswith(fa.WIDE_BACKWARD_KERNEL + "<") or re.match(r"flash_bwd_d(kv|q)_f32_kernel<(256|512),", name)}  # fmt: skip
+    if log and len(wide_ptxas) != 12:
+        raise AssertionError(f"the build's ptxas output names {sorted(wide_ptxas)}, not the 8 wide and 4 float32 wide instances")
+    for name, lines in wide_ptxas.items():
+        print(f"ptxas K4 wide {name}: {lines}")
 
     check_device_default()
     packed = check_packed_forward(dev)
@@ -3393,6 +3830,13 @@ def main() -> int:
                for results, label in ((forward, "K2 32²"), (dkv, "K4a 32²"), (dq, "K4b 32²"))}  # fmt: skip
     for label, result in train32.items():
         _print_row(label, result["ms"], rows[label])
+    for label in WIDE_BACKWARD_SHAPES:
+        for kernel in ("K4a", "K4b"):
+            _print_row(f"{kernel} {label}", rows[f"{kernel} {label}"]["ms"], rows[f"{kernel} {label}"])
+        row = rows[f"K4a {label}"]
+        library = f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f}" if row["library_ms"] is not None else "none"
+        print(f"row K4 {label}: delta + K4a + K4b {row['backward_ms']:.4f} ms single, {row['backward_device_ms']:.4f} "
+              f"queued; library {library} ({row['library_call']})")  # fmt: skip
     for label in ("K4a", "K4a 32²"):
         print(
             f"row {label}: delta + K4a + K4b {rows[label]['backward_ms']:.4f} ms single, "
@@ -3416,6 +3860,8 @@ def main() -> int:
     sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image, unet_profile = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
+    vae_step = check_vae_step(dev)
+    vae_launches, vae_report = run_vae_training(dev)
     sam_report, sam_launches = run_sam(dev)
     passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
     sd15_report, sd15_launches, sd15 = run_sd15(dev)
@@ -3469,7 +3915,8 @@ def main() -> int:
                    "sd15_zoo": zoo_launches["flash_attention_packed"],
                    "sd15_slice": slice_launches["flash_attention_packed"],
                    "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"],
-                   "dinov2": dinov2_launches["flash_attention_packed"]}  # fmt: skip
+                   "dinov2": dinov2_launches["flash_attention_packed"],
+                   "vae_train": vae_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -3482,6 +3929,19 @@ def main() -> int:
                                       ("SD1.5 UNet 32², d = 80", f"{label} 32²", train32[f"{label} 32²"]))
         ]  # fmt: skip
 
+    def wide_sites(label: str, results: list[dict]) -> list[dict]:
+        """K4a's or K4b's rows at the wide heads (phase 4c's VAE site and d = 256)."""
+        sites = []
+        for site, shape in WIDE_BACKWARD_SHAPES.items():
+            result = next(r for r in results if r["shape"] == shape and r["dtype"] == str(BF16))
+            row = rows[f"{label} {site}"]
+            sites.append({"site": site, "shape": shape, "ms": row["ms"], "plain_ms": result["plain_ms"],
+                          "cuda_kernel": row["cuda_kernel"], "library_call": row["library_call"],
+                          **{key: row[key] for key in train_keys if key in row}})  # fmt: skip
+        return sites
+
+    backward_launches = {"sd15_train": train_launches["flash_attention_bwd_dkv"], "vae_train": vae_launches["flash_attention_bwd_dkv"]}
+
     windowed_row = {"shape": windowed["shape"], "ms": windowed["ms"], "plain_ms": windowed["plain_ms"],
                     **{key: rows["K3 windowed"][key] for key in ("bound_ms", "bound_by", "library_ms", "device_ms",
                                                                  "library_device_ms")}}  # fmt: skip
@@ -3489,15 +3949,22 @@ def main() -> int:
         "kernels": [
             {**kernel("flash_attention_packed", "flash_attention_forward.cu", "flash_attention.py:707",
                       sum(k1_launches.values()), packed, rows["K1"]), "launches_by_path": k1_launches, "sites": sites},
+            # the forward with its lse under autograd: K2's sites on the SD1.5 UNet (phase 4b) and, through the
+            # packed entry, K1's function at the VAE decoder's mid-block (phase 4c, flash_fwd_wgmma_kernel)
             {**kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
-                      train_launches["flash_attention"], forward, rows["K2"]), "cuda_kernel": rows["K2"]["cuda_kernel"],
-             "sites": train_sites("K2", forward[0])},
+                      train_launches["flash_attention"] + vae_launches["flash_attention"], forward, rows["K2"]),
+             "cuda_kernel": rows["K2"]["cuda_kernel"], "sites": train_sites("K2", forward[0]),
+             "launches_by_path": {"sd15_train": train_launches["flash_attention"],
+                                  "vae_train (K1 at d = 512, with the lse)": vae_launches["flash_attention"]}},
             {**kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
-                      train_launches["flash_attention_bwd_dkv"], dkv, rows["K4a"]),
-             "cuda_kernel": rows["K4a"]["cuda_kernel"], "sites": train_sites("K4a", dkv[0])},
+                      sum(backward_launches.values()), dkv, rows["K4a"]), "launches_by_path": backward_launches,
+             "cuda_kernel": rows["K4a"]["cuda_kernel"], "sites": train_sites("K4a", dkv[0]) + wide_sites("K4a", dkv)},
             {**kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
-                      train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
-             "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0]), "ptxas": dq_ptxas},
+                      train_launches["flash_attention_bwd_dq"] + vae_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
+             "launches_by_path": {"sd15_train": train_launches["flash_attention_bwd_dq"],
+                                  "vae_train": vae_launches["flash_attention_bwd_dq"]},
+             "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0]) + wide_sites("K4b", dq),
+             "ptxas": dq_ptxas, "ptxas_wide": wide_ptxas},
             {**kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
                       sam_launches["flash_attention_relpos"], relpos, rows["K3 global"]),
              "cuda_kernel": rows["K3 global"]["cuda_kernel"], "device_ms": rows["K3 global"]["device_ms"],
@@ -3522,6 +3989,8 @@ def main() -> int:
         "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],
         "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],
         "sd15_trainer_losses": [r["loss"] for r in train_records],
+        "vae_training_step": vae_step,
+        "vae_training": vae_report,
         "sam": sam_report,
         "sdxl_passes": passes_report,
         "sd15": sd15_report,

@@ -25,10 +25,10 @@
 // tiles. With `causal`, tiles that lie wholly above the diagonal are
 // skipped. Heads are read through (batch, head, row) strides, so the packed
 // (B, L, H*D) layout, the flat (B, H, L, D) layout and column slices of a
-// fused projection all run in place. head_dim <= 128.
+// fused projection all run in place. head_dim <= 512, a multiple of 8.
 //
-// bfloat16 and float16: both kernels are warpgroup wgmma kernels on TMA,
-// compiled for padded head dims 64, 80 and 128 (hopper::Tile: whole
+// bfloat16 and float16, head_dim <= 128: both kernels are warpgroup wgmma
+// kernels on TMA, compiled for padded head dims 64, 80 and 128 (hopper::Tile: whole
 // 64-column boxes with the 128-byte swizzle plus a 16-column box with the
 // 32-byte swizzle, so d = 80 pays for 80 columns; d <= 64 runs the D = 64
 // instance). A block is two warpgroups of 64 rows that own their operand
@@ -51,8 +51,19 @@
 //   S = Q K^T and dP = dO V^T from shared memory, dS fed to dQ += dS K as a
 //   register A operand (K read MN-major). Every K and V byte read from L2
 //   serves 128 queries.
+// - bfloat16 and float16, 128 < head_dim <= 512 (the SD1.5 and SDXL VAEs'
+//   mid-block, one head of d = 512): `flash_bwd_wide_kernel`, one kernel for
+//   both gradients, compiled for padded head dims 256 and 512 (zero columns
+//   past d). A 64-row accumulator of 512 float32 columns is the register
+//   file of a whole warpgroup, and a 64 x 512 tile is 64 KiB, so the block
+//   owns 32 rows and its 8 warps split the gradients' d columns in four;
+//   S and dP, which reduce over d, are split by streamed row instead, so
+//   nothing is summed across warps. mma.sync from ldmatrix on padded
+//   shared-memory tiles loaded by cp.async, one tile at a time: right
+//   first, not yet fast.
 // - float32: the same two kernels on plain FFMA with 8 warps (P and dS
-//   unrounded, float32 throughout), so the gradients keep float32 accuracy.
+//   unrounded, float32 throughout), so the gradients keep float32 accuracy;
+//   smaller tiles at d > 128.
 //
 // What bounds it on the H100: tensor-core throughput, as in the forward
 // (the dK/dV kernel does 8*L^2*d flops per head, the dQ kernel 6*L^2*d),
@@ -690,32 +701,363 @@ int launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// 128 < head_dim <= 512, bfloat16 and float16: mma.sync
+// ---------------------------------------------------------------------------
+
+// Blocks of 8 warps. A block owns 32 rows (keys for dK/dV, query rows for
+// dQ): two groups of 16, four warps each; the other side streams through
+// tiles of 64 rows. Every tile sits in shared memory with rows padded by 8
+// elements (16 bytes), so the 8 rows an ldmatrix reads fall in 8 distinct
+// bank groups.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+constexpr int kWideOwn = 32;
+constexpr int kWideStream = 64;
+constexpr int kWidePad = 8;
+constexpr int kWideScorePitch = kWideStream + kWidePad;
+
+// Shared memory of the wide kernels at padded head dim D (256 or 512), in
+// bytes: the two owned tiles (K and V, or Q and dO), the two streamed tiles
+// (Q and dO, or K and V), P and dS of the owned rows against the streamed
+// tile (in the input type), and the streamed rows' lse and delta (dK/dV).
+template <int D>
+struct WideBwdSmem {
+  static constexpr int kPitch = D + kWidePad;  // elements
+  static constexpr int kOwnBytes = kWideOwn * kPitch * 2;
+  static constexpr int kStreamBytes = kWideStream * kPitch * 2;
+  static constexpr int kScoreBytes = kWideOwn * kWideScorePitch * 2;
+  static constexpr int own1 = 0;
+  static constexpr int own2 = kOwnBytes;
+  static constexpr int str1 = 2 * kOwnBytes;
+  static constexpr int str2 = str1 + kStreamBytes;
+  static constexpr int p = str2 + kStreamBytes;
+  static constexpr int ds = p + kScoreBytes;
+  static constexpr int rows = ds + kScoreBytes;
+  static constexpr int bytes = rows + 2 * kWideStream * 4;
+  static_assert(bytes <= int(kMaxSharedBytes), "wide backward tiles exceed shared memory");
+};
+
+// 16-byte copy into shared memory; src-size 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// every cp.async this thread has issued has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values: lane l gives the address of row l % 8
+// of matrix l / 8; register i holds, for lane l, row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix i (with `.trans`, of its transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_u32(addr))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_u32(addr))
+               : "memory");
+}
+
+// c (16 x 8, float32) += A (16 x 16, row-major fragment) B (16 x 8, the
+// fragment b0, b1 of its columns)
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// Rows [row0, row0 + rows) of one head into a padded tile, 16 bytes a copy
+// by every thread of the block; rows past `len` and columns past `d` (a
+// multiple of 8) are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void wide_load(T* dst, const T* src, long long row_stride, int row0, int rows, int len,
+                                          int d) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < rows * kChunks; c += kWideThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    const bool in = row0 + r < len && col < d;
+    cp_async16(dst + r * (D + kWidePad) + col, in ? src + (long long)(row0 + r) * row_stride + col : src, in);
+  }
+}
+
+// One kernel for both gradients at 128 < head_dim <= 512 (kDkv: dK and dV;
+// else dQ), one block of 8 warps per (32 owned rows, batch*head), a loop over
+// the streamed tiles of 64 rows that any owned row sees. A 64-row gradient
+// accumulator of 512 float32 columns would be the whole register file of a
+// warpgroup, so the d columns are split instead: warp w owns the rows of
+// group w / 4 and the columns [D/4 (w % 4), D/4 (w % 4 + 1)) of each
+// gradient, 2 x 64 floats a thread at D = 512 for dK and dV. Per streamed
+// tile:
+//   S and dP (16 owned rows x 16 streamed rows a warp, the warp's quarter of
+//     the tile) over the whole head: mma.sync m16n8k16 from ldmatrix, the
+//     owned tile as A, the streamed tile's rows as B;
+//   P = exp2(S scale log2(e) - lse log2(e)), 0 outside the masks, and
+//     dS = P (dP - delta), rounded to the input type into shared memory:
+//     the owned rows' P and dS against the whole tile, which every warp of
+//     the group reads;
+//   the gradients over the warp's columns: dV += P dO and dK += dS Q (dK/dV,
+//     where P and dS are the attention's transposes) or dQ += dS K, the
+//     streamed tile read MN-major through ldmatrix.trans.
+// The products that reduce over d (S, dP) are split by streamed row, the
+// ones that produce d columns by column, so no partial sum crosses warps.
+// Query rows and keys past the end are zeros, give P = 0 and are never
+// stored; columns past d are zeros and are never stored.
+template <typename T, int D, bool kDkv>
+__global__ void __launch_bounds__(kWideThreads, 1) flash_bwd_wide_kernel(const BwdParams p) {
+  using L = WideBwdSmem<D>;
+  constexpr int kPitch = L::kPitch;
+  constexpr int DQ = D / 4;    // gradient columns of a warp
+  constexpr int kN8 = DQ / 8;  // its 8-column accumulator tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* own1 = reinterpret_cast<T*>(smem + L::own1);
+  T* own2 = reinterpret_cast<T*>(smem + L::own2);
+  T* str1 = reinterpret_cast<T*>(smem + L::str1);
+  T* str2 = reinterpret_cast<T*>(smem + L::str2);
+  T* sp = reinterpret_cast<T*>(smem + L::p);
+  T* sds = reinterpret_cast<T*>(smem + L::ds);
+  float* srows = reinterpret_cast<float*>(smem + L::rows);  // dK/dV: the tile's lse, then its delta
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = warp / 4;
+  const int quarter = warp % 4;
+  const int t = lane % 4;
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y % p.heads;
+  const int o0 = blockIdx.x * kWideOwn;
+  const int shift = p.kv_len - p.q_len;
+  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
+  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
+  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
+  const T* doh = static_cast<const T*>(p.dout) + b * p.do_bs + h * p.do_hs;
+  const float* lse_head = p.lse + (long long)blockIdx.y * p.q_len;
+  const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
+  const int own_len = kDkv ? p.kv_len : p.q_len;
+  const int str_len = kDkv ? p.q_len : p.kv_len;
+
+  // the streamed tiles that any owned row sees
+  int j0 = 0;
+  int n_tiles = (str_len + kWideStream - 1) / kWideStream;
+  if (p.causal && kDkv) {  // key k sees query rows q >= k - shift
+    const int first = o0 - shift;
+    j0 = first > 0 ? min(first / kWideStream, n_tiles) : 0;
+  } else if (p.causal) {  // query row r sees keys k <= r + shift
+    const int last = min(o0 + kWideOwn, p.q_len) - 1 + shift;
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / kWideStream + 1);
+  }
+
+  wide_load<T, D>(own1, kDkv ? kh : qh, kDkv ? p.k_rs : p.q_rs, o0, kWideOwn, own_len, p.head_dim);
+  wide_load<T, D>(own2, kDkv ? vh : doh, kDkv ? p.v_rs : p.do_rs, o0, kWideOwn, own_len, p.head_dim);
+  cp_async_wait_all();
+
+  const int row_a = o0 + 16 * grp + lane / 4;  // this thread's accumulator rows (owned)
+  const int row_b = row_a + 8;
+  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};  // dQ: its rows' lse (times log2(e)) and delta
+  if constexpr (!kDkv) {
+    lse2[0] = row_a < p.q_len ? lse_head[row_a] * kLog2e : 0.f;
+    lse2[1] = row_b < p.q_len ? lse_head[row_b] * kLog2e : 0.f;
+    delta_r[0] = row_a < p.q_len ? delta_head[row_a] : 0.f;
+    delta_r[1] = row_b < p.q_len ? delta_head[row_b] : 0.f;
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const int ksteps = (p.head_dim + 15) / 16;
+
+  float acc1[kN8][4];  // dV (dK/dV) or dQ
+  float acc2[kN8][4];  // dK (dK/dV)
+  #pragma unroll
+  for (int n = 0; n < kN8; ++n) {
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = acc2[n][e] = 0.f;
+  }
+  // ldmatrix addresses: the A rows of the warp's group, the B rows of its
+  // quarter of the tile (non-transposed: rows are the product's N), and the
+  // P and dS rows of its group
+  const int a_off = (16 * grp + lane % 16) * kPitch + (lane / 16) * 8;
+  const int b_off = (16 * quarter + (lane / 16) * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8;
+  const int s_off = (16 * grp + lane % 16) * kWideScorePitch + (lane / 16) * 8;
+
+  for (int j = j0; j < n_tiles; ++j) {
+    const int s0 = j * kWideStream;
+    __syncthreads();  // every warp is done with the previous tile, its P and dS
+    wide_load<T, D>(str1, kDkv ? qh : kh, kDkv ? p.q_rs : p.k_rs, s0, kWideStream, str_len, p.head_dim);
+    wide_load<T, D>(str2, kDkv ? doh : vh, kDkv ? p.do_rs : p.v_rs, s0, kWideStream, str_len, p.head_dim);
+    if (kDkv && threadIdx.x < kWideStream) {
+      const int q = s0 + threadIdx.x;
+      srows[threadIdx.x] = q < p.q_len ? lse_head[q] * kLog2e : 0.f;
+      srows[kWideStream + threadIdx.x] = q < p.q_len ? delta_head[q] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S and dP of the warp's 16 owned rows against its 16 streamed rows
+    float s[2][4], dp[2][4];
+    #pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t a[4], bb[4];
+      ldmatrix_x4(a, own1 + a_off + 16 * kk);
+      ldmatrix_x4(bb, str1 + b_off + 16 * kk);
+      mma16816<T>(s[0], a, bb[0], bb[1]);
+      mma16816<T>(s[1], a, bb[2], bb[3]);
+      ldmatrix_x4(a, own2 + a_off + 16 * kk);
+      ldmatrix_x4(bb, str2 + b_off + 16 * kk);
+      mma16816<T>(dp[0], a, bb[0], bb[1]);
+      mma16816<T>(dp[1], a, bb[2], bb[3]);
+    }
+
+    // P and dS: entry (n, e) is owned row e < 2 ? row_a : row_b against
+    // streamed row s0 + c, c = 16 quarter + 8 n + 2 t + (e & 1)
+    #pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float pv[4], dv[4];
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int own = e < 2 ? row_a : row_b;
+        const int c = 16 * quarter + 8 * n + 2 * t + (e & 1);
+        const int q = kDkv ? s0 + c : own;
+        const int k = kDkv ? own : s0 + c;
+        const float lse = kDkv ? srows[c] : lse2[e >> 1];
+        const float delta = kDkv ? srows[kWideStream + c] : delta_r[e >> 1];
+        const float pe = admissible(p, q, k) ? fast_exp2(fmaf(s[n][e], scale_log2, -lse)) : 0.f;
+        pv[e] = pe;
+        dv[e] = pe * (dp[n][e] - delta);
+      }
+      const int r = 16 * grp + lane / 4;
+      const int c = 16 * quarter + 8 * n + 2 * t;
+      if constexpr (kDkv) {
+        *reinterpret_cast<uint32_t*>(sp + r * kWideScorePitch + c) = pack2<T>(pv[0], pv[1]);
+        *reinterpret_cast<uint32_t*>(sp + (r + 8) * kWideScorePitch + c) = pack2<T>(pv[2], pv[3]);
+      }
+      *reinterpret_cast<uint32_t*>(sds + r * kWideScorePitch + c) = pack2<T>(dv[0], dv[1]);
+      *reinterpret_cast<uint32_t*>(sds + (r + 8) * kWideScorePitch + c) = pack2<T>(dv[2], dv[3]);
+    }
+    __syncthreads();
+
+    // the gradients over the warp's columns, 16 streamed rows a step; B
+    // (16 streamed rows x 16 columns) read MN-major with ldmatrix.trans
+    #pragma unroll
+    for (int kc = 0; kc < kWideStream / 16; ++kc) {
+      uint32_t pa[4], da[4];
+      if constexpr (kDkv) ldmatrix_x4(pa, sp + s_off + 16 * kc);
+      ldmatrix_x4(da, sds + s_off + 16 * kc);
+      const int brow = (16 * kc + ((lane / 8) % 2) * 8 + lane % 8) * kPitch + (lane / 16) * 8;
+      #pragma unroll
+      for (int nb = 0; nb < kN8 / 2; ++nb) {
+        const int col = DQ * quarter + 16 * nb;
+        if (col >= p.head_dim) continue;  // zero columns
+        uint32_t bb[4];
+        if constexpr (kDkv) {
+          ldmatrix_x4_trans(bb, str2 + brow + col);  // dO
+          mma16816<T>(acc1[2 * nb], pa, bb[0], bb[1]);
+          mma16816<T>(acc1[2 * nb + 1], pa, bb[2], bb[3]);
+        }
+        ldmatrix_x4_trans(bb, str1 + brow + col);  // Q (dK/dV) or K (dQ)
+        if constexpr (kDkv) {
+          mma16816<T>(acc2[2 * nb], da, bb[0], bb[1]);
+          mma16816<T>(acc2[2 * nb + 1], da, bb[2], bb[3]);
+        } else {
+          mma16816<T>(acc1[2 * nb], da, bb[0], bb[1]);
+          mma16816<T>(acc1[2 * nb + 1], da, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  // accumulator entry (n, e): row e < 2 ? row_a : row_b, column
+  // DQ quarter + 8 n + 2 t + (e & 1)
+  T* g1 = kDkv ? static_cast<T*>(p.dv) + b * p.dv_bs + h * p.dv_hs : static_cast<T*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
+  const long long g1_rs = kDkv ? p.dv_rs : p.dq_rs;
+  const float g1_scale = kDkv ? 1.f : p.scale;
+  T* g2 = kDkv ? static_cast<T*>(p.dk) + b * p.dk_bs + h * p.dk_hs : nullptr;
+  #pragma unroll
+  for (int n = 0; n < kN8; ++n) {
+    const int col = DQ * quarter + 8 * n + 2 * t;
+    if (col >= p.head_dim) continue;
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row >= own_len) continue;
+      *reinterpret_cast<uint32_t*>(g1 + (long long)row * g1_rs + col) =
+          pack2<T>(acc1[n][2 * r] * g1_scale, acc1[n][2 * r + 1] * g1_scale);
+      if constexpr (kDkv) {
+        *reinterpret_cast<uint32_t*>(g2 + (long long)row * p.dk_rs + col) =
+            pack2<T>(acc2[n][2 * r] * p.scale, acc2[n][2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
+template <typename T, int D, bool kDkv>
+int launch_wide(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int bytes = WideBwdSmem<D>::bytes;
+  auto kernel = flash_bwd_wide_kernel<T, D, kDkv>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return int(err);
+  const int len = kDkv ? p.kv_len : p.q_len;
+  const dim3 grid((len + kWideOwn - 1) / kWideOwn, batch * p.heads);
+  kernel<<<grid, kWideThreads, bytes, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // float32: FFMA tiles
 // ---------------------------------------------------------------------------
 
 // The same two kernels in float32 on plain FFMA, 256 threads (see
-// flash_common.cuh for the thread layout). Every tile sits in shared memory;
-// the scores and the gradient accumulators in registers. P and dS go
-// through shared memory to their products.
+// flash_common.cuh for the thread layout): a block owns BR rows (keys for
+// dK/dV, query rows for dQ) and streams the other side in tiles of BC rows.
+// Every tile sits in shared memory; the scores and the gradient
+// accumulators in registers. P and dS go through shared memory to their
+// products. BR = BC = 64 up to D = 128; the wide heads take smaller tiles
+// so that four of them fit in shared memory: 32 and 64 rows at D = 256, 16
+// and 32 at D = 512.
 
-template <int D>
+template <int D, int BR, int BC>
+constexpr int f32_backward_bytes(bool dkv) {
+  return (2 * BR * (D + 1) + 2 * BC * (D + 1) + (dkv ? 2 : 1) * BR * (BC + 1) + (dkv ? 2 * BC : 0)) *
+         int(sizeof(float));
+}
+
+template <int D, int BR, int BC>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const BwdParams p) {
-  constexpr int R = kTile / 16;
-  constexpr int kTileElems = kTile * (D + 1);
+  constexpr int R = BR / 16;  // keys a thread
+  constexpr int C = BC / 16;  // query rows a thread
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + kTileElems;
-  float* sQ = sV + kTileElems;
-  float* sdO = sQ + kTileElems;
-  float* sP = sdO + kTileElems;          // P^T: keys x queries
-  float* sdS = sP + kTile * kF32ScorePitch;  // dS^T
-  float* sLse = sdS + kTile * kF32ScorePitch;
-  float* sDelta = sLse + kTile;
+  float* sV = sK + BR * (D + 1);
+  float* sQ = sV + BR * (D + 1);
+  float* sdO = sQ + BC * (D + 1);
+  float* sP = sdO + BC * (D + 1);     // P^T: keys x queries
+  float* sdS = sP + BR * (BC + 1);    // dS^T
+  float* sLse = sdS + BR * (BC + 1);
+  float* sDelta = sLse + BC;
 
   const int d = p.head_dim;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * BR;
   const float* qh = static_cast<const float*>(p.q) + b * p.q_bs + h * p.q_hs;
   const float* kh = static_cast<const float*>(p.k) + b * p.k_bs + h * p.k_hs;
   const float* vh = static_cast<const float*>(p.v) + b * p.v_bs + h * p.v_hs;
@@ -726,12 +1068,12 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Bw
   float* dvh = static_cast<float*>(p.dv) + b * p.dv_bs + h * p.dv_hs;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int n_q = (p.q_len + kTile - 1) / kTile;
+  const int n_q = (p.q_len + BC - 1) / BC;
   const int first_row = p.causal ? k0 - (p.kv_len - p.q_len) : 0;
-  const int j0 = first_row > 0 ? first_row / kTile : 0;
+  const int j0 = first_row > 0 ? first_row / BC : 0;
 
-  load_tile_f32<D>(sK, kh, p.k_rs, k0, kTile, p.kv_len, d);
-  load_tile_f32<D>(sV, vh, p.v_rs, k0, kTile, p.kv_len, d);
+  load_tile_f32<D>(sK, kh, p.k_rs, k0, BR, p.kv_len, d);
+  load_tile_f32<D>(sV, vh, p.v_rs, k0, BR, p.kv_len, d);
   float dk[R][D / 16], dv[R][D / 16];
   #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -740,39 +1082,39 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Bw
   }
 
   for (int j = j0; j < n_q; ++j) {
-    const int q0 = j * kTile;
+    const int q0 = j * BC;
     __syncthreads();  // the previous tile's products are done with sQ, sdO
-    load_tile_f32<D>(sQ, qh, p.q_rs, q0, kTile, p.q_len, d);
-    load_tile_f32<D>(sdO, doh, p.do_rs, q0, kTile, p.q_len, d);
+    load_tile_f32<D>(sQ, qh, p.q_rs, q0, BC, p.q_len, d);
+    load_tile_f32<D>(sdO, doh, p.do_rs, q0, BC, p.q_len, d);
     const int r = threadIdx.x;
-    if (r < kTile) {
+    if (r < BC) {
       sLse[r] = q0 + r < p.q_len ? lse[q0 + r] : 0.f;
       sDelta[r] = q0 + r < p.q_len ? delta[q0 + r] : 0.f;
     }
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-    float s[R][4], dp[R][4];
+    float s[R][C], dp[R][C];
     #pragma unroll
     for (int i = 0; i < R; ++i) {
       #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+      for (int e = 0; e < C; ++e) s[i][e] = dp[i][e] = 0.f;
     }
-    mm_abt_f32<D, R>(s, sK, sQ, tx, ty);
-    mm_abt_f32<D, R>(dp, sV, sdO, tx, ty);
+    mm_abt_f32<D, R, C>(s, sK, sQ, tx, ty);
+    mm_abt_f32<D, R, C>(dp, sV, sdO, tx, ty);
     #pragma unroll
     for (int i = 0; i < R; ++i) {
       #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < C; ++e) {
         const int qi = tx + 16 * e;
         const float pe = admissible(p, q0 + qi, k0 + ty + 16 * i) ? expf(s[i][e] * p.scale - sLse[qi]) : 0.f;
-        sP[(ty + 16 * i) * kF32ScorePitch + qi] = pe;
-        sdS[(ty + 16 * i) * kF32ScorePitch + qi] = pe * (dp[i][e] - sDelta[qi]);
+        sP[(ty + 16 * i) * (BC + 1) + qi] = pe;
+        sdS[(ty + 16 * i) * (BC + 1) + qi] = pe * (dp[i][e] - sDelta[qi]);
       }
     }
     __syncthreads();
-    mm_ab_f32<D, R>(dv, sP, sdO, tx, ty);  // dV += P^T dO
-    mm_ab_f32<D, R>(dk, sdS, sQ, tx, ty);  // dK += dS^T Q
+    mm_ab_f32<D, R, BC>(dv, sP, sdO, tx, ty);  // dV += P^T dO
+    mm_ab_f32<D, R, BC>(dk, sdS, sQ, tx, ty);  // dK += dS^T Q
   }
 
   #pragma unroll
@@ -789,21 +1131,21 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32_kernel(const Bw
   }
 }
 
-template <int D>
+template <int D, int BR, int BC>
 __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const BwdParams p) {
-  constexpr int R = kTile / 16;
-  constexpr int kTileElems = kTile * (D + 1);
+  constexpr int R = BR / 16;  // query rows a thread
+  constexpr int C = BC / 16;  // keys a thread
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sdO = sQ + kTileElems;
-  float* sK = sdO + kTileElems;
-  float* sV = sK + kTileElems;
-  float* sdS = sV + kTileElems;
+  float* sdO = sQ + BR * (D + 1);
+  float* sK = sdO + BR * (D + 1);
+  float* sV = sK + BC * (D + 1);
+  float* sdS = sV + BC * (D + 1);
 
   const int d = p.head_dim;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * BR;
   const float* qh = static_cast<const float*>(p.q) + b * p.q_bs + h * p.q_hs;
   const float* kh = static_cast<const float*>(p.k) + b * p.k_bs + h * p.k_hs;
   const float* vh = static_cast<const float*>(p.v) + b * p.v_bs + h * p.v_hs;
@@ -821,14 +1163,14 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Bwd
     lse_r[i] = row < p.q_len ? lse[row] : 0.f;
     delta_r[i] = row < p.q_len ? delta[row] : 0.f;
   }
-  int n_k = (p.kv_len + kTile - 1) / kTile;
+  int n_k = (p.kv_len + BC - 1) / BC;
   if (p.causal) {  // keys past the tile's last row + (kv_len - q_len) are masked for every row
-    const int last_col = q0 + kTile - 1 + (p.kv_len - p.q_len);
-    n_k = last_col < 0 ? 0 : min(n_k, last_col / kTile + 1);
+    const int last_col = q0 + BR - 1 + (p.kv_len - p.q_len);
+    n_k = last_col < 0 ? 0 : min(n_k, last_col / BC + 1);
   }
 
-  load_tile_f32<D>(sQ, qh, p.q_rs, q0, kTile, p.q_len, d);
-  load_tile_f32<D>(sdO, doh, p.do_rs, q0, kTile, p.q_len, d);
+  load_tile_f32<D>(sQ, qh, p.q_rs, q0, BR, p.q_len, d);
+  load_tile_f32<D>(sdO, doh, p.do_rs, q0, BR, p.q_len, d);
   float dq[R][D / 16];
   #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -837,32 +1179,32 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Bwd
   }
 
   for (int j = 0; j < n_k; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * BC;
     __syncthreads();  // the previous tile's product is done with sK
-    load_tile_f32<D>(sK, kh, p.k_rs, k0, kTile, p.kv_len, d);
-    load_tile_f32<D>(sV, vh, p.v_rs, k0, kTile, p.kv_len, d);
+    load_tile_f32<D>(sK, kh, p.k_rs, k0, BC, p.kv_len, d);
+    load_tile_f32<D>(sV, vh, p.v_rs, k0, BC, p.kv_len, d);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T, then dS
-    float s[R][4], dp[R][4];
+    float s[R][C], dp[R][C];
     #pragma unroll
     for (int i = 0; i < R; ++i) {
       #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+      for (int e = 0; e < C; ++e) s[i][e] = dp[i][e] = 0.f;
     }
-    mm_abt_f32<D, R>(s, sQ, sK, tx, ty);
-    mm_abt_f32<D, R>(dp, sdO, sV, tx, ty);
+    mm_abt_f32<D, R, C>(s, sQ, sK, tx, ty);
+    mm_abt_f32<D, R, C>(dp, sdO, sV, tx, ty);
     #pragma unroll
     for (int i = 0; i < R; ++i) {
       #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < C; ++e) {
         const int col = k0 + tx + 16 * e;
         const float pe = admissible(p, q0 + ty + 16 * i, col) ? expf(s[i][e] * p.scale - lse_r[i]) : 0.f;
-        sdS[(ty + 16 * i) * kF32ScorePitch + tx + 16 * e] = pe * (dp[i][e] - delta_r[i]);
+        sdS[(ty + 16 * i) * (BC + 1) + tx + 16 * e] = pe * (dp[i][e] - delta_r[i]);
       }
     }
     __syncthreads();
-    mm_ab_f32<D, R>(dq, sdS, sK, tx, ty);  // dQ += dS K
+    mm_ab_f32<D, R, BC>(dq, sdS, sK, tx, ty);  // dQ += dS K
   }
 
   #pragma unroll
@@ -877,33 +1219,36 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(const Bwd
   }
 }
 
-template <int D, bool kDkv>
+template <int D, int BR, int BC, bool kDkv>
 int launch_one_f32(const BwdParams& p, int batch, cudaStream_t stream) {
-  const int tiles = 4 * kTile * (D + 1) * int(sizeof(float));
-  const int scores = kTile * kF32ScorePitch * int(sizeof(float));
-  const int bytes = kDkv ? tiles + 2 * scores + 2 * kTile * int(sizeof(float)) : tiles + scores;
-  auto kernel = kDkv ? flash_bwd_dkv_f32_kernel<D> : flash_bwd_dq_f32_kernel<D>;
+  constexpr int bytes = f32_backward_bytes<D, BR, BC>(kDkv);
+  static_assert(bytes <= int(kMaxSharedBytes), "float32 backward tiles exceed shared memory");
+  auto kernel = kDkv ? flash_bwd_dkv_f32_kernel<D, BR, BC> : flash_bwd_dq_f32_kernel<D, BR, BC>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
   }
   const int len = kDkv ? p.kv_len : p.q_len;
-  const dim3 grid((len + kTile - 1) / kTile, batch * p.heads);
+  const dim3 grid((len + BR - 1) / BR, batch * p.heads);
   kernel<<<grid, kF32Threads, bytes, stream>>>(p);
   return int(cudaGetLastError());
 }
 
 template <bool kDkv>
 int launch_f32(const BwdParams& p, int batch, cudaStream_t stream) {
-  switch (mma_template((p.head_dim + 15) / 16 * 16)) {
+  switch (f32_template(pad16(p.head_dim))) {
     case 48:
-      return launch_one_f32<48, kDkv>(p, batch, stream);
+      return launch_one_f32<48, 64, 64, kDkv>(p, batch, stream);
     case 64:
-      return launch_one_f32<64, kDkv>(p, batch, stream);
+      return launch_one_f32<64, 64, 64, kDkv>(p, batch, stream);
     case 80:
-      return launch_one_f32<80, kDkv>(p, batch, stream);
+      return launch_one_f32<80, 64, 64, kDkv>(p, batch, stream);
     case 128:
-      return launch_one_f32<128, kDkv>(p, batch, stream);
+      return launch_one_f32<128, 64, 64, kDkv>(p, batch, stream);
+    case 256:
+      return launch_one_f32<256, 32, 64, kDkv>(p, batch, stream);
+    case 512:
+      return launch_one_f32<512, 16, 32, kDkv>(p, batch, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -914,10 +1259,14 @@ int launch_f32(const BwdParams& p, int batch, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // bfloat16 and float16: each kernel at the smallest of its instances that
-// holds the head
+// holds the head (the wgmma kernels up to 128, the mma.sync kernel at 256
+// and 512)
 template <typename T, bool kDkv>
 int launch(const BwdParams& p, int batch, cudaStream_t stream) {
-  switch (narrow_template(pad16(p.head_dim))) {
+  const int dim_pad = pad16(p.head_dim);
+  if (dim_pad > 256) return launch_wide<T, 512, kDkv>(p, batch, stream);
+  if (dim_pad > 128) return launch_wide<T, 256, kDkv>(p, batch, stream);
+  switch (narrow_template(dim_pad)) {
     case 64:
       return launch_wgmma<T, 64, kDkv>(p, batch, stream);
     case 80:
@@ -931,7 +1280,7 @@ template <bool kDkv>
 int run(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
         void* dq, void* dk, void* dv, int dtype, int batch, int heads, int head_dim, int q_len, int kv_len,
         const long long* strides, float scale, int causal, void* stream) {
-  if (head_dim <= 0 || head_dim > 128 || head_dim % 8 != 0 || batch <= 0 || heads <= 0 || q_len <= 0 ||
+  if (head_dim <= 0 || head_dim > 512 || head_dim % 8 != 0 || batch <= 0 || heads <= 0 || q_len <= 0 ||
       kv_len <= 0) {
     return int(cudaErrorInvalidValue);
   }

@@ -138,34 +138,34 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long
   }
 }
 
-// acc[i][j] += sum over k < D of A[ty + 16i][k] * B[tx + 16j][k]: a tile of
-// A B^T, A and B with pitch D + 1.
-template <int D, int R>
-__device__ __forceinline__ void mm_abt_f32(float acc[R][4], const float* a, const float* b, int tx, int ty) {
+// acc[i][j] += sum over k < D of A[ty + 16i][k] * B[tx + 16j][k] (j < C): a
+// tile of A B^T, A and B with pitch D + 1.
+template <int D, int R, int C = 4>
+__device__ __forceinline__ void mm_abt_f32(float acc[R][C], const float* a, const float* b, int tx, int ty) {
   #pragma unroll 4
   for (int k = 0; k < D; ++k) {
-    float av[R], bv[4];
+    float av[R], bv[C];
     #pragma unroll
     for (int i = 0; i < R; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + k];
     #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + k];
+    for (int j = 0; j < C; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + k];
     #pragma unroll
     for (int i = 0; i < R; ++i) {
       #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
 }
 
-// acc[i][c] += sum over k < 64 of P[ty + 16i][k] * X[k][tx + 16c]: a tile
-// of P X, P with pitch 64 + 1 and X (64 x D) with pitch D + 1.
-template <int D, int R>
+// acc[i][c] += sum over k < K of P[ty + 16i][k] * X[k][tx + 16c]: a tile of
+// P X, P with pitch K + 1 and X (K x D) with pitch D + 1.
+template <int D, int R, int K = kTile>
 __device__ __forceinline__ void mm_ab_f32(float acc[R][D / 16], const float* p, const float* x, int tx, int ty) {
   #pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
+  for (int k = 0; k < K; ++k) {
     float pv[R];
     #pragma unroll
-    for (int i = 0; i < R; ++i) pv[i] = p[(ty + 16 * i) * kF32ScorePitch + k];
+    for (int i = 0; i < R; ++i) pv[i] = p[(ty + 16 * i) * (K + 1) + k];
     #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
       const float xv = x[k * (D + 1) + tx + 16 * c];

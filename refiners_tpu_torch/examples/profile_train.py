@@ -115,7 +115,9 @@ def device_breakdown(
     kind, and the idle share of the traced window."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels only: a range of `record_function` (the optimizer's step) also shows on the device as a user
+    # annotation spanning its kernels, which would count them twice and fill the gaps between them
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     by_kind: dict[str, list[float]] = {}
     for e in kernels:
         entry = by_kind.setdefault(_kind(e.name), [0.0, 0])

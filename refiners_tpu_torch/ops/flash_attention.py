@@ -22,9 +22,11 @@ version for float32 (which keeps float32 accuracy). The forward source picks
 one of three kernels by dtype and head dim (`forward_kernel` names it):
 float32 on FFMA; d > 128 on the wide wgmma kernel; d ≤ 128 on the narrow
 wgmma kernel (TMA, two consumer warpgroups), with or without a dense or
-relative-position bias and an lse output. The backward's dK/dV kernel is a
-wgmma kernel on TMA (two warpgroups of 64 keys, P and dS kept in registers),
-its dQ kernel mma.sync (`BACKWARD_KERNELS` names them).
+relative-position bias and an lse output. The backward takes every head
+width the forward takes: at d ≤ 128 a dK/dV and a dQ kernel, each wgmma on
+TMA (two warpgroups of 64 rows, P and dS kept in registers); at
+128 < d ≤ 512 one mma.sync kernel for both, its warps splitting the
+gradients' columns (`backward_kernels` names them).
 
 Entries and their launch counters (a plain integer on each wrapper, one per
 launch of its kernel):
@@ -56,19 +58,20 @@ from refiners_tpu_torch.ops.build import DTYPE_CODES, c_longlongs, load_library,
 # score of a masked (query, key) pair, as in the JAX kernels; not -inf, so a
 # row with no admissible key gets uniform weights
 MASKED_SCORE = -1e30
-# widest head the backward kernels take
-MAX_BACKWARD_HEAD_DIM = 128
 # widest key grid side (kh and kw each) of the relative-position kernel
 MAX_RELPOS_SIDE = 256
 # the CUDA kernels of csrc/flash_attention_forward.cu, numbered as its
 # `refiners_flash_attention_forward_kernel` entry numbers them
 FORWARD_KERNELS = ("flash_fwd_narrow_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel")
-# the CUDA kernels of csrc/flash_attention_backward.cu, (dK/dV, dQ) by dtype
+# the CUDA kernels of csrc/flash_attention_backward.cu, (dK/dV, dQ) by dtype,
+# for head_dim <= 128 (`backward_kernels` adds the wider heads)
 BACKWARD_KERNELS = {
     torch.bfloat16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
     torch.float16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
     torch.float32: ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"),
 }
+# bfloat16 and float16 at 128 < head_dim <= 512: one kernel, both gradients
+WIDE_BACKWARD_KERNEL = "flash_bwd_wide_kernel"
 
 
 # ---------------------------------------------------------------------------
@@ -365,12 +368,12 @@ def flash_attention_bwd_dq(
     return dq
 
 
-def _check_backward_head_dim(d: int) -> None:
-    if d > MAX_BACKWARD_HEAD_DIM:
-        raise NotImplementedError(
-            f"the flash attention backward kernels take head_dim <= {MAX_BACKWARD_HEAD_DIM}, got {d}; "
-            "wider heads are still to port (ROADMAP.md, Queue 1 step 10)"
-        )
+def backward_kernels(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
+    """The CUDA kernels (dK/dV, dQ) that a backward call on the card
+    launches, as the C entries route them: by dtype and head dim."""
+    if dtype != torch.float32 and head_dim > 128:
+        return WIDE_BACKWARD_KERNEL, WIDE_BACKWARD_KERNEL
+    return BACKWARD_KERNELS[dtype]
 
 
 def flash_attention_backward(
@@ -394,7 +397,6 @@ def flash_attention_backward(
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, is_causal=is_causal, scale=scale)
     _check_operands(q, k, v)
-    _check_backward_head_dim(q.shape[3])
     if do.dtype != q.dtype or do.shape != q.shape or o.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
             f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q {tuple(q.shape)} in shape and dtype, "
@@ -463,8 +465,6 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias=bias, is_causal=is_causal, scale=scale)
     if _needs_grad(q, k, v, bias):
-        if bias is None:
-            _check_backward_head_dim(q.shape[-1])
         return _FlashAttention.apply(q, k, v, bias, is_causal, scale)
     return flash_attention_forward(q, k, v, bias, is_causal, scale)[0]
 
@@ -527,7 +527,6 @@ def flash_attention_packed(
         return flash_attention_packed_plain(q, k, v, is_causal=is_causal, scale=scale, head_dim=head_dim)
     _check_packed(q, k, v, head_dim)
     if _needs_grad(q, k, v):
-        _check_backward_head_dim(head_dim)
         return _FlashAttentionPacked.apply(q, k, v, is_causal, scale, head_dim)
     _check_device_dtype(q, k, v)
     _check_layout(q=q, k=k, v=v)

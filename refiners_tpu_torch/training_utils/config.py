@@ -4,13 +4,15 @@
 Same class names, field names, defaults and TOML schema as the JAX
 package; the classes are dataclasses loaded with `tomllib` (see
 ``config_base.py``), not pydantic models. Optimizers are `torch.optim`'s,
-with every default (betas, eps, weight decay 1e-2) taken from the JAX
-package. LR schedules are the same multiplier functions, applied by the
-Trainer at every optimizer step.
+and Lion and Prodigy from ``training_utils/optimizers.py`` (the JAX
+package's come from optax), mapped as the JAX package maps them:
+``AdamW8bit`` runs full-precision AdamW, ``Lion8bit`` Lion, ``Prodigy``
+Prodigy with ``safeguard_warmup``; every default (betas, eps, weight decay
+1e-2) is the JAX package's. LR schedules are the same multiplier functions,
+applied by the Trainer at every optimizer step.
 
 Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-AdamW8bit, Lion8bit and Prodigy optimizers, the ``[training.mesh]``
-section, and ``jit_step``.
+``[training.mesh]`` section (step 12) and ``jit_step`` (step 14).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from refiners_tpu_torch.training_utils.clock import ClockConfig
 from refiners_tpu_torch.training_utils.common import Iteration, Step, TimeValue, parse_number_unit_field
 from refiners_tpu_torch.training_utils.config_base import Config, parsed
+from refiners_tpu_torch.training_utils.optimizers import Lion, Prodigy
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 step {step})"
 
@@ -49,7 +52,7 @@ class TrainingConfig(Config):
         if self.mesh is not None:
             raise NotImplementedError("[training.mesh] " + _NOT_PORTED.format(step=12))
         if self.jit_step:
-            raise NotImplementedError("training.jit_step (a compiled step: CUDA graphs) " + _NOT_PORTED.format(step=10))
+            raise NotImplementedError("training.jit_step (a compiled step: CUDA graphs) " + _NOT_PORTED.format(step=14))
 
 
 class Optimizers(str, Enum):
@@ -156,8 +159,10 @@ class OptimizerConfig(Config):
     ) -> torch.optim.Optimizer:
         """The optimizer over `params`; each argument left None takes this
         config's value. SGD and Adam add the decay to the gradient (the JAX
-        package's `add_decayed_weights` before the transform); AdamW decays
-        the weights directly."""
+        package's `add_decayed_weights` before the transform); AdamW, Lion
+        and Prodigy decay the weights directly. There is no 8-bit state:
+        ``AdamW8bit`` is AdamW and ``Lion8bit`` Lion, as in the JAX package;
+        Prodigy takes its default eps, as optax's does there."""
         lr = learning_rate if learning_rate is not None else self.learning_rate
         b = tuple(betas) if betas is not None else self.betas
         e = eps if eps is not None else self.eps
@@ -167,10 +172,12 @@ class OptimizerConfig(Config):
                 return torch.optim.SGD(params, lr=lr, weight_decay=wd)
             case Optimizers.Adam:
                 return torch.optim.Adam(params, lr=lr, betas=b, eps=e, weight_decay=wd)
-            case Optimizers.AdamW:
+            case Optimizers.AdamW | Optimizers.AdamW8bit:
                 return torch.optim.AdamW(params, lr=lr, betas=b, eps=e, weight_decay=wd)
-            case _:
-                raise NotImplementedError(f"the {self.optimizer.value} optimizer " + _NOT_PORTED.format(step=10))
+            case Optimizers.Lion8bit:
+                return Lion(params, lr=lr, betas=b, weight_decay=wd)
+            case Optimizers.Prodigy:
+                return Prodigy(params, lr=lr, betas=b, weight_decay=wd, safeguard_warmup=True)
 
 
 class ModelConfig(Config):

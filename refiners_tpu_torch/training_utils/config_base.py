@@ -8,7 +8,9 @@ pydantic's behaviour:
   are keyword-only, so a subclass may add fields without defaults;
 - a config instance given as a field default is copied per instance;
 - a dict given for a field typed as a `Config` subclass is built into one;
-- unknown keys are refused, as ``extra="forbid"`` does;
+- unknown keys are refused, as ``extra="forbid"`` does, except by a class
+  that sets ``allow_extra = True`` (``extra="allow"``: the logger configs),
+  which keeps them as attributes;
 - a field made with `parsed` converts its value (a TOML string, say) when
   the instance is built;
 - iterating over a config yields its (field name, value) pairs.
@@ -20,7 +22,7 @@ import copy
 import dataclasses
 import functools
 import typing
-from typing import Any, Callable, Iterator, TypeVar
+from typing import Any, Callable, ClassVar, Iterator, TypeVar
 
 T = TypeVar("T", bound="Config")
 
@@ -42,6 +44,8 @@ def _field_types(cls: type) -> dict[str, Any]:
 
 class Config:
     """Base of every config class."""
+
+    allow_extra: ClassVar[bool] = False
 
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
@@ -65,9 +69,12 @@ class Config:
     def from_dict(cls: type[T], data: dict[str, Any]) -> T:
         names = {f.name for f in dataclasses.fields(cls)}  # type: ignore[arg-type]
         unknown = sorted(set(data) - names)
-        if unknown:
+        if unknown and not cls.allow_extra:
             raise ValueError(f"{cls.__name__}: unknown keys {unknown} (known: {sorted(names)})")
-        return cls(**data)
+        config = cls(**{k: v for k, v in data.items() if k in names})
+        for key in unknown:
+            setattr(config, key, data[key])
+        return config
 
     def __iter__(self) -> Iterator[tuple[str, Any]]:
         for f in dataclasses.fields(self):  # type: ignore[arg-type]

@@ -15,7 +15,9 @@ order. What changes with PyTorch:
   ``min(1, max_norm / (norm + 1e-6))``, as in the JAX package
   (`torch.nn.utils.clip_grads_with_norm_` on a float32 global norm);
 - ``training.dtype`` casts each registered model and ``training.device``
-  places it: explicit, with no move to the CPU when the device is missing.
+  places it: explicit, with no move to the CPU when the device is missing;
+- a data iterable with a ``set_epoch`` method (`DataLoader`) is told the
+  clock's epoch before each pass, so its shuffle follows the clock.
 """
 
 from __future__ import annotations
@@ -263,6 +265,9 @@ class Trainer(Generic[ConfigType, Batch], ABC):
         self.backward()
 
     def epoch(self) -> None:
+        set_epoch = getattr(self.data_iterable, "set_epoch", None)
+        if set_epoch is not None:  # a `DataLoader`: its order follows the clock, so a resumed run sees the same
+            set_epoch(self.clock.epoch)
         for batch in self.data_iterable:
             if self.clock.done:
                 break

@@ -6,23 +6,22 @@ runs its Pallas kernels through the interpreter (as
 tests/fluxion/test_flash_packed.py does): K2 (`_flash_forward`), K1
 (`_flash_forward_packed`) and K4 (`_flash_backward`, through `jax.vjp`).
 The kernels themselves run only on the card: see
-tests/test_torch_flash_kernel.py.
+tests/test_torch_flash_kernel.py, and the card tests at the end of this
+file (the backward at 128 < d <= 512), which the card's machine runs
+without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_backward.py -q
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from refiners_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
-from refiners_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
-from refiners_tpu.ops.flash_attention import flash_attention as jax_flash_attention
-from refiners_tpu.ops.flash_attention import flash_attention_packed as jax_flash_attention_packed
+from refiners_tpu_torch.ops import flash_attention as fa
 from refiners_tpu_torch.ops.attention import dot_product_attention, merge_heads, split_heads
 from refiners_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -30,8 +29,20 @@ from refiners_tpu_torch.ops.flash_attention import (
     flash_attention_backward_plain,
     flash_attention_forward,
     flash_attention_packed,
+    flash_attention_packed_plain,
     flash_attention_plain,
 )
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from refiners_tpu.ops.attention import dot_product_attention as jax_dot_product_attention
+    from refiners_tpu.ops.flash_attention import _flash_forward as jax_flash_forward
+    from refiners_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+    from refiners_tpu.ops.flash_attention import flash_attention_packed as jax_flash_attention_packed
+except ImportError:  # the card's machine has no JAX: only the card tests below run there
+    pass
 
 # float32 on both sides; the Pallas kernels' online softmax and the port's
 # dense softmax sum in different orders (≈1e-7 per element)
@@ -132,7 +143,10 @@ def test_boolean_mask_with_a_fully_masked_row_gives_uniform_weights() -> None:
 @pytest.mark.parametrize("entry", ["packed", "flat"])
 @pytest.mark.parametrize(
     "batch,lq,lk,heads,dim,causal",
-    SHAPES + [(1, 300, 200, 2, 64, True), (1, 330, 200, 2, 128, True), (1, 200, 330, 2, 80, True)],
+    SHAPES
+    + [(1, 300, 200, 2, 64, True), (1, 330, 200, 2, 128, True), (1, 200, 330, 2, 80, True)]
+    # the wide heads of the VAEs' mid-block: d = 256 causal, d = 512 with Lq != Lk
+    + [(1, 192, 192, 2, 256, True), (1, 160, 224, 1, 512, False)],
 )
 def test_backward_plain_matches_jax_vjp(
     entry: str, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool
@@ -185,3 +199,99 @@ def test_autograd_on_cpu_tensors_is_autograd_of_the_plain_version(entry: str, ca
     want = torch.autograd.grad(flash_attention_plain(q, k, v, bias=bias, is_causal=causal), leaves, do)
     for g, w in zip(got, want):
         assert _rel(g.numpy(), w.numpy()) <= AUTOGRAD_TOL
+
+
+# -- on the card: the backward kernels at 128 < d <= 512 ------------------------------
+
+# bf16 unit roundoff is 3.9e-3; the kernels round P and dS once each and sum
+# over a whole sequence, the plain version runs in float32 from the same inputs
+GRAD_TOL = 2e-2
+# the float32 kernels against the float32 plain version: summation order only
+F32_TOL = 1e-5
+WIDE_SHAPES = [
+    # (batch, lq, lk, heads, dim, causal)
+    (1, 256, 320, 2, 136, False),  # padded to 256
+    (1, 300, 260, 1, 200, True),  # d not a multiple of 16; causal with Lq > Lk
+    (2, 256, 256, 2, 256, False),
+    (1, 1000, 1100, 1, 512, True),  # ragged and causal
+    (2, 1024, 1024, 1, 512, False),  # the SD1.5 VAE's mid-block at 32×32 latents
+]
+
+
+@pytest.fixture
+def card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _card_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(want.float()))
+
+
+def _check_wide_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, seed: int) -> None:
+    """The forward with lse, then one launch of each backward kernel, held
+    against `flash_attention_backward_plain` in float32 on the same inputs."""
+    gen = torch.Generator(q.device).manual_seed(seed)
+    out, lse = flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+    assert lse is not None
+    do = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    launches = (fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches)  # type: ignore[attr-defined]
+    got = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dkv.launches, fa.flash_attention_bwd_dq.launches) == (  # type: ignore[attr-defined]
+        launches[0] + 1,
+        launches[1] + 1,
+    )
+    want = flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(), lse, do.float(), is_causal=causal)
+    tol = F32_TOL if q.dtype == torch.float32 else GRAD_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == q.dtype
+        assert bool(torch.isfinite(g).all()), name
+        assert _card_rel(g, w) <= tol, (name, _card_rel(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("batch,lq,lk,heads,dim,causal", WIDE_SHAPES)
+def test_wide_backward_kernels_match_plain(
+    card: torch.device, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool, dtype: torch.dtype
+) -> None:
+    gen = torch.Generator(card).manual_seed(lq + lk + dim)
+    q, k, v = (torch.randn((batch, heads, n, dim), generator=gen, device=card).to(dtype) for n in (lq, lk, lk))
+    assert fa.backward_kernels(dtype, dim) == (
+        ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel") if dtype == torch.float32 else ("flash_bwd_wide_kernel",) * 2
+    )
+    _check_wide_backward(q, k, v, causal, seed=dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_backward_reads_heads_through_strides(card: torch.device, dtype: torch.dtype) -> None:
+    """q, k, v as column slices of one fused (1, 1024, 3·512) projection."""
+    gen = torch.Generator(card).manual_seed(7)
+    qkv = torch.randn((1, 1024, 3 * 512), generator=gen, device=card).to(dtype)
+    q, k, v = (split_heads(qkv[..., i * 512 : (i + 1) * 512], 1) for i in range(3))
+    _check_wide_backward(q, k, v, causal=False, seed=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_through_the_packed_entry_at_d512(card: torch.device, dtype: torch.dtype) -> None:
+    """`flash_attention_packed` under autograd at one head of d = 512 (the VAE
+    mid-block's): one forward with lse and one launch of each backward
+    kernel, the gradients against autograd of the float32 plain version."""
+    gen = torch.Generator(card).manual_seed(9)
+    q, k, v, g = (torch.randn((2, 1024, 512), generator=gen, device=card).to(dtype) for _ in range(4))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    counters = (fa.flash_attention, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    before = [c.launches for c in counters]  # type: ignore[attr-defined]
+    got = torch.autograd.grad(flash_attention_packed(q, k, v, head_dim=512), leaves, g)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]  # type: ignore[attr-defined]
+    ref = [x.detach().float().requires_grad_() for x in leaves]
+    want = torch.autograd.grad(flash_attention_packed_plain(*ref, head_dim=512), ref, g.float())
+    tol = F32_TOL if dtype == torch.float32 else GRAD_TOL
+    for a, b in zip(got, want):
+        assert _card_rel(a, b) <= tol

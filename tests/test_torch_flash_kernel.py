@@ -294,8 +294,14 @@ def test_kernel_refuses_what_it_does_not_take(device: torch.device) -> None:
     q, k, v = (x.bfloat16() for x in (q, k, v))
     with pytest.raises(ValueError):
         flash_attention_packed(q, k, v, head_dim=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_packed(q.requires_grad_(), k, v, head_dim=256)
+    # a head of d = 256 under autograd takes the wide backward kernel, against the float32 plain version
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    g = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(1), device=device).bfloat16()
+    got = torch.autograd.grad(flash_attention_packed(*leaves, head_dim=256), leaves, g)
+    ref = [x.detach().float().requires_grad_() for x in leaves]
+    want = torch.autograd.grad(flash_attention_packed_plain(*ref, head_dim=256), ref, g.float())
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= GRAD_TOL
 
 
 @pytest.mark.parametrize(
