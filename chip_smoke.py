@@ -43,14 +43,16 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      projection: dq, dk, dv each ≤ 2e-2 against
      ``flash_attention_backward_plain`` in float32; the registers and spill
      bytes of every dQ instance from the build's ptxas output; at
-     128 < d ≤ 512 (``flash_bwd_wide_kernel``, mma.sync, one kernel for both
-     gradients; the float32 kernels' wide instances): the SD1.5 VAE
+     128 < d ≤ 512 (``flash_bwd_wide_wgmma_kernel``, wgmma on TMA, one
+     kernel for both entries, a block 64 rows of one gradient; the float32
+     kernels' wide instances): the SD1.5 VAE
      decoder's mid-block at 512² (2, 4096, 4096, 1, 512) and
      (1, 1024, 1024, 2, 256), timed single and queued against their bounds
      (0.139 and 0.104 ms at the VAE site) and the memory-efficient
      attention's backward, a ragged causal d = 512, d = 200, float16 and
      float32 at d = 512, strided heads of a fused (1, 4096, 3·512)
-     projection; the registers and spills of the 12 wide instances;
+     projection; the registers of the 12 wide instances, none of which may
+     spill;
    - the forward with SAM's decomposed relative-position bias
      (``flash_attention_relpos``) at the SAM-H global and windowed layers'
      shapes and at a 10 × 10 key grid, in bf16 and float32, against
@@ -1035,7 +1037,7 @@ def attention_rows(dev: torch.device) -> dict[str, dict[str, Any]]:
         del q, k, v, do, out, lse, delta, lib
         _free()
     # K4a and K4b at the wide heads: the SD1.5 VAE decoder's mid-block at 512² (phase 4c, one launch
-    # each a step) and d = 256; both on `flash_bwd_wide_kernel`
+    # each a step) and d = 256; both on `flash_bwd_wide_wgmma_kernel`
     for label, (b, seq, _, h, d) in WIDE_BACKWARD_SHAPES.items():
         q, k, v, do = randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d), randn(b, h, seq, d)
         n, scale = b * h * seq * d, 1.0 / math.sqrt(d)
@@ -3805,13 +3807,18 @@ def main() -> int:
     for name, lines in dq_ptxas.items():
         print(f"ptxas K4b {name}: {lines}")
     # the wide backward's instances (bf16, fp16 at D = 256 and 512; dK/dV true, dQ false) and the
-    # float32 kernels' wide ones
+    # float32 kernels' wide ones: all 12 built, none spilling
     wide_ptxas = {name: "; ".join(lines) for name, lines in ptxas.items()
                   if name.startswith(fa.WIDE_BACKWARD_KERNEL + "<") or re.match(r"flash_bwd_d(kv|q)_f32_kernel<(256|512),", name)}  # fmt: skip
     if log and len(wide_ptxas) != 12:
-        raise AssertionError(f"the build's ptxas output names {sorted(wide_ptxas)}, not the 8 wide and 4 float32 wide instances")
+        raise AssertionError(
+            f"the build's ptxas output names {sorted(wide_ptxas)}, not the 8 wide wgmma and 4 float32 wide instances"
+        )
     for name, lines in wide_ptxas.items():
-        print(f"ptxas K4 wide {name}: {lines}")
+        registers = re.search(r"Used (\d+) registers", lines)
+        print(f"ptxas K4 wide {name}: {registers.group(1) if registers else '?'} registers; {lines}")
+        if registers is None or "0 bytes spill stores, 0 bytes spill loads" not in lines:
+            raise AssertionError(f"wide backward instance {name} spills or reports no registers: {lines}")
 
     check_device_default()
     packed = check_packed_forward(dev)

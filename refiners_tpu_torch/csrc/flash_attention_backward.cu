@@ -52,23 +52,33 @@
 //   register A operand (K read MN-major). Every K and V byte read from L2
 //   serves 128 queries.
 // - bfloat16 and float16, 128 < head_dim <= 512 (the SD1.5 and SDXL VAEs'
-//   mid-block, one head of d = 512): `flash_bwd_wide_kernel`, one kernel for
-//   both gradients, compiled for padded head dims 256 and 512 (zero columns
-//   past d). A 64-row accumulator of 512 float32 columns is the register
-//   file of a whole warpgroup, and a 64 x 512 tile is 64 KiB, so the block
-//   owns 32 rows and its 8 warps split the gradients' d columns in four;
-//   S and dP, which reduce over d, are split by streamed row instead, so
-//   nothing is summed across warps. mma.sync from ldmatrix on padded
-//   shared-memory tiles loaded by cp.async, one tile at a time: right
-//   first, not yet fast.
+//   mid-block, one head of d = 512): `flash_bwd_wide_wgmma_kernel`, wgmma on
+//   TMA, compiled for padded head dims 256 and 512 (zero columns past d).
+//   A 64-row float32 gradient of 512 columns is half the SM's registers, so
+//   a block of two warpgroups owns 64 rows of ONE gradient, split along d
+//   between the warpgroups (m64n256, 128 floats a thread), as the wide
+//   forward splits O. S and dP reduce over d: each warpgroup computes its
+//   partial over its half with wgmma from shared memory, and the partials
+//   meet in shared memory, after which P and dS are computed in the
+//   accumulators and fed to the gradient's product as register A operands.
+//   dQ blocks own Q and dO and stream K and V in 32-row tiles; the dK/dV
+//   entry launches dK blocks (K and V owned, Q and dO streamed in 32-row
+//   tiles, S^T and dP^T) and dV blocks (K owned, Q and dO streamed in 64-row
+//   tiles, S^T alone) in one grid, so S^T is computed twice (10 L^2 d
+//   flops for dK and dV against 8). Every streamed half is refilled by TMA
+//   as soon as the last product that reads it has landed.
 // - float32: the same two kernels on plain FFMA with 8 warps (P and dS
 //   unrounded, float32 throughout), so the gradients keep float32 accuracy;
 //   smaller tiles at d > 128.
 //
 // What bounds it on the H100: tensor-core throughput, as in the forward
 // (the dK/dV kernel does 8*L^2*d flops per head, the dQ kernel 6*L^2*d),
-// and beside it the exp2 of every P entry on the MUFU, which each kernel
-// computes once. With 64 rows a warpgroup, the dK/dV kernel holds 64 x D
+// and beside it the exp2 of every P entry on the MUFU, which each narrow
+// kernel computes once. The wide kernel does 10*L^2*d for dK and dV and
+// keeps its two warpgroups in step (the partials' exchange every tile), so
+// each tile's products, exchange, exp2 and loads follow one another; on the
+// H100 at d = 512 that holds it near 0.3 of the tensor cores' rate
+// (PERF.md). With 64 rows a warpgroup, the dK/dV kernel holds 64 x D
 // float32 of dK and of dV per warpgroup in registers (D floats a thread),
 // two 64 x 64 score tiles and their packed A operands: 224 values at
 // D = 128, which ptxas fits in 254 of the 255 registers a thread of a
@@ -701,323 +711,420 @@ int launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// 128 < head_dim <= 512, bfloat16 and float16: mma.sync
+// 128 < head_dim <= 512, bfloat16 and float16: wgmma and TMA, one gradient a
+// block
 // ---------------------------------------------------------------------------
 
-// Blocks of 8 warps. A block owns 32 rows (keys for dK/dV, query rows for
-// dQ): two groups of 16, four warps each; the other side streams through
-// tiles of 64 rows. Every tile sits in shared memory with rows padded by 8
-// elements (16 bytes), so the 8 rows an ldmatrix reads fall in 8 distinct
-// bank groups.
-constexpr int kWideWarps = 8;
-constexpr int kWideThreads = kWideWarps * 32;
-constexpr int kWideOwn = 32;
-constexpr int kWideStream = 64;
-constexpr int kWidePad = 8;
-constexpr int kWideScorePitch = kWideStream + kWidePad;
+// The three kinds of block of the wide kernel, each of which owns 64 rows of
+// one gradient: dQ owns 64 query rows (Q and dO) and streams K and V; dK
+// owns 64 keys (K and V) and streams Q and dO; dV owns 64 keys (K alone) and
+// streams Q and dO.
+constexpr int kWideDq = 0;
+constexpr int kWideDk = 1;
+constexpr int kWideDv = 2;
+// named barriers of the wide kernel (0 is __syncthreads): both warpgroups'
+// partials are written (1); warpgroup g's partials have been read (2 + g);
+// warpgroup g is done with its half of the late streamed tile (4 + g)
+constexpr int kBarExchange = 1;
+constexpr int kBarPartialRead = 2;
+constexpr int kBarLateFree = 4;
 
-// Shared memory of the wide kernels at padded head dim D (256 or 512), in
-// bytes: the two owned tiles (K and V, or Q and dO), the two streamed tiles
-// (Q and dO, or K and V), P and dS of the owned rows against the streamed
-// tile (in the input type), and the streamed rows' lse and delta (dK/dV).
-template <int D>
-struct WideBwdSmem {
-  static constexpr int kPitch = D + kWidePad;  // elements
-  static constexpr int kOwnBytes = kWideOwn * kPitch * 2;
-  static constexpr int kStreamBytes = kWideStream * kPitch * 2;
-  static constexpr int kScoreBytes = kWideOwn * kWideScorePitch * 2;
-  static constexpr int own1 = 0;
-  static constexpr int own2 = kOwnBytes;
-  static constexpr int str1 = 2 * kOwnBytes;
-  static constexpr int str2 = str1 + kStreamBytes;
-  static constexpr int p = str2 + kStreamBytes;
-  static constexpr int ds = p + kScoreBytes;
-  static constexpr int rows = ds + kScoreBytes;
-  static constexpr int bytes = rows + 2 * kWideStream * 4;
+// Shared memory of a wide block of kind K at padded head dim D (256 or 512),
+// in bytes from a 1024-byte-aligned base. First the owned tiles, 64 rows x D
+// each (D / 64 TMA boxes of 64 rows; warpgroup g reads boxes
+// [g D / 128, (g + 1) D / 128)): Q and dO (dQ), K and V (dK), K (dV). Then
+// two streamed tiles of kRows rows x D (boxes of kRows rows): the early one,
+// free once the products that reduce over d have landed (V for dQ, dO for
+// dK, Q for dV), and the late one, free once the gradient's product has
+// landed (K for dQ, Q for dK, dO for dV). Then each warpgroup's float32
+// partials (64 x 64: S and dP against 32 streamed rows, or S against 64),
+// each warpgroup's copy of the late tile's lse and delta (dK, dV), and six
+// mbarriers (each warpgroup's owned, early and late halves). The dQ and dK
+// blocks own two tiles, so they stream 32 rows a tile; the dV block owns
+// one and streams 64. At D = 512 each kind takes 226 KiB of the 227.
+template <int D, int K>
+struct WideBlockSmem {
+  static constexpr int kOwned = K == kWideDv ? 1 : 2;
+  static constexpr int kRows = K == kWideDv ? kTile : kTile / 2;  // streamed rows a tile
+  static constexpr int kOwnBytes = kTile * D * 2;
+  static constexpr int kStreamBytes = kRows * D * 2;
+  static constexpr int kPartialBytes = kTile * kTile * 4;  // a warpgroup's partials
+  static constexpr int kRowFloats = 2 * kTile;             // a warpgroup's lse, then delta
+  static constexpr int own = 0;
+  static constexpr int early = kOwned * kOwnBytes;
+  static constexpr int late = early + kStreamBytes;
+  static constexpr int partials = late + kStreamBytes;
+  static constexpr int rows = partials + 2 * kPartialBytes;
+  static constexpr int bars = rows + 2 * kRowFloats * 4;
+  static constexpr int bytes = bars + 6 * 8 + hopper::kSwizzleAtomBytes;  // + room to align the base
   static_assert(bytes <= int(kMaxSharedBytes), "wide backward tiles exceed shared memory");
 };
 
-// 16-byte copy into shared memory; src-size 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// every cp.async this thread has issued has landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8 x 8 matrices of 16-bit values: lane l gives the address of row l % 8
-// of matrix l / 8; register i holds, for lane l, row l / 4, columns
-// 2 (l % 4) and 2 (l % 4) + 1 of matrix i (with `.trans`, of its transpose).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(addr))
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(addr))
-               : "memory");
-}
-
-// c (16 x 8, float32) += A (16 x 16, row-major fragment) B (16 x 8, the
-// fragment b0, b1 of its columns)
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Warpgroup g's half of rows [row, row + R) of one head: D / 128 boxes of R
+// rows from column g D / 2, into `dst` onto `bar` (expect_tx by the caller).
+template <int D, int R>
+__device__ __forceinline__ void load_half_tile(const CUtensorMap* map, uint32_t bar, uint32_t dst, int g, int row,
+                                               int h, int b) {
+  constexpr int kBoxes = D / 2 / hopper::kBox;
+  #pragma unroll
+  for (int i = 0; i < kBoxes; ++i) {
+    hopper::tma_load_4d(dst + i * R * 128, map, bar, (g * kBoxes + i) * hopper::kBox, row, h, b);
   }
 }
 
-// Rows [row0, row0 + rows) of one head into a padded tile, 16 bytes a copy
-// by every thread of the block; rows past `len` and columns past `d` (a
-// multiple of 8) are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void wide_load(T* dst, const T* src, long long row_stride, int row0, int rows, int len,
-                                          int d) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kWideThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool in = row0 + r < len && col < d;
-    cp_async16(dst + r * (D + kWidePad) + col, in ? src + (long long)(row0 + r) * row_stride + col : src, in);
-  }
-}
-
-// One kernel for both gradients at 128 < head_dim <= 512 (kDkv: dK and dV;
-// else dQ), one block of 8 warps per (32 owned rows, batch*head), a loop over
-// the streamed tiles of 64 rows that any owned row sees. A 64-row gradient
-// accumulator of 512 float32 columns would be the whole register file of a
-// warpgroup, so the d columns are split instead: warp w owns the rows of
-// group w / 4 and the columns [D/4 (w % 4), D/4 (w % 4 + 1)) of each
-// gradient, 2 x 64 floats a thread at D = 512 for dK and dV. Per streamed
-// tile:
-//   S and dP (16 owned rows x 16 streamed rows a warp, the warp's quarter of
-//     the tile) over the whole head: mma.sync m16n8k16 from ldmatrix, the
-//     owned tile as A, the streamed tile's rows as B;
+// One block of the wide kernel: 64 owned rows of one gradient (kind K), a
+// loop over the streamed tiles of R rows that any owned row sees. A 64-row
+// gradient of 512 float32 columns is 256 registers a thread of one
+// warpgroup, so the block's two warpgroups split it along d, as the wide
+// forward splits O: warpgroup g owns the gradient's columns
+// [g D / 2, (g + 1) D / 2) in registers (m64n256 at D = 512, 128 floats a
+// thread) and loads only its half of every tile, by TMA onto its own
+// mbarriers. Per streamed tile:
+//   the products that reduce over d, over the warpgroup's half (wgmma,
+//     both operands K-major in shared memory): dP = dO V^T and S = Q K^T
+//     (dQ), dP^T = V dO^T and S^T = K Q^T (dK), S^T = K Q^T (dV);
+//   the two warpgroups' float32 partials meet in shared memory, so both
+//     hold the whole S (and dP) in the same accumulator layout (the sums
+//     are the same two numbers in either order: both get the same bits);
 //   P = exp2(S scale log2(e) - lse log2(e)), 0 outside the masks, and
-//     dS = P (dP - delta), rounded to the input type into shared memory:
-//     the owned rows' P and dS against the whole tile, which every warp of
-//     the group reads;
-//   the gradients over the warp's columns: dV += P dO and dK += dS Q (dK/dV,
-//     where P and dS are the attention's transposes) or dQ += dS K, the
-//     streamed tile read MN-major through ldmatrix.trans.
-// The products that reduce over d (S, dP) are split by streamed row, the
-// ones that produce d columns by column, so no partial sum crosses warps.
-// Query rows and keys past the end are zeros, give P = 0 and are never
-// stored; columns past d are zeros and are never stored.
-template <typename T, int D, bool kDkv>
-__global__ void __launch_bounds__(kWideThreads, 1) flash_bwd_wide_kernel(const BwdParams p) {
-  using L = WideBwdSmem<D>;
-  constexpr int kPitch = L::kPitch;
-  constexpr int DQ = D / 4;    // gradient columns of a warp
-  constexpr int kN8 = DQ / 8;  // its 8-column accumulator tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* own1 = reinterpret_cast<T*>(smem + L::own1);
-  T* own2 = reinterpret_cast<T*>(smem + L::own2);
-  T* str1 = reinterpret_cast<T*>(smem + L::str1);
-  T* str2 = reinterpret_cast<T*>(smem + L::str2);
-  T* sp = reinterpret_cast<T*>(smem + L::p);
-  T* sds = reinterpret_cast<T*>(smem + L::ds);
-  float* srows = reinterpret_cast<float*>(smem + L::rows);  // dK/dV: the tile's lse, then its delta
+//     dS = P (dP - delta), in those accumulators, packed to the input type
+//     as register A operands (neither goes through shared memory);
+//   the gradient over the warpgroup's columns, B the late tile read MN-major
+//     through the transpose bit: dQ += dS K, dK += dS^T Q, dV += P^T dO.
+// Each streamed half is refilled as soon as the last product that reads it
+// has landed: the early tile right after the partials' exchange, the late
+// one after the gradient's product; the next late tile's load runs under
+// the early one's product (dQ, dK issue dP before S). Query rows and keys
+// past the end read zeros, give P = 0 (or feed rows that are never stored)
+// and are never stored; columns past d are zeros and are never stored.
+template <typename T, int D, int K>
+__device__ __forceinline__ void wide_block(const CUtensorMap* own1, const CUtensorMap* own2,
+                                           const CUtensorMap* early_map, const CUtensorMap* late_map,
+                                           const BwdParams& p, unsigned char* smem) {
+  using L = WideBlockSmem<D, K>;
+  constexpr int R = L::kRows;
+  constexpr int DH = D / 2;                // gradient columns of a warpgroup
+  constexpr bool kDq = K == kWideDq;       // owned rows are query rows (else keys)
+  constexpr bool kDp = K != kWideDv;       // S and dP, or S alone
+  constexpr int kOwnHalf = DH * kTile * 2;  // bytes of a warpgroup's half of an owned tile
+  constexpr int kStreamHalf = DH * R * 2;   // of a streamed tile
+  constexpr int kBoxStride = R * 128;       // from one box of a streamed tile to the next
+  constexpr int kF4 = R / 8;                // float4 of one partial a thread
+  float* partials = reinterpret_cast<float*>(smem + L::partials);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
 
-  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x / kWarpgroup;
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid / 32;
   const int lane = threadIdx.x % 32;
-  const int grp = warp / 4;
-  const int quarter = warp % 4;
   const int t = lane % 4;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int o0 = blockIdx.x * kWideOwn;
-  const int shift = p.kv_len - p.q_len;
-  const T* qh = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* kh = static_cast<const T*>(p.k) + b * p.k_bs + h * p.k_hs;
-  const T* vh = static_cast<const T*>(p.v) + b * p.v_bs + h * p.v_hs;
-  const T* doh = static_cast<const T*>(p.dout) + b * p.do_bs + h * p.do_hs;
-  const float* lse_head = p.lse + (long long)blockIdx.y * p.q_len;
-  const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
-  const int own_len = kDkv ? p.kv_len : p.q_len;
-  const int str_len = kDkv ? p.q_len : p.kv_len;
-
-  // the streamed tiles that any owned row sees
-  int j0 = 0;
-  int n_tiles = (str_len + kWideStream - 1) / kWideStream;
-  if (p.causal && kDkv) {  // key k sees query rows q >= k - shift
+  const int o0 = blockIdx.x * kTile;             // the first owned row
+  const int row_a = o0 + warp * 16 + lane / 4;  // this thread's accumulator rows
+  const int row_b = row_a + 8;
+  const int shift = p.kv_len - p.q_len;  // causal: query row q sees keys k <= q + shift
+  const int str_len = kDq ? p.kv_len : p.q_len;
+  int j0 = 0;  // the first streamed tile any owned row sees
+  int n_tiles = (str_len + R - 1) / R;
+  if (p.causal && kDq) {
+    const int last = min(o0 + kTile, p.q_len) - 1 + shift;
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / R + 1);
+  } else if (p.causal) {
     const int first = o0 - shift;
-    j0 = first > 0 ? min(first / kWideStream, n_tiles) : 0;
-  } else if (p.causal) {  // query row r sees keys k <= r + shift
-    const int last = min(o0 + kWideOwn, p.q_len) - 1 + shift;
-    n_tiles = last < 0 ? 0 : min(n_tiles, last / kWideStream + 1);
+    j0 = first > 0 ? min(first / R, n_tiles) : 0;
+    n_tiles -= j0;
   }
 
-  wide_load<T, D>(own1, kDkv ? kh : qh, kDkv ? p.k_rs : p.q_rs, o0, kWideOwn, own_len, p.head_dim);
-  wide_load<T, D>(own2, kDkv ? vh : doh, kDkv ? p.v_rs : p.do_rs, o0, kWideOwn, own_len, p.head_dim);
-  cp_async_wait_all();
+  const uint32_t sown1 = hopper::smem_u32(smem + L::own) + g * kOwnHalf;
+  const uint32_t sown2 = sown1 + L::kOwnBytes;
+  const uint32_t searly = hopper::smem_u32(smem + L::early) + g * kStreamHalf;
+  const uint32_t slate = hopper::smem_u32(smem + L::late) + g * kStreamHalf;
+  float* rows = reinterpret_cast<float*>(smem + L::rows) + g * L::kRowFloats;
+  const uint32_t own_bar = hopper::smem_u32(bars + g);
+  const uint32_t early_bar = hopper::smem_u32(bars + 2 + g);
+  const uint32_t late_bar = hopper::smem_u32(bars + 4 + g);
+  const float* lse_head = p.lse + (long long)blockIdx.y * p.q_len;
+  const float* delta_head = p.delta + (long long)blockIdx.y * p.q_len;
 
-  const int row_a = o0 + 16 * grp + lane / 4;  // this thread's accumulator rows (owned)
-  const int row_b = row_a + 8;
-  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};  // dQ: its rows' lse (times log2(e)) and delta
-  if constexpr (!kDkv) {
+  // the early half of streamed tile j, by one thread
+  auto load_early = [&](int j) {
+    hopper::mbar_expect_tx(early_bar, kStreamHalf);
+    load_half_tile<D, R>(early_map, early_bar, searly, g, (j0 + j) * R, h, b);
+  };
+  // the late half of streamed tile j, and (dK, dV) the lse and delta of its
+  // rows, by a whole warp: lane 0 starts the TMA copies, every lane copies
+  // its rows' values with cp.async onto the same mbarrier (one arrival a
+  // lane), zeros past q_len (a head's lse starts wherever q_len puts it,
+  // where a TMA copy would need its start 16-byte aligned)
+  auto load_late = [&](int j) {
+    const int s0 = (j0 + j) * R;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(late_bar, kStreamHalf);
+      load_half_tile<D, R>(late_map, late_bar, slate, g, s0, h, b);
+    }
+    if constexpr (!kDq) {
+      #pragma unroll
+      for (int u = 0; u < R / 32; ++u) {
+        const int r = lane + 32 * u;
+        const bool in = s0 + r < p.q_len;
+        cp_async4(rows + r, lse_head + (in ? s0 + r : 0), in);
+        if constexpr (kDp) cp_async4(rows + kTile + r, delta_head + (in ? s0 + r : 0), in);
+      }
+      hopper::cp_async_mbar_arrive(late_bar);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 6; ++i) hopper::mbar_init(hopper::smem_u32(bars + i), i >= 4 && !kDq ? 1 + 32 : 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (n_tiles > 0 && warp == 0) {
+    if (lane == 0) {
+      hopper::mbar_expect_tx(own_bar, L::kOwned * kOwnHalf);
+      load_half_tile<D, kTile>(own1, own_bar, sown1, g, o0, h, b);
+      if constexpr (kDp) load_half_tile<D, kTile>(own2, own_bar, sown2, g, o0, h, b);
+      load_early(0);
+    }
+    __syncwarp();
+    load_late(0);
+  }
+
+  // dQ: this thread's rows' lse (times log2(e)) and delta, zeros past q_len
+  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if constexpr (kDq) {
     lse2[0] = row_a < p.q_len ? lse_head[row_a] * kLog2e : 0.f;
     lse2[1] = row_b < p.q_len ? lse_head[row_b] * kLog2e : 0.f;
     delta_r[0] = row_a < p.q_len ? delta_head[row_a] : 0.f;
     delta_r[1] = row_b < p.q_len ? delta_head[row_b] : 0.f;
   }
   const float scale_log2 = p.scale * kLog2e;
-  const int ksteps = (p.head_dim + 15) / 16;
 
-  float acc1[kN8][4];  // dV (dK/dV) or dQ
-  float acc2[kN8][4];  // dK (dK/dV)
+  float grad[DH / 2];
   #pragma unroll
-  for (int n = 0; n < kN8; ++n) {
-    #pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[n][e] = acc2[n][e] = 0.f;
-  }
-  // ldmatrix addresses: the A rows of the warp's group, the B rows of its
-  // quarter of the tile (non-transposed: rows are the product's N), and the
-  // P and dS rows of its group
-  const int a_off = (16 * grp + lane % 16) * kPitch + (lane / 16) * 8;
-  const int b_off = (16 * quarter + (lane / 16) * 8 + lane % 8) * kPitch + ((lane / 8) % 2) * 8;
-  const int s_off = (16 * grp + lane % 16) * kWideScorePitch + (lane / 16) * 8;
+  for (int i = 0; i < DH / 2; ++i) grad[i] = 0.f;
+  float s[R / 2];              // S (or S^T), then P
+  float dp[kDp ? R / 2 : 1];   // dP (or dP^T), then dS
+  uint32_t pa[R / 16][4];      // dS (dQ, dK) or P (dV) as A operands of 16 streamed rows each
+  float4* mine = reinterpret_cast<float4*>(partials + g * kTile * kTile) + tid;
+  const float4* theirs = reinterpret_cast<const float4*>(partials + (1 - g) * kTile * kTile) + tid;
 
-  for (int j = j0; j < n_tiles; ++j) {
-    const int s0 = j * kWideStream;
-    __syncthreads();  // every warp is done with the previous tile, its P and dS
-    wide_load<T, D>(str1, kDkv ? qh : kh, kDkv ? p.q_rs : p.k_rs, s0, kWideStream, str_len, p.head_dim);
-    wide_load<T, D>(str2, kDkv ? doh : vh, kDkv ? p.do_rs : p.v_rs, s0, kWideStream, str_len, p.head_dim);
-    if (kDkv && threadIdx.x < kWideStream) {
-      const int q = s0 + threadIdx.x;
-      srows[threadIdx.x] = q < p.q_len ? lse_head[q] * kLog2e : 0.f;
-      srows[kWideStream + threadIdx.x] = q < p.q_len ? delta_head[q] : 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S and dP of the warp's 16 owned rows against its 16 streamed rows
-    float s[2][4], dp[2][4];
+  // acc (64 owned rows x R streamed rows) = A B^T over this warpgroup's
+  // half of d, A an owned half, B a streamed half; not committed
+  auto issue_ss = [&](float (&acc)[R / 2], uint32_t a_half, uint32_t b_half) {
     #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      hopper::wgmma_ss<T, R>(acc, hopper::kmajor_desc(a_half + (kk / 4) * hopper::kBoxBytes + col),
+                             hopper::kmajor_desc(b_half + (kk / 4) * kBoxStride + col), kk > 0);
     }
-    for (int kk = 0; kk < ksteps; ++kk) {
-      uint32_t a[4], bb[4];
-      ldmatrix_x4(a, own1 + a_off + 16 * kk);
-      ldmatrix_x4(bb, str1 + b_off + 16 * kk);
-      mma16816<T>(s[0], a, bb[0], bb[1]);
-      mma16816<T>(s[1], a, bb[2], bb[3]);
-      ldmatrix_x4(a, own2 + a_off + 16 * kk);
-      ldmatrix_x4(bb, str2 + b_off + 16 * kk);
-      mma16816<T>(dp[0], a, bb[0], bb[1]);
-      mma16816<T>(dp[1], a, bb[2], bb[3]);
-    }
+  };
 
-    // P and dS: entry (n, e) is owned row e < 2 ? row_a : row_b against
-    // streamed row s0 + c, c = 16 quarter + 8 n + 2 t + (e & 1)
-    #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float pv[4], dv[4];
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int own = e < 2 ? row_a : row_b;
-        const int c = 16 * quarter + 8 * n + 2 * t + (e & 1);
-        const int q = kDkv ? s0 + c : own;
-        const int k = kDkv ? own : s0 + c;
-        const float lse = kDkv ? srows[c] : lse2[e >> 1];
-        const float delta = kDkv ? srows[kWideStream + c] : delta_r[e >> 1];
-        const float pe = admissible(p, q, k) ? fast_exp2(fmaf(s[n][e], scale_log2, -lse)) : 0.f;
-        pv[e] = pe;
-        dv[e] = pe * (dp[n][e] - delta);
+  if (n_tiles > 0) {
+    hopper::mbar_wait(own_bar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const uint32_t parity = j & 1;
+      const bool more = j + 1 < n_tiles;
+      const int s0 = (j0 + j) * R;
+
+      // the products that reduce over d, over this warpgroup's half
+      hopper::fence_regs(s);
+      if constexpr (kDp) hopper::fence_regs(dp);
+      hopper::mbar_wait(early_bar, parity);
+      hopper::wgmma_fence();
+      if constexpr (kDp) {
+        issue_ss(dp, sown2, searly);  // dP = dO V^T (dQ), dP^T = V dO^T (dK)
+        hopper::mbar_wait(late_bar, parity);
+        issue_ss(s, sown1, slate);  // S = Q K^T (dQ), S^T = K Q^T (dK)
+      } else {
+        issue_ss(s, sown1, searly);  // S^T = K Q^T
       }
-      const int r = 16 * grp + lane / 4;
-      const int c = 16 * quarter + 8 * n + 2 * t;
-      if constexpr (kDkv) {
-        *reinterpret_cast<uint32_t*>(sp + r * kWideScorePitch + c) = pack2<T>(pv[0], pv[1]);
-        *reinterpret_cast<uint32_t*>(sp + (r + 8) * kWideScorePitch + c) = pack2<T>(pv[2], pv[3]);
-      }
-      *reinterpret_cast<uint32_t*>(sds + r * kWideScorePitch + c) = pack2<T>(dv[0], dv[1]);
-      *reinterpret_cast<uint32_t*>(sds + (r + 8) * kWideScorePitch + c) = pack2<T>(dv[2], dv[3]);
-    }
-    __syncthreads();
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      if constexpr (kDp) hopper::fence_regs(dp);
 
-    // the gradients over the warp's columns, 16 streamed rows a step; B
-    // (16 streamed rows x 16 columns) read MN-major with ldmatrix.trans
-    #pragma unroll
-    for (int kc = 0; kc < kWideStream / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      if constexpr (kDkv) ldmatrix_x4(pa, sp + s_off + 16 * kc);
-      ldmatrix_x4(da, sds + s_off + 16 * kc);
-      const int brow = (16 * kc + ((lane / 8) % 2) * 8 + lane % 8) * kPitch + (lane / 16) * 8;
+      // the partials meet in shared memory: thread i of one warpgroup holds
+      // the same entries as thread i of the other
+      if (j > 0) hopper::bar_sync(kBarPartialRead + g, kThreads);  // the other has read our last ones
       #pragma unroll
-      for (int nb = 0; nb < kN8 / 2; ++nb) {
-        const int col = DQ * quarter + 16 * nb;
-        if (col >= p.head_dim) continue;  // zero columns
-        uint32_t bb[4];
-        if constexpr (kDkv) {
-          ldmatrix_x4_trans(bb, str2 + brow + col);  // dO
-          mma16816<T>(acc1[2 * nb], pa, bb[0], bb[1]);
-          mma16816<T>(acc1[2 * nb + 1], pa, bb[2], bb[3]);
+      for (int i = 0; i < kF4; ++i) {
+        mine[i * kWarpgroup] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      }
+      if constexpr (kDp) {
+        #pragma unroll
+        for (int i = 0; i < kF4; ++i) {
+          mine[(kF4 + i) * kWarpgroup] = make_float4(dp[4 * i], dp[4 * i + 1], dp[4 * i + 2], dp[4 * i + 3]);
         }
-        ldmatrix_x4_trans(bb, str1 + brow + col);  // Q (dK/dV) or K (dQ)
-        if constexpr (kDkv) {
-          mma16816<T>(acc2[2 * nb], da, bb[0], bb[1]);
-          mma16816<T>(acc2[2 * nb + 1], da, bb[2], bb[3]);
+      }
+      hopper::bar_sync(kBarExchange, kThreads);
+      if (tid == 0 && more) load_early(j + 1);  // the products that read our early half have landed
+      __syncwarp();
+      #pragma unroll
+      for (int i = 0; i < kF4; ++i) {
+        const float4 x = theirs[i * kWarpgroup];
+        s[4 * i] += x.x;
+        s[4 * i + 1] += x.y;
+        s[4 * i + 2] += x.z;
+        s[4 * i + 3] += x.w;
+      }
+      if constexpr (kDp) {
+        #pragma unroll
+        for (int i = 0; i < kF4; ++i) {
+          const float4 x = theirs[(kF4 + i) * kWarpgroup];
+          dp[4 * i] += x.x;
+          dp[4 * i + 1] += x.y;
+          dp[4 * i + 2] += x.z;
+          dp[4 * i + 3] += x.w;
+        }
+      }
+      if (more) hopper::bar_arrive(kBarPartialRead + 1 - g, kThreads);
+      if constexpr (!kDp) hopper::mbar_wait(late_bar, parity);  // dO and the lse
+
+      // P and dS; accumulator entry 4n + e is (owned row e < 2 ? row_a :
+      // row_b, streamed row s0 + 8n + 2t + (e & 1))
+      const bool masked = kDq ? s0 + R > p.kv_len || (p.causal && s0 + R - 1 > o0 + shift)
+                              : s0 + R > p.q_len || (p.causal && o0 + kTile - 1 > s0 + shift);
+      #pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        float2 lv = make_float2(0.f, 0.f), dl = make_float2(0.f, 0.f);
+        if constexpr (!kDq) lv = *reinterpret_cast<const float2*>(rows + 8 * n + 2 * t);
+        if constexpr (K == kWideDk) dl = *reinterpret_cast<const float2*>(rows + kTile + 8 * n + 2 * t);
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = e & 1;
+          const float lse = kDq ? lse2[r] : (c ? lv.y : lv.x) * kLog2e;
+          float pe = fast_exp2(fmaf(s[4 * n + e], scale_log2, -lse));
+          if (masked) {
+            const int own = r ? row_b : row_a;
+            const int str = s0 + 8 * n + 2 * t + c;
+            const int q = kDq ? own : str;
+            const int key = kDq ? str : own;
+            if (str >= str_len || (p.causal && key > q + shift)) pe = 0.f;
+          }
+          if constexpr (kDp) {
+            dp[4 * n + e] = pe * (dp[4 * n + e] - (kDq ? delta_r[r] : (c ? dl.y : dl.x)));
+          } else {
+            s[4 * n + e] = pe;
+          }
+        }
+      }
+      #pragma unroll
+      for (int kc = 0; kc < R / 16; ++kc) {
+        if constexpr (kDp) {
+          acc_to_a<T>(pa[kc], dp + 8 * kc, dp + 8 * kc + 4);
         } else {
-          mma16816<T>(acc1[2 * nb], da, bb[0], bb[1]);
-          mma16816<T>(acc1[2 * nb + 1], da, bb[2], bb[3]);
+          acc_to_a<T>(pa[kc], s + 8 * kc, s + 8 * kc + 4);
         }
+      }
+
+      // the gradient over this warpgroup's columns: dQ += dS K, dK += dS^T Q
+      // or dV += P^T dO, B the late half MN-major (R / 16 steps of 16 rows)
+      hopper::fence_regs(grad);
+      hopper::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < R / 16; ++kc) {
+        hopper::wgmma_rs<T, DH>(grad, pa[kc], hopper::mnmajor_desc(slate + kc * 16 * 128, kBoxStride));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(grad);
+      if (more) {
+        hopper::bar_sync(kBarLateFree + g, kWarpgroup);  // every warp of ours is done with the late half
+        if (warp == 0) load_late(j + 1);
       }
     }
   }
 
-  // accumulator entry (n, e): row e < 2 ? row_a : row_b, column
-  // DQ quarter + 8 n + 2 t + (e & 1)
-  T* g1 = kDkv ? static_cast<T*>(p.dv) + b * p.dv_bs + h * p.dv_hs : static_cast<T*>(p.dq) + b * p.dq_bs + h * p.dq_hs;
-  const long long g1_rs = kDkv ? p.dv_rs : p.dq_rs;
-  const float g1_scale = kDkv ? 1.f : p.scale;
-  T* g2 = kDkv ? static_cast<T*>(p.dk) + b * p.dk_bs + h * p.dk_hs : nullptr;
+  // accumulator entry 4n + e: row e < 2 ? row_a : row_b, column
+  // g D / 2 + 8n + 2t + (e & 1)
+  T* out = static_cast<T*>(kDq ? p.dq : K == kWideDk ? p.dk : p.dv);
+  out += kDq ? b * p.dq_bs + h * p.dq_hs : K == kWideDk ? b * p.dk_bs + h * p.dk_hs : b * p.dv_bs + h * p.dv_hs;
+  const long long out_rs = kDq ? p.dq_rs : K == kWideDk ? p.dk_rs : p.dv_rs;
+  const float out_scale = K == kWideDv ? 1.f : p.scale;
+  const int own_len = kDq ? p.q_len : p.kv_len;
   #pragma unroll
-  for (int n = 0; n < kN8; ++n) {
-    const int col = DQ * quarter + 8 * n + 2 * t;
+  for (int n = 0; n < DH / 8; ++n) {
+    const int col = g * DH + 8 * n + 2 * t;
     if (col >= p.head_dim) continue;
-    #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r ? row_b : row_a;
-      if (row >= own_len) continue;
-      *reinterpret_cast<uint32_t*>(g1 + (long long)row * g1_rs + col) =
-          pack2<T>(acc1[n][2 * r] * g1_scale, acc1[n][2 * r + 1] * g1_scale);
-      if constexpr (kDkv) {
-        *reinterpret_cast<uint32_t*>(g2 + (long long)row * p.dk_rs + col) =
-            pack2<T>(acc2[n][2 * r] * p.scale, acc2[n][2 * r + 1] * p.scale);
-      }
+    if (row_a < own_len) {
+      *reinterpret_cast<uint32_t*>(out + (long long)row_a * out_rs + col) =
+          pack2<T>(grad[4 * n] * out_scale, grad[4 * n + 1] * out_scale);
+    }
+    if (row_b < own_len) {
+      *reinterpret_cast<uint32_t*>(out + (long long)row_b * out_rs + col) =
+          pack2<T>(grad[4 * n + 2] * out_scale, grad[4 * n + 3] * out_scale);
     }
   }
 }
 
+// The wide kernel: one block of two warpgroups per (64 owned rows,
+// batch*head[, gradient]). The dQ entry's blocks are dQ blocks; the dK/dV
+// entry's grid has a third dimension of 2, dK blocks (the heavier, first)
+// then dV blocks, so the two gradients of one key tile are computed by two
+// blocks side by side and S^T is computed twice. Tensor maps: the two owned
+// operands (64-row boxes: Q and dO for dQ, K and V for dK/dV), then the S
+// partner and the dP partner streamed in 32-row boxes (K and V for dQ, Q and
+// dO for dK) and in 64-row boxes (Q and dO for dV).
 template <typename T, int D, bool kDkv>
-int launch_wide(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int bytes = WideBwdSmem<D>::bytes;
-  auto kernel = flash_bwd_wide_kernel<T, D, kDkv>;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap own1, const __grid_constant__ CUtensorMap own2,
+                                const __grid_constant__ CUtensorMap s1_32, const __grid_constant__ CUtensorMap s2_32,
+                                const __grid_constant__ CUtensorMap s1_64, const __grid_constant__ CUtensorMap s2_64,
+                                const BwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kAlign = hopper::kSwizzleAtomBytes;
+  unsigned char* smem = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  if constexpr (kDkv) {
+    if (blockIdx.z == 0) {
+      wide_block<T, D, kWideDk>(&own1, &own2, &s2_32, &s1_32, p, smem);
+    } else {
+      wide_block<T, D, kWideDv>(&own1, nullptr, &s1_64, &s2_64, p, smem);
+    }
+  } else {
+    wide_block<T, D, kWideDq>(&own1, &own2, &s2_32, &s1_32, p, smem);
+  }
+}
+
+// one operand of the backward as its tensor maps see it
+struct Operand {
+  const void* base;
+  int rows;
+  long long rs, hs, bs;
+};
+
+// The six tensor maps and the launch of the wide kernel for the dK/dV entry
+// (kDkv) or the dQ entry.
+template <typename T, int D, bool kDkv>
+int launch_wide_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const Operand q{p.q, p.q_len, p.q_rs, p.q_hs, p.q_bs};
+  const Operand k{p.k, p.kv_len, p.k_rs, p.k_hs, p.k_bs};
+  const Operand v{p.v, p.kv_len, p.v_rs, p.v_hs, p.v_bs};
+  const Operand dout{p.dout, p.q_len, p.do_rs, p.do_hs, p.do_bs};
+  // the owned pair, then the S partner and the dP partner
+  const Operand ops[4] = {kDkv ? k : q, kDkv ? v : dout, kDkv ? q : k, kDkv ? dout : v};
+  const int operand[6] = {0, 1, 2, 3, 2, 3};
+  const int box_rows[6] = {kTile, kTile, kTile / 2, kTile / 2, kTile, kTile};
+  CUtensorMap maps[6];
+  for (int i = 0; i < 6; ++i) {
+    const Operand& o = ops[operand[i]];
+    if (!hopper::encode_map(&maps[i], bf16, o.base, p.head_dim, o.rows, p.heads, batch, o.rs, o.hs, o.bs,
+                            hopper::kBox, box_rows[i])) {
+      return int(cudaErrorInvalidValue);
+    }
+  }
+  constexpr int dk_bytes = WideBlockSmem<D, kWideDk>::bytes;
+  constexpr int dv_bytes = WideBlockSmem<D, kWideDv>::bytes;
+  constexpr int bytes = kDkv ? (dk_bytes > dv_bytes ? dk_bytes : dv_bytes) : WideBlockSmem<D, kWideDq>::bytes;
+  auto kernel = flash_bwd_wide_wgmma_kernel<T, D, kDkv>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return int(err);
   const int len = kDkv ? p.kv_len : p.q_len;
-  const dim3 grid((len + kWideOwn - 1) / kWideOwn, batch * p.heads);
-  kernel<<<grid, kWideThreads, bytes, stream>>>(p);
+  const dim3 grid((len + kTile - 1) / kTile, batch * p.heads, kDkv ? 2 : 1);
+  kernel<<<grid, kThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], p);
   return int(cudaGetLastError());
 }
 
@@ -1259,13 +1366,13 @@ int launch_f32(const BwdParams& p, int batch, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // bfloat16 and float16: each kernel at the smallest of its instances that
-// holds the head (the wgmma kernels up to 128, the mma.sync kernel at 256
+// holds the head (the narrow wgmma kernels up to 128, the wide one at 256
 // and 512)
 template <typename T, bool kDkv>
 int launch(const BwdParams& p, int batch, cudaStream_t stream) {
   const int dim_pad = pad16(p.head_dim);
-  if (dim_pad > 256) return launch_wide<T, 512, kDkv>(p, batch, stream);
-  if (dim_pad > 128) return launch_wide<T, 256, kDkv>(p, batch, stream);
+  if (dim_pad > 256) return launch_wide_wgmma<T, 512, kDkv>(p, batch, stream);
+  if (dim_pad > 128) return launch_wide_wgmma<T, 256, kDkv>(p, batch, stream);
   switch (narrow_template(dim_pad)) {
     case 64:
       return launch_wgmma<T, 64, kDkv>(p, batch, stream);

@@ -169,6 +169,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define HOPPER_F32(d, i) HOPPER_F8(d, i), HOPPER_F8(d, i + 8), HOPPER_F8(d, i + 16), HOPPER_F8(d, i + 24)
 
 #define HOPPER_N16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+#define HOPPER_N32_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
 #define HOPPER_N64_REGS                                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                    \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
@@ -187,12 +188,20 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "                \
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
 // d (64 x N, float32) = (scale_d ? d : 0) + A B^T, A and B K-major in
-// shared memory: N = 64 or 128
+// shared memory: N = 32, 64 or 128
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss is compiled for N = 64 and 128");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss is compiled for N = 32, 64 and 128");
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 64 && bf16) {
+  if constexpr (N == 32 && bf16) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_N32_REGS "%16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F8(d, 0), HOPPER_F8(d, 8) : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " HOPPER_N32_REGS "%16, %17, p, 1, 1, 0, 0;\n}\n"
+                 : HOPPER_F8(d, 0), HOPPER_F8(d, 8) : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 64 && bf16) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_N64_REGS "%32, %33, p, 1, 1, 0, 0;\n}\n"
                  : HOPPER_F32(d, 0) : "l"(a), "l"(b), "r"(scale_d));
@@ -258,6 +267,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef HOPPER_RS
 #undef HOPPER_RS_TAIL
 #undef HOPPER_N16_REGS
+#undef HOPPER_N32_REGS
 #undef HOPPER_N64_REGS
 #undef HOPPER_N128_REGS
 #undef HOPPER_N256_REGS
@@ -349,13 +359,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D tensor map over 16-bit values (columns, rows, heads, batch), strides
-// in elements, for boxes of `box_cols` columns x 64 rows of one head: 64
-// columns with the 128-byte swizzle, or 16 (`kNarrowBox`) with the 32-byte
-// swizzle. Columns past `cols` and rows past `rows` read as zeros. Returns
-// false where the encoder refuses the map (strides not multiples of 16
-// bytes, an unaligned base).
+// in elements, for boxes of `box_cols` columns x `box_rows` rows (64, or 32
+// for the wide backward's streamed tiles) of one head: 64 columns with the
+// 128-byte swizzle, or 16 (`kNarrowBox`) with the 32-byte swizzle. Columns
+// past `cols` and rows past `rows` read as zeros. Returns false where the
+// encoder refuses the map (strides not multiples of 16 bytes, an unaligned
+// base).
 inline bool encode_map(CUtensorMap* map, bool bf16, const void* base, int cols, int rows, int heads, int batch,
-                       long long row_stride, long long head_stride, long long batch_stride, int box_cols) {
+                       long long row_stride, long long head_stride, long long batch_stride, int box_cols,
+                       int box_rows = kBox) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr || (box_cols != kBox && box_cols != kNarrowBox)) return false;
   const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows), cuuint64_t(heads), cuuint64_t(batch)};
@@ -366,7 +378,7 @@ inline bool encode_map(CUtensorMap* map, bool bf16, const void* base, int cols, 
     const bool unit = dims[i + 1] == 1 && (strides[i] <= 0 || strides[i] % 8 != 0);
     bytes[i] = unit ? 16 : cuuint64_t(strides[i]) * 2;
   }
-  const cuuint32_t box[4] = {cuuint32_t(box_cols), kBox, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = box_cols == kBox ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,

@@ -25,8 +25,9 @@ wgmma kernel (TMA, two consumer warpgroups), with or without a dense or
 relative-position bias and an lse output. The backward takes every head
 width the forward takes: at d ≤ 128 a dK/dV and a dQ kernel, each wgmma on
 TMA (two warpgroups of 64 rows, P and dS kept in registers); at
-128 < d ≤ 512 one mma.sync kernel for both, its warps splitting the
-gradients' columns (`backward_kernels` names them).
+128 < d ≤ 512 one wide wgmma kernel on TMA for both entries, each block 64
+rows of one gradient split along d between its two warpgroups
+(`backward_kernels` names them).
 
 Entries and their launch counters (a plain integer on each wrapper, one per
 launch of its kernel):
@@ -70,8 +71,9 @@ BACKWARD_KERNELS = {
     torch.float16: ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
     torch.float32: ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"),
 }
-# bfloat16 and float16 at 128 < head_dim <= 512: one kernel, both gradients
-WIDE_BACKWARD_KERNEL = "flash_bwd_wide_kernel"
+# bfloat16 and float16 at 128 < head_dim <= 512: one kernel for both entries
+# (dQ blocks; dK and dV blocks in one grid)
+WIDE_BACKWARD_KERNEL = "flash_bwd_wide_wgmma_kernel"
 
 
 # ---------------------------------------------------------------------------

@@ -215,6 +215,9 @@ WIDE_SHAPES = [
     (2, 256, 256, 2, 256, False),
     (1, 1000, 1100, 1, 512, True),  # ragged and causal
     (2, 1024, 1024, 1, 512, False),  # the SD1.5 VAE's mid-block at 32×32 latents
+    (2, 4096, 4096, 1, 512, False),  # at 64×64 latents (a 512² image): phase 4c's training site
+    (1, 72, 24, 1, 512, True),  # no length a multiple of 32, Lk < 32; 48 query rows without a key
+    (1, 330, 200, 2, 256, False),  # Lq != Lk, both ending mid-tile
 ]
 
 
@@ -261,9 +264,42 @@ def test_wide_backward_kernels_match_plain(
     gen = torch.Generator(card).manual_seed(lq + lk + dim)
     q, k, v = (torch.randn((batch, heads, n, dim), generator=gen, device=card).to(dtype) for n in (lq, lk, lk))
     assert fa.backward_kernels(dtype, dim) == (
-        ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel") if dtype == torch.float32 else ("flash_bwd_wide_kernel",) * 2
+        ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+        if dtype == torch.float32
+        else ("flash_bwd_wide_wgmma_kernel",) * 2
     )
     _check_wide_backward(q, k, v, causal, seed=dim)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dim", [8, 40, 64, 80, 128, 136, 200, 256, 264, 512])
+def test_backward_kernels_route_by_head_dim(dtype: torch.dtype, dim: int) -> None:
+    """The narrow dK/dV and dQ kernels up to d = 128, the wide wgmma kernel
+    for both entries above (the routing the C entries apply)."""
+    want = (
+        ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel") if dim <= 128 else ("flash_bwd_wide_wgmma_kernel",) * 2
+    )
+    assert fa.backward_kernels(dtype, dim) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lq,lk,heads,dim,causal", [(2, 4096, 4096, 1, 512, False), (1, 1000, 1100, 1, 512, True)])
+def test_wide_backward_is_deterministic(
+    card: torch.device, batch: int, lq: int, lk: int, heads: int, dim: int, causal: bool
+) -> None:
+    """Two runs of the wide backward on the same inputs give the same bits
+    (no atomics: every gradient element is summed by one block in one
+    order), which the training harness's resume check relies on."""
+    gen = torch.Generator(card).manual_seed(lq + dim)
+    q, k, v = (torch.randn((batch, heads, n, dim), generator=gen, device=card).bfloat16() for n in (lq, lk, lk))
+    out, lse = flash_attention_forward(q, k, v, is_causal=causal, with_lse=True)
+    assert lse is not None
+    do = torch.randn(out.shape, generator=gen, device=card).bfloat16()
+    first = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    second = flash_attention_backward(q, k, v, out, lse, do, is_causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
