@@ -278,12 +278,29 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    logits on the request's input against the same weights on the CPU once:
    in true float32 (TF32 off) within 1e-4, under TF32 within 2e-2
    (relative Frobenius); seconds per request (median of 3), peak memory,
-   one MVANet forward traced.
+   one MVANet forward traced. Then the ComfyUI nodes: the weights saved to a
+   safetensors file, ``LoadBoxSegmenter().load(file, margin, "cuda")`` and
+   ``BoxSegmenter().process`` on the image as ComfyUI's (1, H, W, 3) tensor
+   and the same box: the (1, H, W) mask bit-equal to the direct call's.
+13. SD1.5 from upstream-layout files (run after phase 10, on phase 7's
+   model): its UNet written in diffusers' layout, its VAE in the original
+   LDM's (the mid-block attention projections as (512, 512, 1, 1)
+   convolutions) and its CLIP-L in transformers', as bf16 safetensors
+   under ``build/chip_smoke_conversion/``; each converted through
+   ``refiners_tpu_torch.conversion.cli.main(["--from-file", ...,
+   "--format", ...])``; the model's weights zeroed, the three outputs
+   loaded with strict=True, every tensor bit-equal to the one written out;
+   phase 7's first request served before and after the round trip (301 K1
+   launches each, the image and the decoded tensor bit-equal); a
+   refiners-layout VAE at ``Hub.local_path`` under a temporary
+   ``REFINERS_TPU_WEIGHTS`` converted by ``REGISTRY["sd15.autoencoder"].convert()``
+   into ``converted_torch/`` and loaded with strict=True, bit-equal. The
+   seconds and bytes of each conversion are printed; the files deleted.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11 and 12's runs, each with the
-counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b, 9b, 10, 11
-and 12a, by path),
+phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12 and 13's runs, each with
+the counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b, 9b,
+10, 11, 12a and 13, by path),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -3706,9 +3723,15 @@ def run_frechet_distance(dev: torch.device) -> dict[str, Any]:
 
 
 def run_box_segmenter(dev: torch.device) -> dict[str, Any]:
-    """Phase 12c: the BoxSegmenter on a full-width MVANet, float32 under PyTorch's default TF32 convolutions."""
+    """Phase 12c: the BoxSegmenter on a full-width MVANet, float32 under
+    PyTorch's default TF32 convolutions, directly and through the ComfyUI nodes."""
+    import shutil
+    from pathlib import Path
+
+    from refiners_tpu_torch.comfyui.box_segmenter import BoxSegmenter as BoxSegmenterNode
+    from refiners_tpu_torch.comfyui.box_segmenter import LoadBoxSegmenter
     from refiners_tpu_torch.fluxion import manual_seed
-    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.fluxion.utils import image_to_tensor, save_to_safetensors, synthesize_weights
     from refiners_tpu_torch.foundationals.swin.mvanet import MVANet
     from refiners_tpu_torch.solutions import BoxSegmenter
 
@@ -3752,6 +3775,29 @@ def run_box_segmenter(dev: torch.device) -> dict[str, Any]:
     if any(launches.values()):
         raise AssertionError(f"box segmenter: kernels launched {launches}")
 
+    # the ComfyUI nodes: the weights saved to a file, loaded on the card by `LoadBoxSegmenter`, the
+    # image as ComfyUI's (1, H, W, 3): the direct call's mask, bit for bit, under the same TF32 setting
+    folder = Path(__file__).resolve().parent / "build" / "chip_smoke_box_segmenter"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    try:
+        checkpoint = folder / "mvanet.safetensors"
+        save_to_safetensors(checkpoint, segmenter.model.state_dict())
+        (node_model,) = LoadBoxSegmenter().load(str(checkpoint), segmenter.margin, "cuda")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            (node_mask,) = BoxSegmenterNode().process(node_model, image_to_tensor(image).permute(0, 2, 3, 1), BOX_PROMPT)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    want_mask = image_to_tensor(mask)[:, 0]
+    print(f"box segmenter: the ComfyUI nodes (LoadBoxSegmenter on {checkpoint.name}, BoxSegmenter): mask "
+          f"{tuple(node_mask.shape)}, {int((node_mask != want_mask).sum())} pixels differ from the direct call's")  # fmt: skip
+    if not torch.equal(node_mask, want_mask):
+        raise AssertionError("box segmenter: the ComfyUI node's mask differs from the direct call's")
+    del node_model
+
     # the same weights and input on the CPU, once, in float32
     cpu_model = MVANet().eval()
     cpu_model.load_state_dict(segmenter.model.state_dict())
@@ -3771,7 +3817,136 @@ def run_box_segmenter(dev: torch.device) -> dict[str, Any]:
     _free()
     return {"parameters": n_params, "seconds_per_request": seconds, "median_seconds": median,
             "peak_memory_bytes": peak, "rel_err_float32": err_f32, "rel_err_tf32": err_tf32,
-            "probability_max_abs_err_tf32": probability_err, "cpu_seconds": cpu_seconds, "forward_profile": profile}  # fmt: skip
+            "probability_max_abs_err_tf32": probability_err, "cpu_seconds": cpu_seconds, "forward_profile": profile,
+            "comfyui_node_mask_bit_equal": True}  # fmt: skip
+
+
+# ---------------------------------------------------------------------------
+# phase 13: SD1.5 from upstream-layout files
+# ---------------------------------------------------------------------------
+
+
+def upstream_state(state: dict[str, torch.Tensor], recipe: Any,
+                   upstream_shape: Callable[[tuple[int, ...]], tuple[int, ...]]) -> dict[str, torch.Tensor]:  # fmt: skip
+    """A refiners-layout state dict in a recipe's upstream layout: each key
+    through the inverse of the key map, the recipe's prefix added; a tensor
+    the recipe reshapes given its upstream shape (`upstream_shape`)."""
+    inverse = {target: source for source, target in recipe.key_map.items()}
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        stem, leaf = key.rsplit(".", 1)
+        source = f"{recipe.key_prefix}{inverse[stem]}.{leaf}"
+        out[source] = value.reshape(upstream_shape(tuple(value.shape))) if key in recipe.tensor_reshapes else value
+    return out
+
+
+def run_sd15_conversion(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 13: phase 7's bf16 SD1.5 written as upstream checkpoints (its
+    UNet in diffusers' layout, its VAE in the original LDM's, its CLIP-L in
+    transformers'), converted through the port's CLI, loaded with
+    strict=True over zeroed weights and served; then a refiners-layout VAE
+    converted through the hub registry from a temporary cache."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from refiners_tpu_torch.conversion import cli
+    from refiners_tpu_torch.conversion.models.registry import REGISTRY, upstream_recipes
+    from refiners_tpu_torch.fluxion.utils import load_from_safetensors, save_to_safetensors
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    folder = Path(__file__).resolve().parent / "build" / "chip_smoke_conversion"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))  # DPM++ 30 steps, CFG 7.5
+    prompt, negative = PROMPTS[0]
+    decoded: list[torch.Tensor] = []
+    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out.float().cpu()))
+
+    def serve(label: str) -> tuple[np.ndarray, torch.Tensor, int, float]:
+        """Phase 7's first request: its image, decoded tensor, K1 launches and seconds."""
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        image = pipe(prompt, negative_prompt=negative, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()["flash_attention_packed"]
+        print(f"conversion: {label}: {seconds:.3f} s, K1 launches {launches}")
+        if launches != SD15_LAUNCHES_PER_REQUEST:
+            raise AssertionError(f"conversion: {label} launched K1 {launches} times, not {SD15_LAUNCHES_PER_REQUEST}")
+        return np.asarray(image), decoded[-1], launches, seconds
+
+    def restore(module: torch.nn.Module, path: Path, original: dict[str, torch.Tensor], label: str) -> None:
+        """Zero `module`, load `path` into it with strict=True, and hold every tensor bit-equal to `original`."""
+        with torch.no_grad():
+            for tensor in module.state_dict().values():
+                tensor.zero_()
+        module.load_state_dict(load_from_safetensors(path), strict=True)
+        differ = [k for k, v in module.state_dict().items() if not torch.equal(v.cpu(), original[k])]
+        if differ:
+            raise AssertionError(f"conversion: {label}: {len(differ)} tensors differ after the load, e.g. {differ[:4]}")
+
+    try:
+        want_image, want_decoded, _, _ = serve("the request before the round trip")
+        recipes = upstream_recipes()
+        parts = [("unet", sd.unet, "sd15.unet/diffusers", lambda s: s),
+                 ("autoencoder", sd.lda, "autoencoder/civitai", lambda s: (*s, 1, 1)),  # LDM's 1×1 convolutions
+                 ("clip_text", sd.clip_text_encoder, "clip_text/transformers", lambda s: s)]  # fmt: skip
+        originals: dict[str, dict[str, torch.Tensor]] = {}
+        conversions = []
+        for name, module, spec, shape in parts:
+            originals[name] = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+            source, converted = folder / f"{name}.{spec.split('/')[1]}.safetensors", folder / f"{name}.safetensors"
+            save_to_safetensors(source, upstream_state(originals[name], recipes[spec], shape))
+            start = time.perf_counter()
+            rc = cli.main(["--from-file", str(source), "--format", spec, "--output", str(converted)])
+            seconds = time.perf_counter() - start
+            if rc != 0:
+                raise AssertionError(f"conversion: the CLI returned {rc} on {spec}")
+            conversions.append({"part": name, "format": spec, "tensors": len(originals[name]), "seconds": seconds,
+                                "bytes_in": source.stat().st_size, "bytes_out": converted.stat().st_size})  # fmt: skip
+            print(f"conversion: {spec}: {len(originals[name])} tensors, {source.stat().st_size} bytes in, "
+                  f"{converted.stat().st_size} bytes out, {seconds:.3f} s (load, translate, save; "
+                  f"{next(iter(originals[name].values())).dtype})")  # fmt: skip
+        for name, module, spec, _ in parts:
+            restore(module, folder / f"{name}.safetensors", originals[name], spec)
+        print(f"conversion: the three converted files loaded with strict=True over zeroed weights, "
+              f"{sum(len(o) for o in originals.values())} tensors bit-equal")  # fmt: skip
+        image, got_decoded, launches, seconds = serve("the request from the converted files")
+        if not (np.array_equal(image, want_image) and torch.equal(got_decoded, want_decoded)):
+            raise AssertionError(f"conversion: the image from the converted files differs (max abs "
+                                 f"{float((got_decoded - want_decoded).abs().max())} on the decoded tensor)")  # fmt: skip
+
+        # the hub registry: a refiners-layout file at the Hub's local path under a temporary cache
+        entry = REGISTRY["sd15.autoencoder"]
+        previous = os.environ.get("REFINERS_TPU_WEIGHTS")
+        os.environ["REFINERS_TPU_WEIGHTS"] = str(folder / "weights")
+        try:
+            entry.source.local_path.parent.mkdir(parents=True)
+            save_to_safetensors(entry.source.local_path, originals["autoencoder"])
+            start = time.perf_counter()
+            out = entry.convert()
+            registry_seconds = time.perf_counter() - start
+            if out != entry.converted_path or "converted_torch" not in out.parts:
+                raise AssertionError(f"conversion: the registry wrote {out}, not {entry.converted_path}")
+            restore(sd.lda, out, originals["autoencoder"], "sd15.autoencoder (registry)")
+            registry = {"entry": entry.name, "seconds": registry_seconds, "bytes_in": entry.source.local_path.stat().st_size,
+                        "bytes_out": out.stat().st_size}  # fmt: skip
+        finally:
+            if previous is None:
+                os.environ.pop("REFINERS_TPU_WEIGHTS", None)
+            else:
+                os.environ["REFINERS_TPU_WEIGHTS"] = previous
+        print(f"conversion: REGISTRY['sd15.autoencoder'].convert(): {registry['bytes_in']} bytes in, "
+              f"{registry['bytes_out']} bytes out, {registry_seconds:.3f} s; loaded with strict=True, bit-equal")  # fmt: skip
+    finally:
+        hook.remove()
+        shutil.rmtree(folder, ignore_errors=True)
+    _free()
+    report = {"conversions": conversions, "registry": registry, "request_seconds": seconds, "k1_launches": launches,
+              "image_bit_equal": True}  # fmt: skip
+    return report, {"flash_attention_packed": launches}
 
 
 def main() -> int:
@@ -3875,6 +4050,7 @@ def main() -> int:
     adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
     slice_report, slice_launches = run_sd15_slice(dev, sd15)
+    conversion_report, conversion_launches = run_sd15_conversion(dev, sd15)
     del sd15
     _free()
     sdxl_zoo_report, sdxl_zoo_launches = run_sdxl_zoo(dev, build_sdxl(dev))
@@ -3923,7 +4099,8 @@ def main() -> int:
                    "sd15_slice": slice_launches["flash_attention_packed"],
                    "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"],
                    "dinov2": dinov2_launches["flash_attention_packed"],
-                   "vae_train": vae_launches["flash_attention_packed"]}  # fmt: skip
+                   "vae_train": vae_launches["flash_attention_packed"],
+                   "conversion": conversion_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -4004,6 +4181,7 @@ def main() -> int:
         "sd15_adapters": adapters_report,
         "sd15_zoo": zoo_report,
         "sd15_slice": slice_report,
+        "sd15_conversion": conversion_report,
         "sdxl_zoo": sdxl_zoo_report,
         "dinov2": dinov2_report,
         "dinov2_frechet_distance": fd_report,

@@ -245,10 +245,12 @@ class ControlLoraAdapter(Chain, Adapter[SDXLUNet]):
         self.set_context(context=f"control_lora_{self.name}", value={"condition": condition})
 
     def _cast(self, state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        """The tensors on the ControlLora's device and in its dtype."""
-        control_lora = self.control_lora
+        """The tensors on the device and in the dtype of the layers the
+        ControlLora owns (its condition encoder's): the UNet's, unless the
+        UNet is on ``meta`` and only those layers were materialized."""
+        encoder = self.control_lora.ensure_find(ConditionEncoder)
         return {
-            key: torch.as_tensor(value).to(device=control_lora.device, dtype=control_lora.dtype)
+            key: torch.as_tensor(value).to(device=encoder.device, dtype=encoder.dtype)
             for key, value in state_dict.items()
         }
 
