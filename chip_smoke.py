@@ -297,10 +297,27 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    into ``converted_torch/`` and loaded with strict=True, bit-equal. The
    seconds and bytes of each conversion are printed; the files deleted.
 
+14. The mesh (``refiners_tpu_torch.parallel``), run last: (a) a world of 1
+   on NCCL (a file store in a temporary directory, rank 0): phase 3's SDXL
+   rebuilt from its seeds and served through ``TextToImage(sd,
+   mesh=make_mesh(), size=(1024, 1024))`` for phase 3's first two prompts
+   and seeds, each image bit-equal to phase 3's and each request 2101 K1
+   launches (seconds and peak memory printed); then phase 4b's trainer for
+   two steps under ``[training.mesh] data = 1`` against the same two steps
+   without a mesh, cuDNN deterministic: losses within 1e-3, every weight
+   within AdamW's bound of the unmeshed run's, 10 + 10 + 10 launches a
+   step. (b) Two processes on the one card over gloo, each building the
+   full-width SDXL UNet from one seed (bf16): one CFG UNet call at 1024²
+   through ``predict_noise`` after ``shard_latent_diffusion`` at (data,
+   tensor) = (2, 1), then (1, 2); each rank's prediction within twice the
+   bf16 plain route's distance from the float32 plain version (computed
+   here, in one process, with the single-process kernel route's launches),
+   and 70 K1 launches a rank and call (half the rows, or half the heads).
+
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12 and 13's runs, each with
-the counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b, 9b,
-10, 11, 12a and 13, by path),
+phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12, 13 and 14a's runs, each
+with the counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b,
+9b, 10, 11, 12a, 13 and 14a, by path, K2's and K4's over 4b, 4c and 14a),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1344,7 +1361,7 @@ def _profile(label: str, fn: Callable[[], Any], unit: str) -> dict[str, Any]:
     return {"wall_ms": wall * 1e3, **device_breakdown(_profiled(fn), wall, label=label, unit=unit, top=4)}
 
 
-def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, np.ndarray, dict[str, Any]]:
+def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, list[np.ndarray], dict[str, Any]]:
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
     from refiners_tpu_torch.fluxion.utils import synthesize_weights
@@ -1447,7 +1464,7 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
         hook.remove()
     del sd, pipe, sdpa, decoded, emb, pooled, x, x16, reference, plain_noise, kernel_noise
     _free()
-    return launches, seconds, decode_seconds, peak, images[0], unet_profile
+    return launches, seconds, decode_seconds, peak, images, unet_profile
 
 
 # ---------------------------------------------------------------------------
@@ -1698,10 +1715,11 @@ def check_training_step(dev: torch.device) -> dict[str, float]:
     return report
 
 
-def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]]:
+def _unet_trainer(dev: torch.device, toml: str, records: list[dict[str, Any]]) -> Any:
+    """Phase 4b's trainer (``examples.train_unet``: batch 2 of 64×64 latents,
+    4 batches) on `toml`; it records each step's seconds, loss, grad norm,
+    peak memory and launches."""
     from refiners_tpu_torch.examples.train_unet import UnetConfig, UnetTrainer
-
-    records: list[dict[str, Any]] = []
 
     class SmokeTrainer(UnetTrainer):
         """Times each step and counts its kernel launches."""
@@ -1721,8 +1739,13 @@ def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]
                  "launches": {k: after[k] - before[k] for k in after}}
             )  # fmt: skip
 
+    return SmokeTrainer(UnetConfig.load_from_toml_string(toml), batch_size=2, latent_size=64, num_batches=4)
+
+
+def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]]:
+    records: list[dict[str, Any]] = []
     t0 = time.perf_counter()
-    trainer = SmokeTrainer(UnetConfig.load_from_toml_string(TRAIN_CONFIG), batch_size=2, latent_size=64, num_batches=4)
+    trainer = _unet_trainer(dev, TRAIN_CONFIG, records)
     before = {name: p.detach().clone() for name, p in trainer.unet.named_parameters() if p.ndim >= 2}
     print(f"sd15 trainer: built in {time.perf_counter() - t0:.1f} s, bf16, {trainer.learnable_parameter_count} parameters")
     reset_launches()
@@ -3949,6 +3972,240 @@ def run_sd15_conversion(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dic
     return report, {"flash_attention_packed": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh on the card
+# ---------------------------------------------------------------------------
+
+MESH_REQUESTS = 2  # phase 3's first prompts and seeds, served again through TextToImage(mesh=...)
+MESH_TRAIN_STEPS = 2  # phase 4b's configuration, one optimizer step (gradient accumulation 2)
+MESH_TRAIN_LR, MESH_TRAIN_WD = 1e-3, 1e-2  # TRAIN_CONFIG's AdamW: its learning rate, the default weight decay
+MESH_LOSS_TOL = 1e-3
+MESH_UNET_SEED = 7  # 14b's SDXL UNet: phase 3's weight seed, drawn on the UNet alone
+MESH_RANK_TIMEOUT_S = 600  # each collective of 14b's ranks
+
+
+def _mesh_sdxl(unet: Any, dev: torch.device) -> Any:
+    """An SDXL around `unet` with stand-ins for the VAE and the text
+    encoders (14b calls the UNet alone, through `predict_noise`)."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, StableDiffusion_XL
+
+    return StableDiffusion_XL(unet=unet, lda=fl.Chain(fl.Identity()), clip_text_encoder=fl.Chain(fl.Identity()),
+                              solver=DDIM(num_inference_steps=30, device=dev), device=dev)  # fmt: skip
+
+
+def _mesh_unet(dev: torch.device) -> Any:
+    """14b's full-width SDXL UNet: float32 weights from `MESH_UNET_SEED` (the
+    same on every process), on the plain path until a route is chosen."""
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import SDXLUNet
+
+    manual_seed(MESH_UNET_SEED)  # the biases and norms come from the init stream, whatever ran before
+    unet = SDXLUNet(in_channels=4, device=dev)
+    synthesize_weights(unet, seed=MESH_UNET_SEED)
+    return unet
+
+
+def _mesh_inputs(dev: torch.device) -> dict[str, torch.Tensor]:
+    """One CFG UNet call's inputs at 1024²: latents (1, 4, 128, 128) and the
+    conditioning of a CFG batch of 2 (seeded; the text embeddings' scale)."""
+    gen = torch.Generator(dev).manual_seed(14)
+    return {
+        "x": torch.randn((1, 4, 128, 128), generator=gen, device=dev),
+        "clip_text_embedding": torch.randn((2, 77, 2048), generator=gen, device=dev),
+        "pooled_text_embedding": torch.randn((2, 1280), generator=gen, device=dev),
+        "time_ids": torch.tensor([[1024.0, 1024.0, 0.0, 0.0, 1024.0, 1024.0]] * 2, device=dev),
+    }
+
+
+def _predict(sd: Any, inputs: dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    with torch.inference_mode():
+        return sd.predict_noise(
+            inputs["x"].to(dtype), 0, clip_text_embedding=inputs["clip_text_embedding"].to(dtype),
+            pooled_text_embedding=inputs["pooled_text_embedding"].to(dtype), time_ids=inputs["time_ids"],
+            condition_scale=5.0,
+        ).float()  # fmt: skip
+
+
+def _mesh_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One of 14b's two processes on the one card (gloo): the UNet call at
+    (data, tensor) = (2, 1), then (1, 2); its outputs and K1 launches saved."""
+    torch.cuda.set_device(0)
+    import datetime
+
+    from refiners_tpu_torch.parallel import init_process_group, make_mesh, shard_latent_diffusion
+
+    init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                       timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))  # fmt: skip
+    dev = torch.device("cuda", 0)
+    inputs = _mesh_inputs(dev)
+    sd = _mesh_sdxl(_mesh_unet(dev).to(dtype=BF16), dev)
+    results: dict[str, Any] = {}
+    # data first: the weights stay whole; then the tensor split of the same UNet
+    for data, tensor in ((2, 1), (1, 2)):
+        mesh = make_mesh(data=data, tensor=tensor)
+        start = time.perf_counter()
+        shard_latent_diffusion(sd, mesh)
+        torch.cuda.synchronize()
+        placed = time.perf_counter() - start
+        _predict(sd, inputs, BF16)  # warm
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        noise = _predict(sd, inputs, BF16)
+        torch.cuda.synchronize()
+        results[f"{data}x{tensor}"] = {"noise": noise.cpu(), "launches": read_launches()["flash_attention_packed"],
+                                       "seconds": time.perf_counter() - start, "placement_seconds": placed}  # fmt: skip
+    torch.save(results, f"{out}.{rank}")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh(dev: torch.device, bf16_images: list[np.ndarray]) -> tuple[dict[str, Any], dict[str, int], dict[str, int]]:
+    """Phase 14: (a) a world of 1 on NCCL: phase 3's SDXL served through
+    `TextToImage(mesh=make_mesh())` and phase 4b's trainer under
+    ``[training.mesh]`` against the same steps without; (b) two processes
+    on the one card over gloo: one SDXL UNet call split over "tensor", then
+    over "data". Returns the report, 14a's serving launches and its
+    training launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.parallel import init_process_group, make_mesh
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    report: dict[str, Any] = {}
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    init_process_group("nccl", init_method=f"file://{store}/nccl", rank=0, world_size=1)
+    mesh = make_mesh()
+    print(f"mesh: {mesh} on {dist.get_backend()}, world {dist.get_world_size()}")
+
+    # (a) serving: the image bit-equal to phase 3's request of the same seed, 2101 K1 launches a request
+    sd = build_sdxl(dev)
+    pipe = TextToImage(sd, size=(1024, 1024), mesh=mesh)
+    seconds, launches_per_request = [], []
+    reset_launches()
+    for seed, (prompt, negative) in enumerate(PROMPTS[:MESH_REQUESTS]):
+        before = read_launches()["flash_attention_packed"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        image = np.asarray(pipe(prompt, negative_prompt=negative, seed=seed, condition_scale=5.0))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        launches_per_request.append(read_launches()["flash_attention_packed"] - before)
+        differing = int((image != bf16_images[seed]).any(axis=-1).sum())
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"mesh request {seed} (world 1, NCCL): {seconds[-1]:.3f} s, K1 launches {launches_per_request[-1]}, "
+              f"peak memory {peak / 2**30:.2f} GiB, {differing} pixels differ from phase 3's request {seed}")  # fmt: skip
+        if differing:
+            raise AssertionError(f"the meshed request {seed} is not phase 3's image: {differing} pixels differ")
+        if launches_per_request[-1] != LAUNCHES_PER_REQUEST:
+            raise AssertionError(f"the meshed request {seed} launched K1 {launches_per_request[-1]} times, not {LAUNCHES_PER_REQUEST}")
+    serve_launches = read_launches()
+    report["serve"] = {"seconds": seconds, "peak_memory_bytes": peak, "launches": launches_per_request}
+    del sd, pipe
+    _free()
+
+    # (a) training: two steps under [training.mesh] data = 1 against the same two without, cuDNN deterministic
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    toml = TRAIN_CONFIG.replace('"4:step"', f'"{MESH_TRAIN_STEPS}:step"')
+    runs: dict[str, tuple[list[dict[str, Any]], dict[str, torch.Tensor]]] = {}
+    train_launches = {name: 0 for name in read_launches()}
+    for label, text in (("without a mesh", toml), ("[training.mesh] data = 1", toml + "\n[training.mesh]\ndata = 1\n")):
+        records: list[dict[str, Any]] = []
+        manual_seed(0)  # the UNet's biases and norms come from the init stream: the same for both runs
+        trainer = _unet_trainer(dev, text, records)
+        reset_launches()
+        trainer.train()
+        if trainer.mesh is not None:
+            train_launches = read_launches()
+        runs[label] = (records, {k: v.detach().clone() for k, v in trainer.unet.state_dict().items()})
+        for i, r in enumerate(records):
+            print(f"mesh trainer ({label}) step {i}: {r['seconds']:.3f} s, loss {r['loss']:.5f}, optimizer step "
+                  f"{r['optimizer_step']}, grad norm {r['grad_norm']:.4f}, peak memory "
+                  f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches {r['launches']}")  # fmt: skip
+        del trainer
+        _free()
+    torch.backends.cudnn.deterministic = False
+    (plain_records, plain_weights), (mesh_records, mesh_weights) = runs.values()
+    loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(mesh_records, plain_records))
+    # one AdamW step moves an element by at most lr (|m̂ / √v̂| ≤ 1 at the first step) plus lr·wd·|w|; two
+    # runs whose updates differ in sign lie twice that apart, and bf16 rounds each result (2^-8 |w|)
+    excess = max(float(((mesh_weights[k].float() - v.float()).abs()
+                        - (2 * MESH_TRAIN_LR * (1 + MESH_TRAIN_WD * v.float().abs()) + 2 * 2**-8 * v.float().abs())).max())
+                 for k, v in plain_weights.items())  # fmt: skip
+    differing = sum(int((mesh_weights[k] != v).sum()) for k, v in plain_weights.items())
+    want = TRAINING_STEP_LAUNCHES
+    print(f"mesh trainer: losses without a mesh {[r['loss'] for r in plain_records]}, with "
+          f"{[r['loss'] for r in mesh_records]} (largest relative gap {loss_gap:.3e}); weights differ in {differing} "
+          f"elements, largest excess over AdamW's bound {excess:.3e}")  # fmt: skip
+    if len(mesh_records) != MESH_TRAIN_STEPS or not loss_gap <= MESH_LOSS_TOL or not excess <= 0:
+        raise AssertionError(f"the meshed training steps do not hold against the unmeshed ones: gap {loss_gap}, excess {excess}")
+    if any(r["launches"] != want for r in plain_records + mesh_records):
+        raise AssertionError(f"each training step must launch {want}")
+    report["train"] = {"losses": [r["loss"] for r in mesh_records], "losses_without": [r["loss"] for r in plain_records],
+                       "loss_gap": loss_gap, "differing_elements": differing,
+                       "seconds": [r["seconds"] for r in mesh_records],
+                       "seconds_without": [r["seconds"] for r in plain_records],
+                       "peak_memory_bytes": [r["peak_memory_bytes"] for r in mesh_records]}  # fmt: skip
+    del runs, plain_weights, mesh_weights
+    _free()
+    dist.destroy_process_group()
+
+    # (b) two processes on the one card over gloo; references here, on the plain path and through the kernels
+    inputs = _mesh_inputs(dev)
+    sd = _mesh_sdxl(_mesh_unet(dev), dev)
+    sdpa = list(sd.unet.layers(fl.ScaledDotProductAttention, recurse=True))
+    routes: dict[str, torch.Tensor] = {}
+    for label, dtype, kernel in (("float32 plain", F32, False), ("bf16 plain", BF16, False), ("bf16 kernels", BF16, True)):
+        for layer in sdpa:
+            layer.is_optimized = kernel
+        sd.unet.to(dtype=dtype)
+        reset_launches()
+        routes[label] = _predict(sd, inputs, dtype)
+        if kernel and read_launches()["flash_attention_packed"] != SDXL_LAUNCHES_PER_CALL:
+            raise AssertionError(f"the single-process kernel call launched K1 {read_launches()['flash_attention_packed']} times")
+    reference = routes["float32 plain"]
+    err_plain, err_kernel = _rel(routes["bf16 plain"], reference), _rel(routes["bf16 kernels"], reference)
+    del sd, sdpa, routes["bf16 plain"], routes["bf16 kernels"]
+    _free()
+    out = store / "ranks"
+    start = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(2, str(store / "gloo"), str(out)), nprocs=2, start_method="spawn")
+    ranks_seconds = time.perf_counter() - start
+    report["ranks"] = {}
+    for rank in range(2):
+        results = torch.load(f"{out}.{rank}")
+        for name, r in results.items():
+            err = _rel(r["noise"].to(dev), reference)
+            print(f"mesh 14b rank {rank} at (data, tensor) = {name} (gloo, two ranks on one card): rel_err={err:.3e} "
+                  f"against float32 (bf16 plain {err_plain:.3e}, bf16 kernels in one process {err_kernel:.3e}), "
+                  f"K1 launches {r['launches']}, {r['seconds']:.3f} s a call, placement {r['placement_seconds']:.1f} s")  # fmt: skip
+            if not (torch.isfinite(r["noise"]).all() and err <= 2 * err_plain):
+                raise AssertionError(f"rank {rank} at {name}: {err} > 2 × {err_plain}")
+            if r["launches"] != SDXL_LAUNCHES_PER_CALL:
+                raise AssertionError(f"rank {rank} at {name} launched K1 {r['launches']} times, not {SDXL_LAUNCHES_PER_CALL}")
+            report["ranks"][f"{rank} {name}"] = {"rel_err": err, "launches": r["launches"], "seconds": r["seconds"],
+                                                 "placement_seconds": r["placement_seconds"]}  # fmt: skip
+    report["ranks_rel_err_plain_bf16"], report["ranks_rel_err_kernels_one_process"] = err_plain, err_kernel
+    report["ranks_seconds"] = ranks_seconds
+    print(f"mesh 14b: two ranks spawned, built, placed and ran both meshes in {ranks_seconds:.1f} s")
+    del reference
+    shutil.rmtree(store, ignore_errors=True)
+    _free()
+    return report, serve_launches, train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -4039,13 +4296,13 @@ def main() -> int:
     for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6"), (quantize_rows, "K6 rows")):
         _print_row(label, results[0]["ms"], results[0])
     _free()
-    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_image, unet_profile = run_sdxl(dev)
+    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_images, unet_profile = run_sdxl(dev)
     step_check = check_training_step(dev)
     train_launches, train_records = run_trainer(dev)
     vae_step = check_vae_step(dev)
     vae_launches, vae_report = run_vae_training(dev)
     sam_report, sam_launches = run_sam(dev)
-    passes_report, passes_launches = run_sdxl_passes(dev, bf16_image)
+    passes_report, passes_launches = run_sdxl_passes(dev, bf16_images[0])
     sd15_report, sd15_launches, sd15 = run_sd15(dev)
     adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
@@ -4058,6 +4315,7 @@ def main() -> int:
     dinov2_report, dinov2_launches = run_dinov2(dev)
     fd_report = run_frechet_distance(dev)
     box_report = run_box_segmenter(dev)
+    mesh_report, mesh_launches, mesh_train_launches = run_mesh(dev, bf16_images)
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -4100,7 +4358,8 @@ def main() -> int:
                    "sdxl_zoo": sdxl_zoo_launches["flash_attention_packed"],
                    "dinov2": dinov2_launches["flash_attention_packed"],
                    "vae_train": vae_launches["flash_attention_packed"],
-                   "conversion": conversion_launches["flash_attention_packed"]}  # fmt: skip
+                   "conversion": conversion_launches["flash_attention_packed"],
+                   "mesh": mesh_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -4124,7 +4383,8 @@ def main() -> int:
                           **{key: row[key] for key in train_keys if key in row}})  # fmt: skip
         return sites
 
-    backward_launches = {"sd15_train": train_launches["flash_attention_bwd_dkv"], "vae_train": vae_launches["flash_attention_bwd_dkv"]}
+    backward_launches = {"sd15_train": train_launches["flash_attention_bwd_dkv"], "vae_train": vae_launches["flash_attention_bwd_dkv"],
+                         "mesh_train": mesh_train_launches["flash_attention_bwd_dkv"]}  # fmt: skip
 
     windowed_row = {"shape": windowed["shape"], "ms": windowed["ms"], "plain_ms": windowed["plain_ms"],
                     **{key: rows["K3 windowed"][key] for key in ("bound_ms", "bound_by", "library_ms", "device_ms",
@@ -4136,17 +4396,21 @@ def main() -> int:
             # the forward with its lse under autograd: K2's sites on the SD1.5 UNet (phase 4b) and, through the
             # packed entry, K1's function at the VAE decoder's mid-block (phase 4c, flash_fwd_wgmma_kernel)
             {**kernel("flash_attention", "flash_attention_forward.cu", "flash_attention.py:105",
-                      train_launches["flash_attention"] + vae_launches["flash_attention"], forward, rows["K2"]),
+                      train_launches["flash_attention"] + vae_launches["flash_attention"]
+                      + mesh_train_launches["flash_attention"], forward, rows["K2"]),
              "cuda_kernel": rows["K2"]["cuda_kernel"], "sites": train_sites("K2", forward[0]),
              "launches_by_path": {"sd15_train": train_launches["flash_attention"],
-                                  "vae_train (K1 at d = 512, with the lse)": vae_launches["flash_attention"]}},
+                                  "vae_train (K1 at d = 512, with the lse)": vae_launches["flash_attention"],
+                                  "mesh_train": mesh_train_launches["flash_attention"]}},
             {**kernel("flash_attention_bwd_dkv", "flash_attention_backward.cu", "flash_attention.py:521",
                       sum(backward_launches.values()), dkv, rows["K4a"]), "launches_by_path": backward_launches,
              "cuda_kernel": rows["K4a"]["cuda_kernel"], "sites": train_sites("K4a", dkv[0]) + wide_sites("K4a", dkv)},
             {**kernel("flash_attention_bwd_dq", "flash_attention_backward.cu", "flash_attention.py:553",
-                      train_launches["flash_attention_bwd_dq"] + vae_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
+                      train_launches["flash_attention_bwd_dq"] + vae_launches["flash_attention_bwd_dq"]
+                      + mesh_train_launches["flash_attention_bwd_dq"], dq, rows["K4b"]),
              "launches_by_path": {"sd15_train": train_launches["flash_attention_bwd_dq"],
-                                  "vae_train": vae_launches["flash_attention_bwd_dq"]},
+                                  "vae_train": vae_launches["flash_attention_bwd_dq"],
+                                  "mesh_train": mesh_train_launches["flash_attention_bwd_dq"]},
              "cuda_kernel": rows["K4b"]["cuda_kernel"], "sites": train_sites("K4b", dq[0]) + wide_sites("K4b", dq),
              "ptxas": dq_ptxas, "ptxas_wide": wide_ptxas},
             {**kernel("flash_attention_relpos", "flash_attention_forward.cu", "flash_attention.py:311",
@@ -4186,6 +4450,7 @@ def main() -> int:
         "dinov2": dinov2_report,
         "dinov2_frechet_distance": fd_report,
         "box_segmenter": box_report,
+        "mesh": mesh_report,
     }
     print(json.dumps(summary))
     print(smi)

@@ -95,8 +95,13 @@ class UnetTrainer(Trainer[UnetConfig, dict[str, torch.Tensor]]):
 
     def compute_loss(self, batch: dict[str, Any]) -> torch.Tensor:
         latents = batch["latents"].to(self.dtype)
-        noise = torch.randn(latents.shape, generator=self.generator, device=self.device).to(self.dtype)
-        steps = torch.randint(0, self.solver.num_inference_steps, (latents.shape[0],), generator=self.generator, device=self.device)
+        # drawn for the whole batch, then this rank's rows (under [training.mesh]): the same draws on any mesh
+        shape = (self.batch_size, *latents.shape[1:])
+        noise = torch.randn(shape, generator=self.generator, device=self.device).to(self.dtype)
+        steps = torch.randint(
+            0, self.solver.num_inference_steps, (self.batch_size,), generator=self.generator, device=self.device
+        )
+        noise, steps = self.shard_batch((noise, steps))
         noised = self.solver.add_noise(latents, noise, steps.tolist())
         self.unet.set_timestep(self.solver.timesteps[steps])
         self.unet.set_clip_text_embedding(batch["text"].to(self.dtype))

@@ -44,6 +44,7 @@ class LatentDiffusionModel(fl.Module, ABC):
         self.clip_text_encoder = clip_text_encoder.to(device=device, dtype=dtype)
         self.solver = solver.to(device=device)
         self.classifier_free_guidance = classifier_free_guidance
+        self.mesh: Any = None  # a DeviceMesh once `parallel.shard_latent_diffusion` has placed the model
 
     def set_inference_steps(self, num_steps: int, first_step: int = 0) -> None:
         """Set the step count; `first_step = round((1-strength)·(num_steps-1))` for img2img."""
@@ -114,6 +115,17 @@ class LatentDiffusionModel(fl.Module, ABC):
         self, x: torch.Tensor, noise: torch.Tensor, step: int, *, clip_text_embedding: torch.Tensor, **kwargs: Any
     ) -> torch.Tensor: ...
 
+    def _unet_rows(self, latents: torch.Tensor, step: int, **context: torch.Tensor) -> torch.Tensor:
+        """The UNet on `latents` with `context` set; under a mesh, each rank
+        on its rows (`parallel.inference.run_unet`), the UNet checked for
+        what the mesh cannot split at the first step."""
+        self.set_unet_context(**context)
+        if self.mesh is None:
+            return self.unet(latents)
+        from refiners_tpu_torch.parallel.inference import run_unet
+
+        return run_unet(self.unet, self.mesh, latents, check=step == self.steps[0])
+
     def predict_noise(
         self,
         x: torch.Tensor,
@@ -128,13 +140,12 @@ class LatentDiffusionModel(fl.Module, ABC):
             assert clip_text_embedding.shape[0] % 2 == 0, f"invalid batch size: {clip_text_embedding.shape[0]}"
 
         timestep = self.solver.timesteps[step][None]
-        self.set_unet_context(timestep=timestep, clip_text_embedding=clip_text_embedding, **kwargs)
-
         latents = torch.cat((x, x)) if self.classifier_free_guidance else x
         latents = self.solver.scale_model_input(latents, step=step)
+        prediction = self._unet_rows(latents, step, timestep=timestep, clip_text_embedding=clip_text_embedding, **kwargs)
         if not self.classifier_free_guidance:
-            return self.unet(latents)
-        unconditional_prediction, conditional_prediction = self.unet(latents).chunk(2)
+            return prediction
+        unconditional_prediction, conditional_prediction = prediction.chunk(2)
         predicted_noise = unconditional_prediction + condition_scale * (conditional_prediction - unconditional_prediction)
         if self.has_self_attention_guidance():
             predicted_noise = predicted_noise + self.compute_self_attention_guidance(

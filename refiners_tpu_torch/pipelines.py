@@ -1,8 +1,11 @@
-"""Text-to-image pipeline on one device; counterpart of ``refiners_tpu/pipelines.py``.
+"""Text-to-image pipeline; counterpart of ``refiners_tpu/pipelines.py``.
 
 Bundles prompt encoding, the denoising loop and the VAE decode under
-``torch.inference_mode()``. The JAX pipeline's mesh branch (data and tensor
-parallelism) waits for the port of ``parallel/``.
+``torch.inference_mode()``. Pass a ("data", "tensor") mesh
+(`parallel.make_mesh`) to run data-parallel over the CFG batch and the
+images, with tensor-parallel attention and feed-forward weights when
+``tensor > 1``: every rank of the mesh runs the same call, one process per
+card (`torchrun`).
 """
 
 from __future__ import annotations
@@ -28,12 +31,61 @@ class TextToImage:
         image = pipe("a cute cat", negative_prompt="low quality", seed=42)
 
     `num_images` latents are denoised as one batch (CFG batch 2 × `num_images`).
+
+    Multi-card: `TextToImage(sdxl, mesh=make_mesh(tensor=1), num_images=8)`
+    places the model on the mesh at the first call (`shard_latent_diffusion`:
+    attention and feed-forward weights split over "tensor" if ``tensor > 1``)
+    and splits each step's CFG batch of 16 over "data"; each rank decodes
+    its block of the images, and every rank returns all of them.
     """
 
     sd: LatentDiffusionModel
     size: tuple[int, int] = (512, 512)
     condition_scale: float | None = None
+    mesh: Any = None  # a ("data", "tensor") DeviceMesh
     num_images: int = 1
+
+    def __post_init__(self) -> None:
+        self._sharded = False
+        if self.mesh is not None:
+            n_data = self.mesh.size(self.mesh.mesh_dim_names.index("data"))
+            assert self.num_images % n_data == 0 or self.num_images == 1, (
+                f"num_images={self.num_images} must divide the data axis ({n_data})"
+            )
+
+    def _ensure_sharded(self) -> None:
+        if self.mesh is None or self._sharded:
+            return
+        from refiners_tpu_torch.parallel import shard_latent_diffusion
+
+        shard_latent_diffusion(self.sd, self.mesh)
+        self._sharded = True
+
+    def _seed(self, seed: int | None, device: torch.device) -> torch.Generator:
+        """The generator of `seed`; without one, a seed drawn from the
+        device's seeded generator (on a mesh: rank 0's, given to every rank,
+        so that all ranks draw the same noise)."""
+        if seed is not None:
+            return torch.Generator(device).manual_seed(seed)
+        if self.mesh is None:
+            return rng.generator(device)
+        from refiners_tpu_torch.parallel.sharding import broadcast_from_first
+
+        drawn = torch.randint(2**62, (1,), generator=rng.generator(device), device=device)
+        broadcast_from_first([drawn], self.mesh)
+        return torch.Generator(device).manual_seed(int(drawn))
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The VAE decode; on a mesh each rank decodes its block of the
+        images and the blocks are gathered, where "data" divides them."""
+        if self.mesh is None:
+            return self.sd.lda.decode(z)
+        from refiners_tpu_torch.parallel import batch_sharding
+
+        sharding = batch_sharding(self.mesh, z.ndim)
+        if not sharding.divides(z):
+            return self.sd.lda.decode(z)
+        return sharding.gather(self.sd.lda.decode(sharding.shard(z)))
 
     @torch.inference_mode()
     def __call__(
@@ -45,10 +97,13 @@ class TextToImage:
     ) -> Image.Image | list[Image.Image]:
         """Generate `num_images` images (a single Image when 1). The noise,
         and a stochastic solver's draws, come from a generator on the model's
-        device seeded by `seed` (else the device's seeded generator)."""
+        device seeded by `seed` (else the device's seeded generator). On a
+        mesh every rank draws the whole batch's noise from the same seed, so
+        the images do not depend on the mesh."""
+        self._ensure_sharded()
         sd = self.sd
         device, dtype = sd.unet.device, sd.unet.dtype
-        generator = torch.Generator(device).manual_seed(seed) if seed is not None else rng.generator(device)
+        generator = self._seed(seed, device)
         n = self.num_images
         h, w = self.size
         noise = torch.randn((n, 4, h // 8, w // 8), generator=generator, device=device, dtype=torch.float32)
@@ -70,5 +125,5 @@ class TextToImage:
         z = sd.diffuse(
             x, clip_text_embedding=emb.repeat_interleave(n, dim=0), condition_scale=scale, generator=generator, **kwargs
         )
-        images = tensor_to_images((sd.lda.decode(z) + 1) / 2)
+        images = tensor_to_images((self._decode(z) + 1) / 2)
         return images[0] if n == 1 else images

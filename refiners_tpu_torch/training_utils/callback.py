@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Any, Generic, TypeVar
 
+import torch.distributed as dist
+
 from refiners_tpu_torch.training_utils.config_base import Config
 
 if TYPE_CHECKING:
@@ -15,6 +17,13 @@ T = TypeVar("T", bound="Trainer[Any, Any]")
 
 class CallbackConfig(Config):
     pass
+
+
+def first_rank() -> bool:
+    """Whether this process writes what the run shares (logs, files): with
+    no process group, or as rank 0 of it (every rank runs the Trainer under
+    ``[training.mesh]``)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class Callback(Generic[T]):

@@ -22,6 +22,15 @@ What the port adds, so that ``restore`` then ``train()`` resumes a run:
 
 A checkpoint written mid-epoch (``save`` called directly) restarts that
 epoch's batches from the first.
+
+Under ``[training.mesh]`` every rank calls ``save`` and ``restore``. The
+file holds whole tensors: each tensor split over "tensor" is gathered (the
+ranks of its group together), the first rank of the process group alone
+writes and prunes, and the others wait for it. ``restore`` reads the same
+file on every rank and gives each split parameter, and its optimizer
+state, this rank's shard. The weights restore at any mesh; the optimizer's
+state at the tensor size it was saved from (its parameter groups follow the
+split, `OptimizerConfig.get`; torch refuses other groups).
 """
 
 from __future__ import annotations
@@ -32,12 +41,40 @@ from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
 import torch
+import torch.distributed as dist
 
-from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
+from refiners_tpu_torch.parallel.sharding import distribute_like, full
+from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig, first_rank
 from refiners_tpu_torch.training_utils.common import TimeValue, parse_number_unit_field
 
 if TYPE_CHECKING:
     from refiners_tpu_torch.training_utils.trainer import Trainer
+
+
+def _whole(value: Any) -> Any:
+    """`value` (a state dict, nested) with each split tensor gathered whole."""
+    if isinstance(value, torch.Tensor):
+        return full(value)
+    if isinstance(value, dict):
+        return {k: _whole(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_whole(v) for v in value)
+    return value
+
+
+def _shard_states(state: dict[str, Any], optimizer: torch.optim.Optimizer) -> dict[str, Any]:
+    """An optimizer's saved state with each per-parameter tensor shaped like
+    its parameter placed as the parameter is (`distribute_like`)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    per_param = {
+        index: {k: distribute_like(v, params[index]) if _like(v, params[index]) else v for k, v in values.items()}
+        for index, values in state["state"].items()
+    }
+    return {**state, "state": per_param}
+
+
+def _like(value: Any, param: torch.Tensor) -> bool:
+    return isinstance(value, torch.Tensor) and value.shape == param.shape
 
 
 class CheckpointConfig(CallbackConfig):
@@ -57,21 +94,24 @@ class CheckpointCallback(Callback["Trainer[Any, Any]"]):
         """Write the training state under ``directory / tag``; `epochs_done`
         (default: the clock's epoch) is the epoch a resumed run starts at."""
         path = (self.directory / tag).absolute()
-        path.mkdir(parents=True, exist_ok=True)
         state: dict[str, Any] = {}
         for name, item in trainer.models.items():
-            state[f"model_{name}"] = item.model.state_dict()
+            state[f"model_{name}"] = _whole(item.model.state_dict())
             if item.optimizer is not None:
-                state[f"opt_{name}"] = item.optimizer.state_dict()
-        torch.save(state, path / "state.pt")
-        meta = {
-            "step": trainer.clock.step,
-            "epoch": trainer.clock.epoch if epochs_done is None else epochs_done,
-            "iteration": trainer.clock.iteration,
-            "scheduler_steps": trainer._scheduler_steps,
-        }
-        (path / "meta.json").write_text(json.dumps(meta))
-        self._prune()
+                state[f"opt_{name}"] = _whole(item.optimizer.state_dict())
+        if first_rank():
+            path.mkdir(parents=True, exist_ok=True)
+            torch.save(state, path / "state.pt")
+            meta = {
+                "step": trainer.clock.step,
+                "epoch": trainer.clock.epoch if epochs_done is None else epochs_done,
+                "iteration": trainer.clock.iteration,
+                "scheduler_steps": trainer._scheduler_steps,
+            }
+            (path / "meta.json").write_text(json.dumps(meta))
+            self._prune()
+        if dist.is_initialized():
+            dist.barrier()
         return path
 
     def restore(self, trainer: "Trainer[Any, Any]", tag: str) -> None:
@@ -80,9 +120,13 @@ class CheckpointCallback(Callback["Trainer[Any, Any]"]):
         meta = json.loads((path / "meta.json").read_text())
         trainer._scheduler_steps = meta["scheduler_steps"]  # first: the optimizers' learning rate follows it
         for name, item in trainer.models.items():
-            item.model.load_state_dict(state[f"model_{name}"])
+            current = item.model.state_dict()
+            item.model.load_state_dict(
+                {k: distribute_like(v, current[k]) if k in current else v for k, v in state[f"model_{name}"].items()}
+            )
             if f"opt_{name}" in state:
-                trainer._optimizer_for(item).load_state_dict(state[f"opt_{name}"])
+                optimizer = trainer._optimizer_for(item)
+                optimizer.load_state_dict(_shard_states(state[f"opt_{name}"], optimizer))
         self._set_clock(trainer, meta)
         self._resume = meta
 

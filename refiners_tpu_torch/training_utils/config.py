@@ -11,8 +11,9 @@ Prodigy with ``safeguard_warmup``; every default (betas, eps, weight decay
 1e-2) is the JAX package's. LR schedules are the same multiplier functions,
 applied by the Trainer at every optimizer step.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP.md): the
-``[training.mesh]`` section (step 12) and ``jit_step`` (step 14).
+The ``[training.mesh]`` section (`MeshConfig`) trains over a ("data",
+"tensor") mesh of the running process group (see the Trainer). Not ported
+yet: ``jit_step`` (raises NotImplementedError naming ROADMAP.md, step 14).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from pathlib import Path
 from typing import Any, Callable, Iterable, Literal, TypeVar
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from refiners_tpu_torch.training_utils.clock import ClockConfig
 from refiners_tpu_torch.training_utils.common import Iteration, Step, TimeValue, parse_number_unit_field
@@ -37,6 +39,20 @@ def _tuple(value: Any) -> tuple[Any, ...]:
     return tuple(value)
 
 
+class MeshConfig(Config):
+    """Device-mesh parallelism for training: the batch split over "data"
+    (gradients averaged over it); with ``tensor > 1`` the attention and
+    feed-forward weights split by `parallel.ATTENTION_TP_RULES` too."""
+
+    data: int | None = None  # None: every remaining rank on the data axis
+    tensor: int = 1
+    tensor_parallel_rules: bool = True
+
+
+def _mesh_config(value: Any) -> MeshConfig:
+    return value if isinstance(value, MeshConfig) else MeshConfig.from_dict(value)
+
+
 class TrainingConfig(Config):
     device: str = "cuda"
     dtype: str = "float32"
@@ -45,12 +61,10 @@ class TrainingConfig(Config):
     gradient_accumulation: Step = parsed(parse_number_unit_field, factory=lambda: Step(1))
     gradient_clipping_max_norm: float | None = None
     jit_step: bool = False
-    mesh: dict[str, Any] | None = None
+    mesh: MeshConfig | None = parsed(_mesh_config, default=None)  # [training.mesh] enables DP/TP
 
     def __post_init__(self) -> None:
         super().__post_init__()
-        if self.mesh is not None:
-            raise NotImplementedError("[training.mesh] " + _NOT_PORTED.format(step=12))
         if self.jit_step:
             raise NotImplementedError("training.jit_step (a compiled step: CUDA graphs) " + _NOT_PORTED.format(step=14))
 
@@ -142,6 +156,17 @@ class LRSchedulerConfig(Config):
                 raise ValueError(f"Unknown scheduler type: {self.type}")
 
 
+def _by_type(params: Iterable[torch.nn.Parameter]) -> list[Any]:
+    """The parameters, with those that are `DTensor`s (tensor-parallel
+    splits) in a group of their own: torch's multi-tensor steps (the
+    default on the card) take lists of one tensor type."""
+    params = list(params)
+    split = [p for p in params if isinstance(p, DTensor)]
+    if not split or len(split) == len(params):
+        return params
+    return [{"params": [p for p in params if not isinstance(p, DTensor)]}, {"params": split}]
+
+
 class OptimizerConfig(Config):
     optimizer: Optimizers = parsed(Optimizers)
     learning_rate: float = 1e-4
@@ -164,6 +189,8 @@ class OptimizerConfig(Config):
         ``AdamW8bit`` is AdamW and ``Lion8bit`` Lion, as in the JAX package;
         Prodigy takes its default eps, as optax's does there."""
         lr = learning_rate if learning_rate is not None else self.learning_rate
+        if self.optimizer in (Optimizers.SGD, Optimizers.Adam, Optimizers.AdamW, Optimizers.AdamW8bit):
+            params = _by_type(params)
         b = tuple(betas) if betas is not None else self.betas
         e = eps if eps is not None else self.eps
         wd = weight_decay if weight_decay is not None else self.weight_decay

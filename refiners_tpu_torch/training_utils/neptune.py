@@ -1,14 +1,15 @@
 """Neptune logging callback; counterpart of
 ``refiners_tpu/training_utils/neptune.py``: the same config and the same
 series appended at the same events. ``neptune`` is imported when the
-callback is built, never at module import."""
+callback is built, never at module import. Under ``[training.mesh]`` the
+first rank of the process group alone starts a run and logs."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import TYPE_CHECKING, Any
 
-from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
+from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig, first_rank
 
 if TYPE_CHECKING:
     from refiners_tpu_torch.training_utils.trainer import Trainer
@@ -24,13 +25,16 @@ class NeptuneConfig(CallbackConfig):
 
 class NeptuneCallback(Callback["Trainer[Any, Any]"]):
     def __init__(self, config: NeptuneConfig) -> None:
-        import neptune  # type: ignore
-
         self.config = config
-        self.run = neptune.init_run(project=config.project, name=config.name, tags=config.tags)
+        self.run: Any = None
+        if first_rank():
+            import neptune  # type: ignore
+
+            self.run = neptune.init_run(project=config.project, name=config.name, tags=config.tags)
 
     def log(self, key: str, value: Any) -> None:
-        self.run[key].append(value)
+        if self.run is not None:
+            self.run[key].append(value)
 
     def on_compute_loss_end(self, trainer: "Trainer[Any, Any]") -> None:
         assert trainer.loss is not None
@@ -41,7 +45,8 @@ class NeptuneCallback(Callback["Trainer[Any, Any]"]):
         self.log("train/learning_rate", trainer.current_learning_rate())
 
     def on_train_end(self, trainer: "Trainer[Any, Any]") -> None:
-        self.run.stop()
+        if self.run is not None:
+            self.run.stop()
 
 
 class NeptuneMixin:

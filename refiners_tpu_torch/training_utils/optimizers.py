@@ -16,6 +16,8 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from refiners_tpu_torch.parallel.sharding import is_split, local, sum_over_shards
+
 
 class Lion(torch.optim.Optimizer):
     """Lion (Chen et al., 2023), as ``optax.lion``:
@@ -67,7 +69,9 @@ class Prodigy(torch.optim.Optimizer):
     the optimizer takes one parameter group and keeps ``estim_lr``,
     ``numerator_weighted`` and ``count`` in it (`state_dict` saves them).
     The per-parameter state takes each parameter's dtype; the scalars are
-    Python floats. Parameters without a gradient are left out.
+    Python floats. Parameters without a gradient are left out. A parameter
+    split over a mesh (a `DTensor`, tensor parallelism) adds the sums over
+    all its shards to the estimate.
     """
 
     def __init__(
@@ -112,14 +116,17 @@ class Prodigy(torch.optim.Optimizer):
                     state[key] = torch.zeros_like(p)
                 state["params0"] = p.detach().clone()
             dg = p.grad * estim_lr
-            numerator.append(torch.sum(p.grad.float() * (state["params0"] - p).float()))
+            numerator.append(torch.sum(local(p.grad).float() * (local(state["params0"]) - local(p)).float()))
             state["exp_avg"].mul_(b1).add_(dg, alpha=1 - b1)
             state["exp_avg_sq"].mul_(b2).addcmul_(dg, dg, value=1 - b2)
             weight = estim_lr if group["safeguard_warmup"] else dlr
             state["grad_sum"].mul_(b3).add_(dg, alpha=weight / estim_lr0)
-            denominator.append(state["grad_sum"].float().abs().sum())
+            denominator.append(local(state["grad_sum"]).float().abs().sum())
         if not params:
             return loss
+        if any(is_split(p) for p in params):
+            sums = sum_over_shards(torch.stack([torch.stack(numerator), torch.stack(denominator)], dim=1), params)
+            numerator, denominator = list(sums[:, 0]), list(sums[:, 1])
         # one transfer for the two sums (a device synchronization on the card)
         numerator_acum, denominator_sum = torch.stack([sum(numerator), sum(denominator)]).tolist()
         numerator_weighted = b3 * group["numerator_weighted"] + (estim_lr / estim_lr0) * dlr * numerator_acum

@@ -12,12 +12,20 @@ order. What changes with PyTorch:
   optimizer step sets each ``param_group["lr"]`` to `current_learning_rate`,
   which gives the JAX package's per-step rebuild of the optax transform;
 - gradients are clipped by their global norm, scale
-  ``min(1, max_norm / (norm + 1e-6))``, as in the JAX package
-  (`torch.nn.utils.clip_grads_with_norm_` on a float32 global norm);
+  ``min(1, max_norm / (norm + 1e-6))``, as in the JAX package (and as
+  `torch.nn.utils.clip_grads_with_norm_`, on a float32 global norm);
 - ``training.dtype`` casts each registered model and ``training.device``
   places it: explicit, with no move to the CPU when the device is missing;
 - a data iterable with a ``set_epoch`` method (`DataLoader`) is told the
-  clock's epoch before each pass, so its shuffle follows the clock.
+  clock's epoch before each pass, so its shuffle follows the clock;
+- under ``[training.mesh]`` every rank of the process group runs the same
+  Trainer: each registered model is placed on the mesh (`shard_module`:
+  the first rank's weights everywhere, the TP rules' Linears split over
+  "tensor"), each batch split over "data" (`shard_batch`), and at each
+  optimizer step the gradients are averaged over "data" before the
+  clipping. The model is not wrapped (no ``DistributedDataParallel``), so
+  its ``state_dict()`` keys stay the JAX package's. After the backward,
+  ``loss`` is the mean of the ranks' losses, the loss of the whole batch.
 """
 
 from __future__ import annotations
@@ -29,9 +37,12 @@ from functools import cached_property, wraps
 from typing import Any, Callable, Generic, Iterable, TypeVar
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from refiners_tpu_torch.fluxion import layers as fl
 from refiners_tpu_torch.fluxion.utils import str_to_dtype
+from refiners_tpu_torch.parallel.sharding import is_split, local, sum_over_shards
 from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
 from refiners_tpu_torch.training_utils.clock import ClockConfig, TrainingClock
 from refiners_tpu_torch.training_utils.common import (
@@ -70,6 +81,12 @@ def register_model():
         def wrapper(self: "Trainer[BaseConfig, Any]", config: ModelConfigT) -> fl.Module:
             name = func.__name__
             model = func(self, config).to(device=self.device, dtype=self.dtype)
+            if (mesh := self.mesh) is not None:
+                from refiners_tpu_torch.parallel import ATTENTION_TP_RULES, shard_module
+
+                mesh_config = self.config.training.mesh
+                rules = ATTENTION_TP_RULES if (mesh_config and mesh_config.tensor_parallel_rules) else []
+                shard_module(model, mesh, rules)
             trainable = config.requires_grad if config.requires_grad is not None else True
             model.requires_grad_(trainable)
             numel = sum(p.numel() for p in model.parameters())
@@ -96,6 +113,38 @@ def register_callback():
         return wrapper  # type: ignore[return-value]
 
     return decorator
+
+
+def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """The float32 (float64 for float64 gradients) norm of all the gradients
+    as they are (no float32 copies); the norm of a `DTensor` split over
+    "tensor" is over all its shards."""
+    dtype = torch.float64 if any(g.dtype == torch.float64 for g in grads) else torch.float32
+    norms = torch.stack([torch.linalg.vector_norm(local(g), dtype=dtype) for g in grads])
+    split = [i for i, g in enumerate(grads) if is_split(g)]
+    if split:
+        at = torch.tensor(split, device=norms.device)
+        norms[at] = sum_over_shards(norms[at] ** 2, [grads[i] for i in split]).sqrt()
+    return torch.linalg.vector_norm(norms)
+
+
+_BUCKET_ELEMENTS = 2**25  # gradients averaged over "data" in flat buckets of at most this many elements
+
+
+def _buckets(tensors: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    """The tensors in runs of one dtype and device, each run cut after
+    `_BUCKET_ELEMENTS` elements."""
+    buckets: list[list[torch.Tensor]] = []
+    open_: dict[tuple[torch.dtype, torch.device], tuple[list[torch.Tensor], int]] = {}
+    for t in tensors:
+        key = (t.dtype, t.device)
+        bucket, n = open_.get(key, ([], 0))
+        if not bucket:
+            buckets.append(bucket)
+        bucket.append(t)
+        n += t.numel()
+        open_[key] = (bucket, n) if n < _BUCKET_ELEMENTS else ([], 0)
+    return buckets
 
 
 class Trainer(Generic[ConfigType, Batch], ABC):
@@ -135,6 +184,49 @@ class Trainer(Generic[ConfigType, Batch], ABC):
     @cached_property
     def device(self) -> torch.device:
         return torch.device(self.config.training.device)
+
+    @cached_property
+    def mesh(self) -> Any:
+        """The ("data", "tensor") `DeviceMesh` of ``[training.mesh]`` over the
+        running process group, on the training device's type; None without
+        the section."""
+        config = self.config.training.mesh
+        if config is None:
+            return None
+        from refiners_tpu_torch.parallel import make_mesh
+
+        return make_mesh(data=config.data, tensor=config.tensor, device_type=self.device.type)
+
+    def shard_batch(self, batch: Any) -> Any:
+        """This rank's rows of every tensor of `batch` (nested in dicts,
+        lists and tuples) whose leading axis divides the mesh's "data" size;
+        the rest whole. The batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        from refiners_tpu_torch.parallel import shard_inputs
+
+        if isinstance(batch, torch.Tensor):
+            return shard_inputs(self.mesh, batch)[0] if batch.ndim >= 1 else batch
+        if isinstance(batch, dict):
+            return type(batch)((k, self.shard_batch(v)) for k, v in batch.items())
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self.shard_batch(v) for v in batch)
+        return batch
+
+    def _average_over_data(self, tensors: list[torch.Tensor]) -> None:
+        """Average the tensors (a `DTensor`'s local shard) over the mesh's
+        "data" axis, in place: flattened into buckets (`_buckets`), one
+        all-reduce a bucket; nothing at a "data" size of 1."""
+        group = self.mesh.get_group("data")
+        size = dist.get_world_size(group)
+        if size == 1:
+            return
+        for bucket in _buckets([local(t) for t in tensors]):
+            flat = _flatten_dense_tensors(bucket)
+            dist.all_reduce(flat, group=group)
+            flat.div_(size)
+            for t, average in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+                t.copy_(average)
 
     @property
     def trainable_models(self) -> dict[str, fl.Module]:
@@ -209,6 +301,9 @@ class Trainer(Generic[ConfigType, Batch], ABC):
         assert self.loss is not None, "backward() needs the loss of step()"
         accum = self.config.training.gradient_accumulation.number
         (self.loss / accum).backward()
+        if self.mesh is not None:
+            self.loss = self.loss.detach().clone()
+            self._average_over_data([self.loss])
         self._call_callbacks(event_name="on_backward_end")
 
         if self.clock.is_optimizer_step:
@@ -217,12 +312,15 @@ class Trainer(Generic[ConfigType, Batch], ABC):
             for p in params:  # an unused parameter has a zero gradient, as in the JAX package
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            # float32 norms of the gradients as they are (no float32 copies)
-            norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32) for p in params]
-            total_norm = torch.linalg.vector_norm(torch.stack(norms))
+            if self.mesh is not None:
+                with torch.no_grad():
+                    self._average_over_data([p.grad for p in params])
+            total_norm = _global_norm([p.grad for p in params])
             max_norm = self.config.training.gradient_clipping_max_norm
-            if max_norm:  # None or 0: no clipping, as in the JAX package
-                torch.nn.utils.clip_grads_with_norm_(params, max_norm, total_norm)
+            if max_norm:  # None or 0: no clipping, as in the JAX package (and torch's clip_grads_with_norm_)
+                scale = torch.clamp(max_norm / (total_norm + 1e-6), max=1.0)
+                with torch.no_grad():
+                    torch._foreach_mul_([local(p.grad) for p in params], scale)
             self.grad_norm = float(total_norm)
 
             for item in self.models.values():
@@ -260,7 +358,7 @@ class Trainer(Generic[ConfigType, Batch], ABC):
     def step(self, batch: Batch) -> None:
         """Single training step."""
         self._call_callbacks(event_name="on_compute_loss_begin")
-        self.loss = self.compute_loss(batch)
+        self.loss = self.compute_loss(self.shard_batch(batch))
         self._call_callbacks(event_name="on_compute_loss_end")
         self.backward()
 

@@ -1,14 +1,16 @@
 """Weights & Biases logging callback; counterpart of
 ``refiners_tpu/training_utils/wandb.py``: the same config, the same keys
 logged at the same events and clock steps. ``wandb`` is imported when the
-callback is built, never at module import."""
+callback is built, never at module import. Under ``[training.mesh]`` every
+rank runs the Trainer; the first rank of the process group alone starts a
+run and logs."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import TYPE_CHECKING, Any
 
-from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
+from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig, first_rank
 
 if TYPE_CHECKING:
     from refiners_tpu_torch.training_utils.trainer import Trainer
@@ -28,9 +30,14 @@ class WandbConfig(CallbackConfig):
 
 class WandbCallback(Callback["Trainer[Any, Any]"]):
     def __init__(self, config: WandbConfig) -> None:
+        self.config = config
+        self.epoch_losses: list[float] = []
+        self.iteration_losses: list[float] = []
+        self.run: Any = None
+        if not first_rank():
+            return
         import wandb  # type: ignore
 
-        self.config = config
         self.run = wandb.init(
             mode=config.mode,
             project=config.project,
@@ -40,11 +47,10 @@ class WandbCallback(Callback["Trainer[Any, Any]"]):
             group=config.group,
             notes=config.notes,
         )
-        self.epoch_losses: list[float] = []
-        self.iteration_losses: list[float] = []
 
     def log(self, data: dict[str, Any], step: int) -> None:
-        self.run.log(data, step=step)
+        if self.run is not None:
+            self.run.log(data, step=step)
 
     def on_compute_loss_end(self, trainer: "Trainer[Any, Any]") -> None:
         assert trainer.loss is not None
@@ -71,7 +77,8 @@ class WandbCallback(Callback["Trainer[Any, Any]"]):
         self.epoch_losses = []
 
     def on_train_end(self, trainer: "Trainer[Any, Any]") -> None:
-        self.run.finish()
+        if self.run is not None:
+            self.run.finish()
 
 
 class WandbMixin:
