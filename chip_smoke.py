@@ -297,7 +297,7 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    into ``converted_torch/`` and loaded with strict=True, bit-equal. The
    seconds and bytes of each conversion are printed; the files deleted.
 
-14. The mesh (``refiners_tpu_torch.parallel``), run last: (a) a world of 1
+14. The mesh (``refiners_tpu_torch.parallel``): (a) a world of 1
    on NCCL (a file store in a temporary directory, rank 0): phase 3's SDXL
    rebuilt from its seeds and served through ``TextToImage(sd,
    mesh=make_mesh(), size=(1024, 1024))`` for phase 3's first two prompts
@@ -313,12 +313,38 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    bf16 plain route's distance from the float32 plain version (computed
    here, in one process, with the single-process kernel route's launches),
    and 70 K1 launches a rank and call (half the rows, or half the heads).
+15. The root examples, the mesh's lifted refusals and the new facades, run
+   last (phase 7's model kept until (a)): (a) ``examples.txt2img`` (SD1.5)
+   and ``examples.controlnet_lora`` (a "canny" ControlNet at 0.8, one LoRA
+   at 0.7, a world of 1 on NCCL that the example starts and ends) through
+   their ``main`` at full width, 30 DDIM steps at 512², bf16, from
+   refiners-layout files of phase 7's weights, a seeded ControlNet and a
+   rank-32 LoRA written under ``build/root_examples/`` (deleted after):
+   exactly 301 and 421 K1 launches a request (10 a UNet call, 4 more with
+   the ControlNet, 1 at the VAE), each image at PSNR ≥ 35 dB (or 0 pixels
+   off) against the same request served in-process on phase 7's model with
+   DDIM; seconds of each ``main`` (model built, files loaded, one request)
+   and of the in-process request, peak memory. (b) Two processes on the
+   one card over gloo, each building the full-width SD1.5 UNet from one
+   seed (bf16): at (data, tensor) = (2, 1) one StyleAligned (0.8) and one
+   reference-only (style_cfg 0.5) CFG UNet call through ``predict_noise``
+   at 512², batch 4 (two CFG halves of two; each rank one half); then
+   placed at (1, 2), SAG (0.75) entered after the split, one call (its
+   middle-block attention put back whole at the first step, one warning);
+   each rank's prediction within twice the bf16 plain route's distance from
+   the float32 plain version (computed here, in one process; SAG's routes
+   all take the float32 route's mask, as phase 9's), and 10, 30 and 20 K1
+   launches a rank and call. (c) ``CLIPTextEncoderH()`` with no device on
+   the card, one bf16 forward (1, 77, 1024), finite; a bf16
+   ``DoubleTextEncoder`` and its ``structural_copy()``: bit-equal
+   embeddings on shared weights.
 
 The last lines are a JSON summary of the kernels (launches counted over
-phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12, 13 and 14a's runs, each
-with the counts set to 0 just before it; K1's over phases 3, 4c, 7b, 8b,
-9b, 10, 11, 12a, 13 and 14a, by path, K2's and K4's over 4b, 4c and 14a),
-the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
+phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12, 13, 14a, 15a and 15b's
+runs, each with the counts set to 0 just before it; K1's over phases 3,
+4c, 7b, 8b, 9b, 10, 11, 12a, 13, 14a, 15a and 15b's ranks, by path, K2's
+and K4's over 4b, 4c and 14a), the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4206,6 +4232,369 @@ def run_mesh(dev: torch.device, bf16_images: list[np.ndarray]) -> tuple[dict[str
     return report, serve_launches, train_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the root examples, the mesh's lifted refusals, the new facades
+# ---------------------------------------------------------------------------
+
+EXAMPLE_STEPS = 30
+EXAMPLE_SEED = 151
+EXAMPLE_PSNR = 35.0  # the bf16 envelope of phase 7's num_images=2 gate
+# a request: 10 K1 sites a UNet call, 30 DDIM steps, the VAE decoder's mid-block; the ControlNet adds its 4
+# self-attentions at ≥ 1024 tokens (2 at 64² latents, 2 at 32²) a call, as phase 8's 421
+EXAMPLE_LAUNCHES = {"txt2img": SD15_LAUNCHES_PER_STEP * EXAMPLE_STEPS + 1,
+                    "controlnet_lora": (SD15_LAUNCHES_PER_STEP + 4) * EXAMPLE_STEPS + 1}  # fmt: skip
+COUPLED_SEED = 11  # 15b's SD1.5 UNet: phase 7's weight seed, drawn on the UNet alone
+# K1 launches a rank and call: each rank's rows (2 of the CFG batch of 4) through the 10 sites at ≥ 1024
+# tokens; reference-only runs them thrice (the guide pass, the guided and the unguided self-attention);
+# SAG twice (the CFG call and its batch-1 call on the degraded latents), each on half the heads
+COUPLED_LAUNCHES = {"style_aligned": 10, "reference_only": 30, "sag": 20}
+COUPLED_SAG_SCALE = 0.75
+
+
+def run_root_examples(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 15a: `examples.txt2img` (SD1.5) and `examples.controlnet_lora`
+    (one LoRA) through their `main`, from refiners-layout files of phase 7's
+    weights, a seeded canny ControlNet and a LoRA written under
+    ``build/root_examples/`` (deleted after); each against the same request
+    served here on phase 7's model with DDIM. Returns the report and the
+    examples' K1 launches."""
+    import shutil
+    from pathlib import Path
+
+    from refiners_tpu_torch.examples import controlnet_lora, txt2img
+    from refiners_tpu_torch.fluxion.utils import image_to_tensor, load_from_safetensors, save_to_safetensors, synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, Controlnet, SD1ControlnetAdapter, SDLoraManager
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    folder = Path(__file__).resolve().parent / "build" / "root_examples"
+    folder.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for attr, stem in txt2img.STEMS["sd15"].items():
+        save_to_safetensors(folder / f"{stem}.safetensors", getattr(sd, attr).state_dict())
+    controlnet = Controlnet(name="canny", device=dev, dtype=BF16, base_channels=sd.unet.base_channels)
+    synthesize_weights(controlnet, seed=EXAMPLE_SEED)
+    save_to_safetensors(folder / "controlnet.sd15.canny.safetensors", controlnet.state_dict())
+    del controlnet
+    save_to_safetensors(folder / "lora.safetensors", _lora_weights(sd, EXAMPLE_SEED + 1, dev))
+    condition = (np.random.RandomState(EXAMPLE_SEED + 2).rand(SD15_SIZE, SD15_SIZE, 3) * 255).astype(np.uint8)
+    Image.fromarray(condition).save(folder / "canny.png")
+    written = sum(f.stat().st_size for f in folder.iterdir())
+    print(f"examples: {written / 2**30:.2f} GiB of refiners-layout files written in {time.perf_counter() - t0:.2f} s")
+
+    prompt, negative = PROMPTS[0]
+    common = ["--prompt", prompt, "--weights-dir", str(folder), "--steps", str(EXAMPLE_STEPS), "--seed", str(EXAMPLE_SEED)]
+
+    def in_process_controlnet_lora() -> Any:
+        manager = SDLoraManager(sd)
+        manager.add_loras("style", tensors=load_from_safetensors(folder / "lora.safetensors"), scale=0.7)
+        weights = load_from_safetensors(folder / "controlnet.sd15.canny.safetensors")
+        adapter = SD1ControlnetAdapter(sd.unet, name="canny", scale=0.8, weights=weights).inject()
+        cond = image_to_tensor(Image.open(folder / "canny.png").convert("RGB"), device=dev)
+        adapter.set_controlnet_condition(torch.cat([cond, cond]))
+        try:
+            return TextToImage(sd, size=(SD15_SIZE, SD15_SIZE), condition_scale=7.5)(
+                prompt, negative_prompt="low quality", seed=EXAMPLE_SEED
+            )
+        finally:
+            adapter.eject()
+            manager.remove_loras("style")
+
+    runs = {
+        "txt2img": (
+            lambda: txt2img.main(["--model", "sd15", "--negative", negative, "--size", str(SD15_SIZE),
+                                  "--out", str(folder / "txt2img.png"), *common]),
+            lambda: TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))(prompt, negative_prompt=negative, seed=EXAMPLE_SEED),
+        ),
+        "controlnet_lora": (
+            lambda: controlnet_lora.main(["--condition", str(folder / "canny.png"), "--lora", str(folder / "lora.safetensors"),
+                                          "--out", str(folder / "controlnet_lora.png"), *common]),
+            in_process_controlnet_lora,
+        ),
+    }  # fmt: skip
+    dpm = sd.solver
+    sd.solver = DDIM(num_inference_steps=EXAMPLE_STEPS, device=dev)
+    report: dict[str, Any] = {}
+    launches = 0
+    for name, (example, in_process) in runs.items():
+        timed: dict[str, tuple[float, int, int, np.ndarray]] = {}
+        for label, fn in (("example", example), ("in-process", in_process)):
+            _free()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            image = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            timed[label] = (seconds, read_launches()["flash_attention_packed"], torch.cuda.max_memory_allocated(dev),
+                            np.asarray(image))  # fmt: skip
+        (seconds, launched, peak, image), (ref_seconds, ref_launched, ref_peak, ref) = timed["example"], timed["in-process"]
+        off, psnr = int((image != ref).any(axis=-1).sum()), _psnr(image, ref)
+        want = EXAMPLE_LAUNCHES[name]
+        print(f"examples.{name}: main {seconds:.3f} s (model built, files loaded, one request), peak memory "
+              f"{peak / 2**30:.2f} GiB, K1 launches {launched}; the request in-process on phase 7's model "
+              f"{ref_seconds:.3f} s, {ref_peak / 2**30:.2f} GiB, {ref_launched} launches; image {image.shape}, "
+              f"{off} pixels off, PSNR {psnr:.2f} dB")  # fmt: skip
+        if launched != want or ref_launched != want:
+            raise AssertionError(f"examples.{name} launched K1 {launched} times (in-process {ref_launched}), not {want}")
+        if image.shape != (SD15_SIZE, SD15_SIZE, 3) or np.ptp(image) == 0 or not psnr >= EXAMPLE_PSNR:
+            raise AssertionError(f"examples.{name}: image {image.shape}, PSNR {psnr} against the in-process request")
+        report[name] = {"seconds": seconds, "peak_memory_bytes": peak, "launches": launched, "pixels_off": off,
+                        "psnr": psnr, "in_process_seconds": ref_seconds, "in_process_peak_memory_bytes": ref_peak}  # fmt: skip
+        launches += launched
+    sd.solver = dpm
+    shutil.rmtree(folder)
+    _free()
+    return report, {"flash_attention_packed": launches}
+
+
+def _coupled_sd(unet: Any, dev: torch.device) -> Any:
+    """An SD1.5 around `unet` with stand-ins for the VAE and the text encoder
+    (15b calls the UNet alone, through `predict_noise`)."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.foundationals.latent_diffusion import DDIM, StableDiffusion_1
+
+    return StableDiffusion_1(unet=unet, lda=fl.Chain(fl.Identity()), clip_text_encoder=fl.Chain(fl.Identity()),
+                             solver=DDIM(num_inference_steps=30, device=dev), device=dev)  # fmt: skip
+
+
+def _coupled_unet(dev: torch.device) -> Any:
+    """15b's full-width SD1.5 UNet: float32 weights from `COUPLED_SEED` (the same on every process)."""
+    from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.latent_diffusion import SD1UNet
+
+    manual_seed(COUPLED_SEED)
+    unet = SD1UNet(in_channels=4, device=dev)
+    synthesize_weights(unet, seed=COUPLED_SEED)
+    return unet
+
+
+def _coupled_inputs(dev: torch.device) -> dict[str, torch.Tensor]:
+    """Seeded inputs at 512²: two images' latents and a CFG batch of 4 text
+    embeddings (two CFG halves of two), the guide's noised latents for that
+    batch; one image's latents and a CFG pair for SAG."""
+    gen = torch.Generator(dev).manual_seed(15)
+    return {
+        "x": torch.randn((2, 4, 64, 64), generator=gen, device=dev),
+        "clip_text_embedding": torch.randn((4, 77, 768), generator=gen, device=dev),
+        "guide": torch.randn((4, 4, 64, 64), generator=gen, device=dev),
+        "x_sag": torch.randn((1, 4, 64, 64), generator=gen, device=dev),
+        "clip_text_embedding_sag": torch.randn((2, 77, 768), generator=gen, device=dev),
+    }
+
+
+def _coupled_inject(sd: Any, name: str) -> Any:
+    from refiners_tpu_torch.foundationals.latent_diffusion import ReferenceOnlyControlAdapter, StyleAlignedAdapter
+
+    if name == "style_aligned":
+        return StyleAlignedAdapter(sd.unet, scale=0.8).inject()
+    if name == "reference_only":
+        return ReferenceOnlyControlAdapter(sd.unet, style_cfg=0.5).inject()
+    sd.set_self_attention_guidance(True, scale=COUPLED_SAG_SCALE)
+    return sd._find_sag_adapter()
+
+
+def _coupled_predict(sd: Any, name: str, adapter: Any, inputs: dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    suffix = "_sag" if name == "sag" else ""
+    if name == "reference_only":
+        adapter.set_controlnet_condition(inputs["guide"])  # in the UNet's dtype
+    with torch.inference_mode():
+        return sd.predict_noise(inputs[f"x{suffix}"].to(dtype), 0, condition_scale=7.5,
+                                clip_text_embedding=inputs[f"clip_text_embedding{suffix}"].to(dtype)).float()  # fmt: skip
+
+
+def _given_mask(sag: Any, mask: torch.Tensor | None, flips: list[int]) -> dict[str, torch.Tensor]:
+    """Route SAG through one mask (the float32 route's, as phase 9 gates it):
+    `mask`, or the first one SAG computes; the pixels its own mask would flip
+    are appended to `flips`."""
+    own = sag.compute_sag_mask
+    given = {} if mask is None else {"mask": mask}
+
+    def use(latents: torch.Tensor, classifier_free_guidance: bool = True) -> torch.Tensor:
+        computed = own(latents, classifier_free_guidance)
+        fixed = given.setdefault("mask", computed.float())
+        flips.append(int((computed[:, 0].float() != fixed[:, 0]).sum()))
+        return fixed.to(computed.dtype)
+
+    sag.compute_sag_mask = use
+    return given
+
+
+def _coupled_rank(rank: int, world: int, store: str, out: str, device: str) -> None:
+    """One of 15b's two processes on the one card (gloo): StyleAligned and
+    reference-only calls at (data, tensor) = (2, 1), then SAG entered after
+    a (1, 2) placement; outputs, K1 launches and seconds saved."""
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    import datetime
+    import logging
+
+    import torch.distributed as dist
+
+    from refiners_tpu_torch.parallel import init_process_group, make_mesh, shard_latent_diffusion
+
+    init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                       timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))  # fmt: skip
+    inputs = _coupled_inputs(dev)
+    sd = _coupled_sd(_coupled_unet(dev).to(dtype=BF16), dev)
+    results: dict[str, Any] = {}
+
+    def call(name: str, adapter: Any) -> None:
+        _coupled_predict(sd, name, adapter, inputs, BF16)  # warm: the first step's check
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        noise = _coupled_predict(sd, name, adapter, inputs, BF16)
+        torch.cuda.synchronize()
+        results[name] = {"noise": noise.cpu(), "launches": read_launches()["flash_attention_packed"],
+                         "seconds": time.perf_counter() - start}  # fmt: skip
+
+    start = time.perf_counter()
+    shard_latent_diffusion(sd, make_mesh(data=2, tensor=1, device_type=dev.type))
+    torch.cuda.synchronize()
+    placed = {"2x1": time.perf_counter() - start}
+    for name in ("style_aligned", "reference_only"):
+        adapter = _coupled_inject(sd, name)
+        call(name, adapter)
+        adapter.eject()
+    start = time.perf_counter()
+    shard_latent_diffusion(sd, make_mesh(data=1, tensor=2, device_type=dev.type))  # the attentions split over "tensor"
+    torch.cuda.synchronize()
+    placed["1x2"] = time.perf_counter() - start
+    flips: list[int] = []
+    records: list[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())  # type: ignore[method-assign]
+    logging.getLogger("refiners_tpu_torch.parallel.inference").addHandler(handler)
+    sag = _coupled_inject(sd, "sag")  # after the split: the first step's check puts its attention back whole
+    _given_mask(sag, torch.load(f"{out}.mask").to(dev), flips)
+    call("sag", sag)
+    results["sag"].update(flips=flips, warnings=records)
+    results["placement_seconds"] = placed
+    torch.save(results, f"{out}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_coupled_mesh(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
+    """Phase 15b: the mesh's lifted refusals on the card. References here, in
+    one process (float32 plain, bf16 plain, bf16 kernels, each adapter
+    injected on a full-width SD1.5 UNet); then two processes on the one
+    card over gloo, each rank's prediction gated against float32 at twice
+    the bf16 plain route's distance. Returns the report and the ranks' K1
+    launches of the gated calls."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.multiprocessing as mp
+
+    import refiners_tpu_torch.fluxion.layers as fl
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_coupled_"))
+    out = store / "ranks"
+    inputs = _coupled_inputs(dev)
+    sd = _coupled_sd(_coupled_unet(dev), dev)
+    references: dict[str, dict[str, Any]] = {}
+    for name in ("style_aligned", "reference_only", "sag"):
+        adapter = _coupled_inject(sd, name)
+        flips: list[int] = []
+        mask = _given_mask(adapter, None, flips) if name == "sag" else {}
+        sdpa = list(sd.unet.layers(fl.ScaledDotProductAttention, recurse=True))
+        routes: dict[str, torch.Tensor] = {}
+        for label, dtype, kernel in (("float32 plain", F32, False), ("bf16 plain", BF16, False), ("bf16 kernels", BF16, True)):
+            for layer in sdpa:
+                layer.is_optimized = kernel
+            sd.unet.to(dtype=dtype)
+            reset_launches()
+            routes[label] = _coupled_predict(sd, name, adapter, inputs, dtype)
+            launched = read_launches()["flash_attention_packed"]
+            if launched != (COUPLED_LAUNCHES[name] if kernel else 0):
+                raise AssertionError(f"15b {name}: the single-process {label} route launched K1 {launched} times")
+        sd.unet.to(dtype=F32)
+        if name == "sag":
+            torch.save(mask["mask"].cpu(), f"{out}.mask")
+            sd.set_self_attention_guidance(False)
+        else:
+            adapter.eject()
+        reference = routes["float32 plain"]
+        references[name] = {"reference": reference, "bf16_plain": _rel(routes["bf16 plain"], reference),
+                            "bf16_kernels": _rel(routes["bf16 kernels"], reference), "flips": flips[1:]}  # fmt: skip
+    del sd, routes, adapter
+    _free()
+    start = time.perf_counter()
+    mp.start_processes(_coupled_rank, args=(2, str(store / "gloo"), str(out), dev.type), nprocs=2, start_method="spawn")
+    ranks_seconds = time.perf_counter() - start
+    report: dict[str, Any] = {"ranks_seconds": ranks_seconds}
+    launches = 0
+    for rank in range(2):
+        results = torch.load(f"{out}.{rank}")
+        print(f"15b rank {rank}: placements (2, 1) {results['placement_seconds']['2x1']:.1f} s, (1, 2) "
+              f"{results['placement_seconds']['1x2']:.1f} s")  # fmt: skip
+        for name, ref in references.items():
+            r = results[name]
+            err = _rel(r["noise"].to(dev), ref["reference"])
+            mesh = "(1, 2), SAG entered after the split" if name == "sag" else "(2, 1)"
+            extra = (f"; the float32 route's mask, which the rank's own would flip in {r['flips']} pixels (the "
+                     f"bf16 routes' own in {ref['flips']}); warnings {r['warnings']}") if name == "sag" else ""
+            print(f"15b {name} rank {rank} at {mesh} (gloo, two ranks on one card): rel_err={err:.3e} against float32 "
+                  f"(bf16 plain {ref['bf16_plain']:.3e}, bf16 kernels in one process {ref['bf16_kernels']:.3e}), "
+                  f"K1 launches {r['launches']}, {r['seconds']:.3f} s a call{extra}")  # fmt: skip
+            if not (torch.isfinite(r["noise"]).all() and err <= 2 * ref["bf16_plain"]):
+                raise AssertionError(f"15b {name} rank {rank}: {err} > 2 × {ref['bf16_plain']}")
+            if r["launches"] != COUPLED_LAUNCHES[name]:
+                raise AssertionError(f"15b {name} rank {rank} launched K1 {r['launches']} times, not {COUPLED_LAUNCHES[name]}")
+            if name == "sag" and not (len(r["warnings"]) == 1 and "MiddleBlock" in r["warnings"][0]):
+                raise AssertionError(f"15b rank {rank}: SAG entered after the split put back {r['warnings']}")
+            launches += r["launches"]
+            report[f"{name} rank {rank}"] = {"rel_err": err, "bf16_plain": ref["bf16_plain"], "launches": r["launches"],
+                                             "seconds": r["seconds"]}  # fmt: skip
+        report[f"placement_seconds rank {rank}"] = results["placement_seconds"]
+    print(f"15b: two ranks spawned, built, placed and ran the three calls in {ranks_seconds:.1f} s")
+    shutil.rmtree(store, ignore_errors=True)
+    _free()
+    return report, {"flash_attention_packed": launches}
+
+
+def check_new_facades(dev: torch.device) -> dict[str, Any]:
+    """Phase 15c: `CLIPTextEncoderH()` with no device builds on the card; one
+    bf16 forward; a `DoubleTextEncoder` (bf16, synthesized weights) and its
+    `structural_copy()` give bit-equal embeddings on shared weights."""
+    from refiners_tpu_torch.fluxion.utils import synthesize_weights
+    from refiners_tpu_torch.foundationals.clip import CLIPTextEncoderH
+    from refiners_tpu_torch.foundationals.latent_diffusion import DoubleTextEncoder
+
+    encoder = CLIPTextEncoderH()
+    if encoder.device is None or encoder.device.type != dev.type:
+        raise AssertionError(f"CLIPTextEncoderH() built on {encoder.device}, not on {dev.type}")
+    encoder.to(dtype=BF16)
+    synthesize_weights(encoder, seed=16)
+    with torch.inference_mode():
+        out = encoder(PROMPTS[0][0])
+    print(f"15c CLIPTextEncoderH(): {encoder.param_count()} parameters on {encoder.device}, bf16 forward {tuple(out.shape)} "
+          f"{out.dtype}, finite {bool(torch.isfinite(out).all())}")  # fmt: skip
+    if tuple(out.shape) != (1, 77, 1024) or not torch.isfinite(out).all():
+        raise AssertionError(f"CLIPTextEncoderH: {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    del encoder, out
+    double = DoubleTextEncoder(device=dev, dtype=BF16)
+    synthesize_weights(double, seed=17)
+    copy = double.structural_copy()
+    with torch.inference_mode():
+        emb, pooled = double(list(PROMPTS[1]))
+        emb_copy, pooled_copy = copy(list(PROMPTS[1]))
+    shared = all(copy.state_dict()[k].data_ptr() == v.data_ptr() for k, v in double.state_dict().items())
+    equal = torch.equal(emb, emb_copy) and torch.equal(pooled, pooled_copy)
+    print(f"15c DoubleTextEncoder.structural_copy(): embeddings {tuple(emb.shape)} and pooled {tuple(pooled.shape)} "
+          f"bit-equal {equal}, weights shared {shared}")  # fmt: skip
+    if not (equal and shared and torch.isfinite(emb).all()):
+        raise AssertionError(f"DoubleTextEncoder.structural_copy(): bit-equal {equal}, shared {shared}")
+    del double, copy
+    _free()
+    return {"clip_h_shape": [1, 77, 1024], "structural_copy_bit_equal": equal, "weights_shared": shared}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
@@ -4308,7 +4697,6 @@ def main() -> int:
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
     slice_report, slice_launches = run_sd15_slice(dev, sd15)
     conversion_report, conversion_launches = run_sd15_conversion(dev, sd15)
-    del sd15
     _free()
     sdxl_zoo_report, sdxl_zoo_launches = run_sdxl_zoo(dev, build_sdxl(dev))
     _free()
@@ -4316,6 +4704,13 @@ def main() -> int:
     fd_report = run_frechet_distance(dev)
     box_report = run_box_segmenter(dev)
     mesh_report, mesh_launches, mesh_train_launches = run_mesh(dev, bf16_images)
+    phase15 = time.perf_counter()
+    examples_report, examples_launches = run_root_examples(dev, sd15)
+    del sd15
+    _free()
+    coupled_report, coupled_launches = run_coupled_mesh(dev)
+    facades_report = check_new_facades(dev)
+    print(f"phase 15: {time.perf_counter() - phase15:.1f} s")
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -4359,7 +4754,9 @@ def main() -> int:
                    "dinov2": dinov2_launches["flash_attention_packed"],
                    "vae_train": vae_launches["flash_attention_packed"],
                    "conversion": conversion_launches["flash_attention_packed"],
-                   "mesh": mesh_launches["flash_attention_packed"]}  # fmt: skip
+                   "mesh": mesh_launches["flash_attention_packed"],
+                   "examples": examples_launches["flash_attention_packed"],
+                   "mesh_coupled (15b's ranks)": coupled_launches["flash_attention_packed"]}  # fmt: skip
     # K2's, K4a's and K4b's two sites on the training path, 5 launches each per step
     train_keys = ("bound_ms", "bound_by", "library_ms", "library_device_ms", "device_ms", "backward_ms",
                   "backward_device_ms")  # fmt: skip
@@ -4451,6 +4848,9 @@ def main() -> int:
         "dinov2_frechet_distance": fd_report,
         "box_segmenter": box_report,
         "mesh": mesh_report,
+        "examples": examples_report,
+        "mesh_coupled": coupled_report,
+        "new_facades": facades_report,
     }
     print(json.dumps(summary))
     print(smi)

@@ -1,3 +1,17 @@
-from refiners_tpu_torch.fluxion.rng import manual_seed
+from refiners_tpu_torch.fluxion.utils import (
+    load_from_safetensors,
+    manual_seed,
+    no_grad,
+    norm,
+    pad,
+    save_to_safetensors,
+)
 
-__all__ = ["manual_seed"]
+__all__ = [
+    "load_from_safetensors",
+    "manual_seed",
+    "no_grad",
+    "norm",
+    "pad",
+    "save_to_safetensors",
+]

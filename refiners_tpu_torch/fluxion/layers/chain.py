@@ -180,6 +180,15 @@ class Chain(ContextModule):
     def __contains__(self, item: Module) -> bool:
         return any(m is item for m in self)
 
+    def keys(self) -> Iterator[str]:
+        return iter(self._modules.keys())
+
+    def values(self) -> Iterator[Module]:
+        return iter(self._modules.values())
+
+    def items(self) -> Iterator[tuple[str, Module]]:
+        return iter(self._modules.items())
+
     # -- tree traversal -----------------------------------------------------
 
     def walk(

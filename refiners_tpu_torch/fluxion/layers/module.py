@@ -49,6 +49,10 @@ class Module(torch.nn.Module):
             return p.device
         return None
 
+    def param_count(self) -> int:
+        """The number of elements over `parameters()`."""
+        return sum(p.numel() for p in self.parameters())
+
     # -- safetensors --------------------------------------------------------
 
     def load_from_safetensors(self: T, path: Any, strict: bool = True) -> T:
@@ -82,6 +86,9 @@ class Module(torch.nn.Module):
                 continue
             out[k] = v
         return out
+
+    def pretty_print(self, depth: int = -1) -> None:
+        print(ModuleTree(module=self).generate(depth=depth))
 
     def __repr__(self) -> str:
         attrs = ", ".join(f"{k}={v}" for k, v in self.basic_attributes(init_attrs_only=True).items())

@@ -7,6 +7,7 @@ from refiners_tpu_torch.foundationals.clip.image_encoder import (
 from refiners_tpu_torch.foundationals.clip.text_encoder import (
     CLIPTextEncoder,
     CLIPTextEncoderG,
+    CLIPTextEncoderH,
     CLIPTextEncoderL,
 )
 from refiners_tpu_torch.foundationals.clip.tokenizer import CLIPTokenizer
@@ -18,6 +19,7 @@ __all__ = [
     "CLIPImageEncoderH",
     "CLIPTextEncoder",
     "CLIPTextEncoderG",
+    "CLIPTextEncoderH",
     "CLIPTextEncoderL",
     "CLIPTokenizer",
 ]

@@ -20,6 +20,11 @@ class PositionalEncoder(fl.Chain):
             fl.Embedding(num_embeddings=max_sequence_length, embedding_dim=embedding_dim, device=device, dtype=dtype),
         )
 
+    @property
+    def position_ids(self) -> torch.Tensor:
+        """(1, max_sequence_length) position ids on the encoder's device."""
+        return torch.arange(self.max_sequence_length, device=self.device).reshape(1, -1)
+
     def get_position_ids(self, x: torch.Tensor) -> torch.Tensor:
         return torch.arange(x.shape[1], device=x.device).reshape(1, -1)
 

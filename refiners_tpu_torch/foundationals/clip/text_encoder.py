@@ -1,4 +1,4 @@
-"""CLIP text encoders (L / G); counterpart of
+"""CLIP text encoders (L / H / G); counterpart of
 ``refiners_tpu/foundationals/clip/text_encoder.py``. Same declarative
 structure, so the tree paths and weight keys are the JAX package's."""
 
@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Any
 
 import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.clip.common import FeedForward, PositionalEncoder
 from refiners_tpu_torch.foundationals.clip.tokenizer import CLIPTokenizer
 
@@ -110,6 +111,21 @@ class CLIPTextEncoderL(CLIPTextEncoder):
             feedforward_dim=3072,
             use_quick_gelu=True,
             device=device,
+            dtype=dtype,
+        )
+
+
+class CLIPTextEncoderH(CLIPTextEncoder):
+    """CLIP-H: 1024-dim, 23 layers, plain GeLU. A facade: it builds on the
+    card unless given a device."""
+
+    def __init__(self, device: Any = None, dtype: Any = None) -> None:
+        super().__init__(
+            embedding_dim=1024,
+            num_layers=23,
+            num_attention_heads=16,
+            feedforward_dim=4096,
+            device=default_device(device),
             dtype=dtype,
         )
 

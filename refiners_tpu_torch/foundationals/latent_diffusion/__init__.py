@@ -1,3 +1,4 @@
+from refiners_tpu_torch.foundationals.clip.text_encoder import CLIPTextEncoderL
 from refiners_tpu_torch.foundationals.latent_diffusion.auto_encoder import LatentDiffusionAutoencoder
 from refiners_tpu_torch.foundationals.latent_diffusion.ella_adapter import ELLA, ELLAAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.freeu import SDFreeUAdapter
@@ -44,10 +45,11 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl impor
 from refiners_tpu_torch.foundationals.latent_diffusion.style_aligned import StyleAlignedAdapter
 from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import T2IAdapter, T2IFeatures
 
+# `__all__` lists the JAX package's names; `BaseSolverParams`, `Controlnet`,
+# `T2IAdapter` and `T2IFeatures` are importable from here all the same.
 __all__ = [
-    "BaseSolverParams",
+    "CLIPTextEncoderL",
     "ControlLoraAdapter",
-    "Controlnet",
     "DDIM",
     "DDPM",
     "DPMSolver",
@@ -84,7 +86,5 @@ __all__ = [
     "StableDiffusion_1_Inpainting",
     "StableDiffusion_XL",
     "StyleAlignedAdapter",
-    "T2IAdapter",
-    "T2IFeatures",
     "TimestepSpacing",
 ]

@@ -13,6 +13,8 @@ unconditional sample alone; the unconditional output mixes the two by
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
 from refiners_tpu_torch.fluxion.adapters.adapter import Adapter
@@ -46,7 +48,16 @@ def _first_sample(x: torch.Tensor) -> torch.Tensor:
 
 class SelfAttentionInjectionAdapter(Chain, Adapter[SelfAttention]):
     """The guided self-attention (keys and values extended by the guide's
-    saved input) beside the unguided one on the unconditional sample."""
+    saved input) beside the unguided one on the unconditional sample.
+
+    Each row reads only its own row and the guide's, but the mix applies to
+    the batch's first row alone: under a batch split over a mesh's "data"
+    axis, `row_block` holds this rank's rows for the call
+    (`parallel.inference.RowBlock`), and a rank without that row leaves its
+    rows guided."""
+
+    reads_other_rows = True
+    row_block: Any = None
 
     def __init__(self, target: SelfAttention, context: str, style_cfg: float = 0.5) -> None:
         self.context = context
@@ -72,6 +83,8 @@ class SelfAttentionInjectionAdapter(Chain, Adapter[SelfAttention]):
     def compute_averaged_unconditioned_x(self, x: torch.Tensor, unguided_unconditioned_x: torch.Tensor) -> torch.Tensor:
         """`x` with its first (unconditional) sample mixed with the unguided
         one; a new tensor, the inputs stay as they are."""
+        if self.row_block is not None and self.row_block.start > 0:
+            return x
         first = self.style_cfg * x[:1] + (1.0 - self.style_cfg) * unguided_unconditioned_x[:1]
         return torch.cat((first, x[1:]), dim=0)
 

@@ -1,7 +1,8 @@
 """SD1.5 ControlNet (arXiv:2302.05543); counterpart of
 ``refiners_tpu/foundationals/latent_diffusion/stable_diffusion_1/controlnet.py``.
 
-A copy of the UNet's down and middle blocks, always at full width, runs
+A copy of the UNet's down and middle blocks, at the UNet's widths (full
+width, as in the JAX package, unless built for a reduced `SD1UNet`), runs
 before the UNet in the same call. Its condition encoder adds the condition
 image's features after the first convolution, and a 1×1 convolution after
 each of its 13 blocks adds the block's output, scaled, to the UNet's skip
@@ -31,9 +32,9 @@ from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_1.unet i
 
 
 class ConditionEncoder(Chain):
-    """(B, 3, H, W) condition image → (B, 320, H/8, W/8) features."""
+    """(B, 3, H, W) condition image → (B, base_channels, H/8, W/8) features."""
 
-    def __init__(self, device: Any = None, dtype: Any = None) -> None:
+    def __init__(self, device: Any = None, dtype: Any = None, base_channels: int = 320) -> None:
         self.out_channels = (16, 32, 96, 256)
         super().__init__(
             Chain(
@@ -65,13 +66,14 @@ class ConditionEncoder(Chain):
                 )
                 for i in range(len(self.out_channels) - 1)
             ),
-            Conv2d(in_channels=self.out_channels[-1], out_channels=320, kernel_size=3, padding=1, device=device,
-                   dtype=dtype),  # fmt: skip
+            Conv2d(in_channels=self.out_channels[-1], out_channels=base_channels, kernel_size=3, padding=1,
+                   device=device, dtype=dtype),  # fmt: skip
         )
 
 
 class Controlnet(Passthrough):
-    """Half a UNet that adds its scaled block outputs to the UNet's skip residuals."""
+    """Half a UNet that adds its scaled block outputs to the UNet's skip
+    residuals; `base_channels` scales its widths as `SD1UNet`'s."""
 
     scale_decays: list[float]
 
@@ -82,22 +84,25 @@ class Controlnet(Passthrough):
         scale_decay: float = 1.0,
         device: Any = None,
         dtype: Any = None,
+        base_channels: int = 320,
     ) -> None:
         self.name = name
         self.scale = scale
         self._scale_decay = scale_decay
         self.compute_scale_decays()
         super().__init__(
-            TimestepEncoder(context_key=f"timestep_embedding_{name}", device=device, dtype=dtype),
+            TimestepEncoder(
+                context_key=f"timestep_embedding_{name}", device=device, dtype=dtype, base_channels=base_channels
+            ),
             Slicing(dim=1, end=4),  # an inpainting UNet's latents: the first 4 channels
-            DownBlocks(in_channels=4, device=device, dtype=dtype),
-            MiddleBlock(device=device, dtype=dtype),
+            DownBlocks(in_channels=4, device=device, dtype=dtype, base_channels=base_channels),
+            MiddleBlock(device=device, dtype=dtype, base_channels=base_channels),
         )
 
         self.layer(("DownBlocks", 0), Chain).append(
             Residual(
                 UseContext("controlnet", f"condition_{name}"),
-                ConditionEncoder(device=device, dtype=dtype),
+                ConditionEncoder(device=device, dtype=dtype, base_channels=base_channels),
             ),
         )
         for residual_block in self.layers(ResidualBlock):
@@ -105,7 +110,7 @@ class Controlnet(Passthrough):
             RangeAdapter2d(
                 target=chain.layer("Conv2d_1", Conv2d),
                 channels=residual_block.out_channels,
-                embedding_dim=1280,
+                embedding_dim=4 * base_channels,
                 context_key=f"timestep_embedding_{name}",
                 device=device,
                 dtype=dtype,
@@ -122,7 +127,8 @@ class Controlnet(Passthrough):
             )
         self.layer("MiddleBlock", MiddleBlock).append(
             Passthrough(
-                Conv2d(in_channels=1280, out_channels=1280, kernel_size=1, device=device, dtype=dtype),
+                Conv2d(in_channels=4 * base_channels, out_channels=4 * base_channels, kernel_size=1, device=device,
+                       dtype=dtype),  # fmt: skip
                 Lambda(self._store_nth_residual(12)),
             )
         )
@@ -151,8 +157,9 @@ class Controlnet(Passthrough):
 
 class SD1ControlnetAdapter(Chain, Adapter[SD1UNet]):
     """Puts a named `Controlnet` first in the UNet on `inject()`; several,
-    each with its own name, stack. Built on the UNet's device and dtype;
-    `weights` is a state dict of the `Controlnet` in the port's layout."""
+    each with its own name, stack. Built on the UNet's device and dtype, at
+    its widths; `weights` is a state dict of the `Controlnet` in the port's
+    layout."""
 
     def __init__(
         self,
@@ -164,8 +171,9 @@ class SD1ControlnetAdapter(Chain, Adapter[SD1UNet]):
     ) -> None:
         self.name = name
         controlnet = Controlnet(
-            name=name, scale=scale, scale_decay=scale_decay, device=target.device, dtype=target.dtype
-        )
+            name=name, scale=scale, scale_decay=scale_decay, device=target.device, dtype=target.dtype,
+            base_channels=getattr(target, "base_channels", 320),
+        )  # fmt: skip
         if weights is not None:
             controlnet.load_state_dict(weights)
         # a list keeps torch from registering the Controlnet here: `inject` puts it in the UNet

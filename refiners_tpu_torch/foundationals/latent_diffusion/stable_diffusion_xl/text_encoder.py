@@ -83,3 +83,20 @@ class DoubleTextEncoder(fl.Chain):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         text_embedding_g, pooled_text_embedding = text_embedding_with_pooling
         return torch.cat((text_embedding_l, text_embedding_g), dim=-1), pooled_text_embedding
+
+    def structural_copy(self: "DoubleTextEncoder") -> "DoubleTextEncoder":
+        """Copy the chains around the same weights. The pooling adapter is a
+        Chain adapter, which cannot be copied: eject it, copy, put it back,
+        and wrap the copy's CLIP-G in an adapter of its own that shares the
+        projection."""
+        old_tep = self.ensure_find(TextEncoderWithPooling)
+        old_tep.eject()
+        copy = super().structural_copy()
+        old_tep.inject()
+
+        projection = old_tep.layer(("Parallel", "Chain", "Linear"), fl.Linear)
+        parallel = copy.layer("Parallel", fl.Parallel)
+        # CLIP-G is the Parallel's second branch (a reduced one need not be a CLIPTextEncoderG)
+        new_tep = TextEncoderWithPooling(target=parallel[1], projection=projection)
+        new_tep.inject(parallel)
+        return copy

@@ -11,7 +11,7 @@ with 1024 and 2048.
 
 from __future__ import annotations
 
-from typing import Generic, TypeVar
+from typing import Any, Generic, TypeVar
 
 import torch
 
@@ -24,9 +24,26 @@ T = TypeVar("T", bound="SD1UNet | SDXLUNet")
 
 
 class ExtractReferenceFeatures(fl.Module):
-    """The first sample of each CFG half, each repeated over its half."""
+    """The first sample of each CFG half, each repeated over its half.
+
+    Under a batch split over a mesh's "data" axis, `row_block` holds this
+    rank's rows for the call (`parallel.inference.RowBlock`): a rank whose
+    rows are one whole half holds its reference; any other gathers the
+    batch (one all-gather) and keeps its rows of the result."""
+
+    reads_other_rows = True
+    row_block: Any = None
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
+        block = self.row_block
+        if block is None:
+            return self._references(features)
+        if block.rows == block.total // 2:
+            return features[:1].repeat_interleave(block.rows, dim=0)
+        return self._references(block.gather(features)).narrow(0, block.start, block.rows)
+
+    @staticmethod
+    def _references(features: torch.Tensor) -> torch.Tensor:
         batch_size = features.shape[0] // 2
         features_cond, features_uncond = features.chunk(2)
         features_ref = torch.stack((features_cond[0], features_uncond[0]))
@@ -52,13 +69,25 @@ class AdaIN(fl.Module):
 
 
 class ScaleReferenceFeatures(fl.Module):
-    """Scale every sample of each CFG half but its first."""
+    """Scale every sample of each CFG half but its first. Under a batch
+    split, `row_block` says which of this rank's rows those are (as
+    `ExtractReferenceFeatures`)."""
+
+    reads_other_rows = True
+    row_block: Any = None
 
     def __init__(self, scale: float = 1.0) -> None:
         super().__init__()
         self.scale = scale
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
+        block = self.row_block
+        if block is not None:
+            half = block.total // 2
+            return torch.cat([
+                features[i : i + 1] if (block.start + i) % half == 0 else features[i : i + 1] * self.scale
+                for i in range(block.rows)
+            ])  # fmt: skip
         batch_size = features.shape[0] // 2
         stacked = features.reshape(2, batch_size, *features.shape[1:])
         stacked = torch.cat((stacked[:, :1], stacked[:, 1:] * self.scale), dim=1)

@@ -396,11 +396,40 @@ def shard_module(module: fl.Module, mesh: DeviceMesh, rules: list[PartitionRule]
         linear.tensor_group = group
         linear.gather_output = True  # until `_plan` finds a consumer of local features
         linear.input_is_parallel = False
+    # by identity: a structural copy of an attention shares its scaled dot-product attention (reference-only's
+    # guided self-attention), whose heads are split once
+    split_sdpa: dict[int, fl.ScaledDotProductAttention] = {}
     for attention in module.modules():
         if isinstance(attention, fl.Attention) and splits.get(attention.layer("Linear", fl.Linear)) == ROW:
-            attention.layer("ScaledDotProductAttention", fl.ScaledDotProductAttention).num_heads //= size
+            sdpa = attention.layer("ScaledDotProductAttention", fl.ScaledDotProductAttention)
+            split_sdpa[id(sdpa)] = sdpa
+    for sdpa in split_sdpa.values():
+        sdpa.num_heads //= size
     for chain in _outermost_chains(module):
         _plan(chain, splits)
+
+
+def gather_attention(attention: fl.Attention) -> None:
+    """Put a tensor-split attention back whole, in place, as `shard_module`
+    leaves an attention that is not `bare_attention`: each split Linear's
+    weight and bias gathered into a plain replicated parameter (one
+    all-gather per split tensor over its "tensor" group, which every rank of
+    the group makes), the Linear a plain `fl.Linear` again, and the scaled
+    dot-product attention on all the heads."""
+    size = 1
+    for linear in attention.modules():
+        if not isinstance(linear, (ColumnParallelLinear, RowParallelLinear)):
+            continue
+        size = linear.weight.device_mesh.size()
+        # plain tensors even under `torch.inference_mode()`, where the loop checks the UNet
+        with torch.inference_mode(False), torch.no_grad():
+            for name in ("weight", "bias"):
+                p = getattr(linear, name)
+                if p is not None:
+                    setattr(linear, name, torch.nn.Parameter(full(p.detach()), requires_grad=p.requires_grad))
+        linear.__class__ = fl.Linear
+        del linear.tensor_group, linear.gather_output, linear.input_is_parallel
+    attention.layer("ScaledDotProductAttention", fl.ScaledDotProductAttention).num_heads *= size
 
 
 def _outermost_chains(module: torch.nn.Module) -> list[fl.Chain]:

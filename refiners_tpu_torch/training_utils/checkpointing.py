@@ -23,14 +23,20 @@ What the port adds, so that ``restore`` then ``train()`` resumes a run:
 A checkpoint written mid-epoch (``save`` called directly) restarts that
 epoch's batches from the first.
 
+The optimizer's state is saved by parameter name: each parameter's state
+under its name in the model, each parameter group's hyperparameters with
+the names of its parameters. ``restore`` maps the names onto the groups and
+indices of the optimizer it builds, so a state restores into other groups
+than it was saved from (`OptimizerConfig.get` gives the parameters split
+over "tensor" a group of their own, a tensor size of 1 none).
+
 Under ``[training.mesh]`` every rank calls ``save`` and ``restore``. The
 file holds whole tensors: each tensor split over "tensor" is gathered (the
 ranks of its group together), the first rank of the process group alone
 writes and prunes, and the others wait for it. ``restore`` reads the same
 file on every rank and gives each split parameter, and its optimizer
-state, this rank's shard. The weights restore at any mesh; the optimizer's
-state at the tensor size it was saved from (its parameter groups follow the
-split, `OptimizerConfig.get`; torch refuses other groups).
+state, this rank's shard. Weights and optimizer state restore at any mesh,
+as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -62,15 +68,42 @@ def _whole(value: Any) -> Any:
     return value
 
 
-def _shard_states(state: dict[str, Any], optimizer: torch.optim.Optimizer) -> dict[str, Any]:
-    """An optimizer's saved state with each per-parameter tensor shaped like
-    its parameter placed as the parameter is (`distribute_like`)."""
+def _named_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> dict[str, Any]:
+    """The optimizer's ``state_dict()`` keyed by the names of `model`'s
+    parameters, split tensors gathered whole: ``state`` maps a parameter's
+    name to its state, each of ``param_groups`` lists its parameters' names."""
+    names = {id(p): name for name, p in model.named_parameters()}
     params = [p for group in optimizer.param_groups for p in group["params"]]
-    per_param = {
-        index: {k: distribute_like(v, params[index]) if _like(v, params[index]) else v for k, v in values.items()}
-        for index, values in state["state"].items()
+    saved = optimizer.state_dict()
+    return {
+        "state": {names[id(params[i])]: _whole(values) for i, values in saved["state"].items()},
+        "param_groups": [
+            {**group, "params": [names[id(params[i])] for i in group["params"]]} for group in saved["param_groups"]
+        ],
     }
-    return {**state, "state": per_param}
+
+
+def _indexed_state(saved: dict[str, Any], optimizer: torch.optim.Optimizer, model: torch.nn.Module) -> dict[str, Any]:
+    """A `_named_state` as a ``state_dict()`` of `optimizer`: each name at
+    its parameter's index in the optimizer's own groups, each group with the
+    hyperparameters of the saved group of its first parameter, and each
+    per-parameter tensor shaped like its parameter placed as the parameter
+    is (`distribute_like`)."""
+    names = {id(p): name for name, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    index = {names[id(p)]: i for i, p in enumerate(params)}
+    saved_group = {name: group for group in saved["param_groups"] for name in group["params"]}
+    state = {
+        index[name]: {k: distribute_like(v, params[index[name]]) if _like(v, params[index[name]]) else v
+                      for k, v in values.items()}
+        for name, values in saved["state"].items()
+    }  # fmt: skip
+    groups: list[dict[str, Any]] = []
+    for group in optimizer.param_groups:
+        start = sum(len(g["params"]) for g in groups)
+        hyperparameters = saved_group[names[id(group["params"][0])]]
+        groups.append({**hyperparameters, "params": list(range(start, start + len(group["params"])))})
+    return {"state": state, "param_groups": groups}
 
 
 def _like(value: Any, param: torch.Tensor) -> bool:
@@ -98,7 +131,7 @@ class CheckpointCallback(Callback["Trainer[Any, Any]"]):
         for name, item in trainer.models.items():
             state[f"model_{name}"] = _whole(item.model.state_dict())
             if item.optimizer is not None:
-                state[f"opt_{name}"] = _whole(item.optimizer.state_dict())
+                state[f"opt_{name}"] = _named_state(item.optimizer, item.model)
         if first_rank():
             path.mkdir(parents=True, exist_ok=True)
             torch.save(state, path / "state.pt")
@@ -126,7 +159,7 @@ class CheckpointCallback(Callback["Trainer[Any, Any]"]):
             )
             if f"opt_{name}" in state:
                 optimizer = trainer._optimizer_for(item)
-                optimizer.load_state_dict(_shard_states(state[f"opt_{name}"], optimizer))
+                optimizer.load_state_dict(_indexed_state(state[f"opt_{name}"], optimizer, item.model))
         self._set_clock(trainer, meta)
         self._resume = meta
 

@@ -409,10 +409,14 @@ def test_run_unet_splits_and_gathers_batch_shaped_contexts(
 
 
 def test_the_mesh_refuses_what_it_would_compute_wrongly(group: tuple[dict[str, Any], dict[str, Any]]) -> None:
-    """A StyleAligned UNet (each CFG half's first sample is the reference
-    of every row) with the CFG pair split over "data" raises; SAG injected
-    after the attentions were split over "tensor" (its map would see one
-    rank's heads) raises."""
+    """A layer that reads other rows of its batch than its own (a stand-in
+    that flips the batch, ``reads_other_rows = True``) and that the mesh does
+    not hand its rows (not one of `parallel.inference._rows_coupled`) raises
+    under a "data" split; with data = 1, or a batch that "data" does not
+    divide, it runs whole. StyleAligned, reference-only control and an
+    adapter entered after a "tensor" split run on the mesh now
+    (`tests/test_torch_parallel_coupled.py`)."""
     got = _case(group, "refusals")
-    assert "ExtractReferenceFeatures reads other rows" in got["style_aligned"]
-    assert "after the split" in got["late_sag"]
+    assert "ReadsOtherRows reads other rows" in got["split"]
+    np.testing.assert_array_equal(got["whole"], got["want"])
+    np.testing.assert_array_equal(got["indivisible"], got["want"][2:])

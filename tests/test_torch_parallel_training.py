@@ -238,6 +238,24 @@ def test_mesh_checkpoint_roundtrip(group: tuple[dict[str, Any], dict[str, Any]],
     assert got["steps"] == (8, 8)
 
 
+@pytest.mark.parametrize("meshes", ["2x2 to 4x1", "2x2 to 2x2", "4x1 to 2x2"])
+def test_optimizer_state_restores_at_another_tensor_size(group: tuple[dict[str, Any], dict[str, Any]], meshes: str) -> None:
+    """AdamW (float64, no projection biases: `OPTIMIZER_CASE`) saved after 2
+    optimizer steps at one mesh and restored into a fresh Trainer at
+    another: the file keys the optimizer's state by parameter name (at
+    tensor 2 AdamW has two parameter groups, at tensor 1 one), and the 2
+    steps after the restore equal steps 3 and 4 of the run straight
+    through at the restoring mesh."""
+    got = _case(group, f"resume {meshes}")
+    saved_at, restored_at = meshes.split(" to ")
+    assert len(got["groups"]) == (2 if restored_at == "2x2" else 1) and sum(got["groups"]) == 9
+    assert len(got["saved_groups"]) == (2 if saved_at == "2x2" else 1)
+    assert got["saved_state"] == sorted(name for names in got["saved_groups"] for name in names)
+    assert len(got["saved_state"]) == 9 and all(isinstance(name, str) for name in got["saved_state"])
+    assert len(got["straight"]) == 4 and got["steps"] == 16
+    _assert_records(got["records"], got["straight"][2:])
+
+
 def test_loggers_start_one_run_for_the_ranks(group: tuple[dict[str, Any], dict[str, Any]]) -> None:
     """Every rank builds the wandb and neptune callbacks (stub modules): the
     first rank of the process group alone starts a run of each."""

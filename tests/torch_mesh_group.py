@@ -336,24 +336,26 @@ def parallel_cases(directory: Path) -> dict[str, Any]:
                 "root_lacks_bias": "bias" not in unet.use_context("extra"), "shift_kept": inner["shift"] is shift,
                 "recorded": unet.use_context(context)[key].numpy()}  # fmt: skip
 
-    def refusal_case() -> dict[str, str]:
-        from refiners_tpu_torch.foundationals.latent_diffusion.style_aligned import StyleAlignedAdapter
+    def refusal_case() -> dict[str, Any]:
+        from refiners_tpu_torch.parallel.inference import run_unet
 
-        out: dict[str, str] = {}
-        sd = _sd1(directory)
-        StyleAlignedAdapter(target=sd.unet).inject()
-        try:  # the CFG pair split over "data": StyleAligned reads the other rows
-            TextToImage(sd, size=(64, 64), mesh=make_mesh(data=2, tensor=2, device_type="cpu"))("a cat", seed=1)
+        class ReadsOtherRows(fl.Module):
+            """A stand-in for a layer that mixes the rows of its batch and has no handling of a split."""
+
+            reads_other_rows = True
+
+            def forward(self, x: torch.Tensor) -> torch.Tensor:
+                return x.flip(0)
+
+        unet = fl.Chain(fl.Identity(), ReadsOtherRows())
+        x = torch.from_numpy(data["unet_x"])  # a batch of 4
+        out: dict[str, Any] = {"want": x.flip(0).numpy()}
+        try:  # the batch split over "data": the layer would see this rank's rows only
+            run_unet(unet, make_mesh(data=2, tensor=2, device_type="cpu"), x)
         except ValueError as e:
-            out["style_aligned"] = str(e)
-        sd = _sd1(directory)
-        pipe = TextToImage(sd, size=(64, 64), mesh=make_mesh(data=1, tensor=4, device_type="cpu"))
-        pipe("a cat", seed=1)  # placed: the attentions split over "tensor"
-        sd.set_self_attention_guidance(True)
-        try:
-            pipe("a cat", seed=1)
-        except ValueError as e:
-            out["late_sag"] = str(e)
+            out["split"] = str(e)
+        out["whole"] = run_unet(unet, make_mesh(data=1, tensor=4, device_type="cpu"), x).numpy()
+        out["indivisible"] = run_unet(unet, make_mesh(data=4, tensor=1, device_type="cpu"), x[:2]).numpy()
         return out
 
     cases: dict[str, Callable[[], Any]] = {"mesh": mesh_case}
@@ -367,6 +369,100 @@ def parallel_cases(directory: Path) -> dict[str, Any]:
     cases.update({f"sag {d}x{t}": sag_case(d, t) for d, t in ((2, 1), (2, 2))})
     cases.update({f"contexts {d}x{t}": (lambda d=d, t=t: contexts_case(d, t)) for d, t in ((4, 1), (2, 2))})
     cases["refusals"] = refusal_case
+    return run_cases(cases)
+
+
+# -- test_torch_parallel_coupled.py --------------------------------------------------------------
+
+COUPLED_SIZE = (128, 128)  # 16² latents: StyleAligned's statistics over the middle block's 2² tokens
+COUPLED_IMAGES = 4  # a CFG batch of 8: at 4x1 two rows a rank, half of them without their reference
+COUPLED_STEPS = 1  # the JAX side compiles its denoising loop unrolled
+STYLE_ALIGNED_SCALE = 0.8
+
+
+def _coupled_sd1(directory: Path, adapter: str) -> Any:
+    """The reduced SD1.5 (`_sd1`) with StyleAligned or reference-only control
+    (its guide: the file's latents, a CFG batch) injected, or none."""
+    from refiners_tpu_torch.foundationals.latent_diffusion import ReferenceOnlyControlAdapter, StyleAlignedAdapter
+
+    sd = _sd1(directory, steps=COUPLED_STEPS)
+    if adapter == "style_aligned":
+        StyleAlignedAdapter(sd.unet, scale=STYLE_ALIGNED_SCALE).inject()
+    elif adapter == "reference_only":
+        guide = torch.from_numpy(_load(directory, "coupled")["guide"])
+        ReferenceOnlyControlAdapter(sd.unet).inject().set_controlnet_condition(guide)
+    return sd
+
+
+def coupled_cases(directory: Path) -> dict[str, Any]:
+    """StyleAligned and reference-only control with the CFG batch split over
+    "data", and SAG entered after a "tensor" split: what each rank returns,
+    and (rank 0) the same requests in one process."""
+    import logging
+
+    from torch.distributed.tensor import DTensor
+
+    from refiners_tpu_torch.parallel import make_mesh
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    rank = dist.get_rank()
+
+    def request(sd: Any, mesh: Any = None, size: tuple[int, int] = COUPLED_SIZE, n: int = COUPLED_IMAGES) -> dict[str, Any]:
+        """The images of a `TextToImage` request, then the CFG-combined noise
+        prediction of its first step (`predict_noise` on the request's
+        initial latents: on the mesh, through `run_unet`)."""
+        pipe = TextToImage(sd, size=size, mesh=mesh, num_images=n)
+        pipe._sharded = sd.mesh is not None  # a model already placed stays as it is
+        images = pipe("a photo of a cat", seed=42)
+        noise = torch.randn((n, 4, size[0] // 8, size[1] // 8), generator=torch.Generator().manual_seed(42))
+        with torch.inference_mode():
+            emb = sd.compute_clip_text_embedding("a photo of a cat", "").repeat_interleave(n, dim=0)
+            x = sd.solver.scale_model_input(noise, step=-1)
+            prediction = sd.predict_noise(x, 0, clip_text_embedding=emb, condition_scale=7.5)
+        images = images if isinstance(images, list) else [images]
+        return {"images": [np.asarray(i) for i in images], "prediction": prediction.numpy()}
+
+    def coupled_case(adapter: str, data_size: int, tensor: int = 1) -> Callable[[], dict[str, Any] | None]:
+        def case() -> dict[str, Any] | None:
+            mesh = make_mesh(data=data_size, tensor=tensor, device_type="cpu", ranks=range(data_size * tensor))
+            if mesh.get_coordinate() is None:
+                return None
+            out: dict[str, Any] = {"mesh": request(_coupled_sd1(directory, adapter), mesh)}
+            if rank == 0:
+                out["single"] = request(_coupled_sd1(directory, adapter))
+                out["bare"] = request(_coupled_sd1(directory, "none"))
+            return out
+
+        return case
+
+    def late_sag_case() -> dict[str, Any] | None:
+        mesh = make_mesh(data=1, tensor=2, device_type="cpu", ranks=range(2))
+        if mesh.get_coordinate() is None:
+            return None
+        records: list[str] = []
+        handler = logging.Handler()
+        handler.emit = lambda record: records.append(record.getMessage())  # type: ignore[method-assign]
+        logger = logging.getLogger("refiners_tpu_torch.parallel.inference")
+        logger.addHandler(handler)
+        try:
+            sd = _sd1(directory, steps=SAG_STEPS)
+            TextToImage(sd, size=SAG_SIZE, mesh=mesh)("a photo of a cat", seed=42)  # placed: the attentions split
+            sd.set_self_attention_guidance(True, scale=SAG_SCALE)
+            late = [request(sd, mesh, SAG_SIZE, 1) for _ in range(2)]
+        finally:
+            logger.removeHandler(handler)
+        early = _sd1(directory, steps=SAG_STEPS)
+        early.set_self_attention_guidance(True, scale=SAG_SCALE)
+        attentions = {k: m for k, m in sd.unet.named_modules() if isinstance(m, fl.SelfAttention)}
+        split = {k for k, m in attentions.items() if any(isinstance(p, DTensor) for p in m.parameters())}
+        return {"late": late, "early": request(early, mesh, SAG_SIZE, 1), "records": records,
+                "whole": sorted(set(attentions) - split), "split": len(split)}  # fmt: skip
+
+    cases: dict[str, Callable[[], Any]] = {}
+    for adapter in ("style_aligned", "reference_only"):
+        cases.update({f"{adapter} {d}x1": coupled_case(adapter, d) for d in (2, 4)})
+    cases["reference_only 1x2"] = coupled_case("reference_only", 1, 2)  # its guided copy shares the split heads
+    cases["late sag 1x2"] = late_sag_case
     return run_cases(cases)
 
 
@@ -460,15 +556,16 @@ def mock_trainer(
     optimizer: str = "SGD",
     attention_bias: bool = True,
     dtype: str = "float32",
+    iterations: int = 2,
 ) -> MockTrainer:
     """`MockTrainer` on ``tests/training_utils/mock_config.toml`` (SGD at lr
     1.0, gradient accumulation 4, clipping), its warmup off and its clipping
-    at 0.02 (active), for 2 optimizer steps over 8 batches of 8; under
-    ``[training.mesh]`` `mesh` if given; from `weights` if given; with
-    `optimizer` at its `LEARNING_RATES` rate; in `dtype`."""
+    at 0.02 (active), for `iterations` optimizer steps (2 an epoch of 8
+    batches of 8); under ``[training.mesh]`` `mesh` if given; from `weights`
+    if given; with `optimizer` at its `LEARNING_RATES` rate; in `dtype`."""
     config = MockConfig.load_from_toml(Path(__file__).parent / "training_utils" / "mock_config.toml")
     config.training.device = "cpu"
-    config.training.duration = tu.Iteration(2)
+    config.training.duration = tu.Iteration(iterations)
     config.training.gradient_clipping_max_norm = 0.02
     config.lr_scheduler.warmup = tu.Iteration(0)
     config.training.mesh = MeshConfig(**mesh) if mesh is not None else None
@@ -566,6 +663,34 @@ def training_cases(directory: Path) -> dict[str, Any]:
 
         return case
 
+    def resume_case(saved_at: tuple[int, int], restored_at: tuple[int, int]) -> Callable[[], dict[str, Any]]:
+        """AdamW (`OPTIMIZER_CASE`) for 2 optimizer steps at `saved_at`, saved;
+        a fresh 4-step Trainer at `restored_at` restored from it trains on;
+        and the 4 steps straight through at `restored_at`."""
+
+        def case() -> dict[str, Any]:
+            from refiners_tpu_torch.training_utils.checkpointing import CheckpointCallback, CheckpointConfig
+
+            (d0, t0), (d1, t1) = saved_at, restored_at
+            folder = directory / f"resume {d0}x{t0} to {d1}x{t1}"
+            callback = CheckpointCallback(CheckpointConfig(directory=str(folder), interval="100:epoch", keep=1))
+            first = mock_trainer({"data": d0, "tensor": t0}, None, "AdamW", *OPTIMIZER_CASE)
+            first.train()
+            callback.save(first, "resume", epochs_done=1)
+            resumed = mock_trainer({"data": d1, "tensor": t1}, None, "AdamW", *OPTIMIZER_CASE, iterations=4)
+            resumed.callbacks["checkpoint"] = callback  # after the clock: puts the restored counters back
+            callback.restore(resumed, "resume")
+            groups = [len(group["params"]) for group in resumed.models["mock_model"].optimizer.param_groups]
+            resumed.train()
+            straight = mock_trainer({"data": d1, "tensor": t1}, None, "AdamW", *OPTIMIZER_CASE, iterations=4)
+            straight.train()
+            saved = torch.load(folder / "resume" / "state.pt", weights_only=True)["opt_mock_model"]
+            return {"records": resumed.recorder.records, "straight": straight.recorder.records, "groups": groups,
+                    "saved_groups": [group["params"] for group in saved["param_groups"]],
+                    "saved_state": sorted(saved["state"]), "steps": resumed.clock.step}  # fmt: skip
+
+        return case
+
     def loggers_case() -> dict[str, list[int]]:
         import sys
         import types
@@ -617,4 +742,6 @@ def training_cases(directory: Path) -> dict[str, Any]:
     cases.update({f"trainer {d}x{t}": trainer_case(d, t) for d, t in ((4, 1), (2, 2))})
     cases.update({f"trainer 2x2 {name}": trainer_case(2, 2, name) for name in ("AdamW", "Lion8bit", "Prodigy")})
     cases.update({f"checkpoint {d}x{t}": checkpoint_case(d, t) for d, t in ((4, 1), (2, 2))})
+    for a, b in (((2, 2), (4, 1)), ((2, 2), (2, 2)), ((4, 1), (2, 2))):
+        cases[f"resume {a[0]}x{a[1]} to {b[0]}x{b[1]}"] = resume_case(a, b)
     return run_cases(cases)
