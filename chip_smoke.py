@@ -94,7 +94,7 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    constant, and each request must launch the packed kernel exactly
    70 × 30 + 1 times (70 UNet self-attention sites per step, one VAE site).
    Each request's VAE decode is also timed alone (host clock between
-   synchronizes around the decoder), and one bf16 UNet step through the
+   synchronizes around the decode program), and one bf16 UNet step through the
    kernels is traced with ``torch.profiler``: its device time by kernel
    kind and its idle share.
 4. SD1.5 training: full-width ``SD1UNet`` with seeded synthetic weights,
@@ -106,7 +106,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    all parameters, may be at most twice as far from the reference as the
    bf16 plain route's, and the float32 kernel route at most 1e-4 from it.
    (b) the port's ``Trainer`` (``refiners_tpu_torch.examples.train_unet``)
-   in bf16: 4 steps, gradient accumulation 2, AdamW at lr 1e-3. Every loss
+   in bf16, ``training.jit_step`` on (loss, backward and accumulation one
+   captured program): 4 steps, gradient accumulation 2, AdamW at lr 1e-3. Every loss
    and grad norm finite, every weight of two or more dims changed, every
    parameter finite, and exactly 10 forward + 10 dK/dV + 10 dQ launches per
    step.
@@ -228,11 +229,11 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    decode bit-equal after ``tiled_inference`` exits.
 
 11. SDXL's adapter zoo: phase 3's bf16 SDXL (rebuilt from its seeds) at
-   1024², two bare requests first (2101 K1 launches each), then one
+   1024², DDIM cut to 15 steps (``SDXL_ZOO_STEPS``, 30 before the compiled
+   programs), two bare requests first (1051 K1 launches each), then one
    request for each adapter set, injected before it and ejected after it:
    (a) self-attention guidance at 1.0 through ``set_self_attention_guidance``
-   (a batch-1 UNet call a step on the degraded latents; 30 DDIM steps, CFG
-   5.0); (b) ``SDXLT2IAdapter`` "canny" at 0.8 on a seeded 1024² condition;
+   (a batch-1 UNet call a step on the degraded latents; CFG 5.0); (b) ``SDXLT2IAdapter`` "canny" at 0.8 on a seeded 1024² condition;
    (c) ``SDXLIPAdapter`` and (d) its plus variant on a full-width
    ``CLIPImageEncoderH`` and a seeded image; (e) two rank-32 LoRAs through
    ``SDLoraManager`` (every Linear of the UNet's transformers, of CLIP-L
@@ -244,11 +245,11 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    128 from a seeded checkpoint in stability-ai's original format
    (``load_original_weights``) on a seeded condition; (j)
    ``SDXLMultiDiffusion`` over a 1024 × 2048 panorama (three 128² latent
-   tiles, 30 DDIM steps) and one decode of the whole image. For (a)-(i):
+   tiles, 15 DDIM steps) and one decode of the whole image. For (a)-(i):
    one UNet step three ways, gated as in phase 8 (K1 launches 140, 70, 70,
    70, 70, 70, 70, 70, 104; SAG's routes take the float32 step's mask; the
    sets without guidance at batch 1); each request's seconds, peak memory
-   and K1 launches (4201, 2101 × 4, 281 × 3, 3121, the panorama 6301),
+   and K1 launches (2101, 1051 × 4, 281 × 3, 1561, the panorama 3151),
    every image finite and not constant; after each eject the base step
    bit-equal to the one before the first injection. The Control-LoRA's
    copy shares the UNet's tensors (device memory added at most its own
@@ -339,6 +340,40 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    ``DoubleTextEncoder`` and its ``structural_copy()``: bit-equal
    embeddings on shared weights.
 
+16. The compiled programs (`refiners_tpu_torch.fluxion.graphs`: CUDA graphs
+   captured per key and replayed, the port's `jax.jit`) against the eager
+   path, each run right after the phase whose model it uses. Every phase
+   from 3 on serves through the programs where the JAX package compiles:
+   `TextToImage`'s loop and decode (phases 3, 6, 7–11, 13, 14a, 15a;
+   phase 9's StyleAligned, reference-only and Restart requests run their
+   loops as programs of their own), SAM's embedding and `predict` (5),
+   the Fréchet distance's forward (12b), the BoxSegmenter's (12c) and the
+   trainers' steps under ``training.jit_step`` (4b, 4c, 14a); a program's
+   first call runs eagerly and captures, its launches counted as such, a
+   replay adds its capture's counts, so every launch gate keeps its
+   number. Each request of phases 7–11 and 15a that was the first call of
+   a program's key (an adapter set's first request) is served again right
+   after, with the same seed and inputs (`_replayed`): no capture, its K1
+   launches gated as the first's, its images and decoded tensors
+   bit-equal to the first (eager) run's. A decode is read from the decode
+   program's output (`_Decodes`),
+   and phase 4c's remat gate compares the peak memory of the first step
+   (a replay's activations live in the graphs' pool). (a) After phase 3,
+   on its SDXL: requests eager (`sd.diffuse` and `sd.lda.decode` called
+   directly) and graphed, alternated eager, graphed, graphed, eager on
+   seeds 0 0 1 1: 0 pixels off the eager image of the same seed, the two
+   seeds' images apart; seconds (the first call is phase 3's first
+   request), peak memory (the graphs' pool, which the loop and the decode
+   share, included), and one UNet step as a program, replayed and traced
+   (device time, idle share; K1's kernels in the trace equal to the K1
+   launches the counter adds for the replay: 70; SD1.5's 10). (b) The
+   same after phase 7's text-to-image requests, on its SD1.5 (DPM++ 30,
+   512²). (c) In phase 5, on SAM-H: an embedding and a points `predict`,
+   eager and graphed alternated, bit-equal. (d) After phase 4b: its 4
+   steps again without ``jit_step`` (cuDNN deterministic in both): losses
+   and weights bit-equal, launches equal, one capture, seconds of the
+   first and the warm steps.
+
 The last lines are a JSON summary of the kernels (launches counted over
 phases 3, 4b, 4c, 5b, 6, 7b, 8b, 9b, 10, 11, 12, 13, 14a, 15a and 15b's
 runs, each with the counts set to 0 just before it; K1's over phases 3,
@@ -349,6 +384,7 @@ and K4's over 4b, 4c and 14a), the ``nvidia-smi`` name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -357,7 +393,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -399,6 +435,7 @@ duration = "{steps}:step"
 dtype = "{dtype}"
 device = "cuda"
 seed = 0
+jit_step = true
 
 [optimizer]
 optimizer = "{optimizer}"
@@ -588,8 +625,13 @@ UPSCALER_PROMPTS = ("masterpiece, best quality, highres", "worst quality, low qu
 SDXL_SIZE = 1024
 SDXL_PANORAMA = (1024, 2048)  # (height, width)
 SDXL_LAUNCHES_PER_CALL = 70  # K1's UNet sites: 10 self-attentions at 4096 tokens, 60 at 1024
+# the forward kernels' names in a trace (K1's; PyTorch's own flash kernels, on the plain sites, are not these)
+K1_KERNEL = re.compile(r"flash_fwd_(narrow|wgmma|f32)_kernel")
 CONTROL_LORA_SITES = 4 + 20 + 10  # the half-UNet's: its down blocks at 4096 and 1024 tokens, its middle block
 SDXL_SAG_SCALE = 1.0
+# phase 11's DDIM requests (bare, SAG, T2I, IP-Adapter ± plus, LoRAs, Control-LoRA, the panorama): cut from 30
+# steps since the compiled programs (each set's request is a program's first call: an eager run, then a capture)
+SDXL_ZOO_STEPS = 15
 SDXL_LORA_RANK, SDXL_LORA_SCALES = 32, {"style": 1.0, "detail": 0.5}
 LCM_LORA_RANK = 64  # the LCM-LoRA's and the Lightning LoRA's
 CONTROL_LORA_RANK = 128  # stability-ai's published Control-LoRAs: rank 128 and 256
@@ -648,6 +690,7 @@ duration = "4:step"
 gradient_accumulation = "2:step"
 dtype = "bfloat16"
 device = "cuda"
+jit_step = true
 
 [optimizer]
 optimizer = "AdamW"
@@ -770,6 +813,99 @@ def read_launches() -> dict[str, int]:
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _replayed(label: str, fn: Callable[[], Any], first: Any, want: int,
+              decoded: list[torch.Tensor] | None = None) -> dict[str, Any]:  # fmt: skip
+    """`fn` served again right after the request that gave `first`, with the
+    same seed and inputs, where that request was the first call of a
+    program's key (an eager run, then a capture): this one replays. Held to:
+    no capture, `want` K1 launches (as the replay adds its capture's), its
+    images bit-equal to `first`'s and, where the phase keeps them in
+    `decoded` (emptied and refilled here), its decoded tensors to the
+    first's. Returns the replay's record."""
+    from refiners_tpu_torch.fluxion.graphs import Program
+
+    first_decoded = list(decoded) if decoded is not None else []
+    if decoded is not None:
+        del decoded[:]
+    captures = Program.total_captures
+    before = read_launches()["flash_attention_packed"]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launched = read_launches()["flash_attention_packed"] - before
+    captured = Program.total_captures - captures
+    images, first_images = (x if isinstance(x, list) else [x] for x in (out, first))
+    off = sum(int((np.asarray(a) != np.asarray(b)).any(axis=-1).sum()) for a, b in zip(images, first_images))
+    again = list(decoded) if decoded is not None else []
+    equal = len(again) == len(first_decoded) and all(torch.equal(a, b) for a, b in zip(again, first_decoded))
+    print(f"{label} served again (replayed): {seconds:.3f} s, K1 launches {launched}, {captured} capture(s), "
+          f"{off} pixels off the first (eager) run's {len(first_images)} image(s), {len(again)} decoded tensor(s) "
+          f"bit-equal {equal}")  # fmt: skip
+    if captured or launched != want or len(images) != len(first_images) or off or not equal:
+        raise AssertionError(f"{label}: served again, {captured} capture(s), {launched} K1 launches (not {want}), "
+                             f"{off} pixels off, decoded bit-equal {equal}")  # fmt: skip
+    return {"request": f"{label} (replayed)", "seconds": seconds, "k1_launches": launched, "pixels_off": off}
+
+
+class _Decodes:
+    """The decoded images of a phase's requests. A `TextToImage` decodes
+    through its compiled program, whose forward hooks run only at the first
+    call of a key and while it is captured: each watched pipeline's decode
+    program is wrapped instead, its output kept and its call timed alone
+    (host clock between synchronizes). The decodes a request makes itself,
+    eagerly, come from a forward hook on `decoder`, quiet inside a watched
+    program."""
+
+    def __init__(self, decoder: torch.nn.Module | None = None) -> None:
+        self.tensors: list[torch.Tensor] = []
+        self.seconds: list[float] = []
+        self._inside = False
+        self._pipes: list[Any] = []
+        self._hook = None if decoder is None else decoder.register_forward_hook(self._eager)
+
+    def _eager(self, _module: Any, _inputs: Any, out: torch.Tensor) -> None:
+        if not self._inside:
+            self.tensors.append(out.float())
+
+    def watch(self, pipe: Any) -> Any:
+        """`pipe`, its decode program watched (until `close`)."""
+        self._pipes.append(pipe)
+        program = pipe._program
+
+        def watched(name: str, fn: Callable[..., Any]) -> Callable[..., Any]:
+            run = program(name, fn)
+            if name != "decode":
+                return run
+
+            def decode(*args: Any) -> torch.Tensor:
+                torch.cuda.synchronize()
+                start, self._inside = time.perf_counter(), True
+                try:
+                    out = run(*args)
+                finally:
+                    self._inside = False
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - start)
+                self.tensors.append(out.float())
+                return out
+
+            return decode
+
+        pipe._program = watched
+        return pipe
+
+    def clear(self) -> None:
+        del self.tensors[:], self.seconds[:]
+
+    def close(self) -> None:
+        if self._hook is not None:
+            self._hook.remove()
+        for pipe in self._pipes:
+            del pipe._program
 
 
 # ---------------------------------------------------------------------------
@@ -1371,7 +1507,8 @@ def check_device_default() -> None:
 
 def _profile(label: str, fn: Callable[[], Any], unit: str) -> dict[str, Any]:
     """`fn` once to warm up, its host-clock milliseconds (median of 3), then
-    once under ``torch.profiler``: device time by kernel kind and idle share."""
+    once under ``torch.profiler``: device time by kernel kind, idle share
+    and K1's kernels in the trace."""
     from refiners_tpu_torch.examples.profile_sam import _profiled
     from refiners_tpu_torch.examples.profile_train import device_breakdown
 
@@ -1384,7 +1521,9 @@ def _profile(label: str, fn: Callable[[], Any], unit: str) -> dict[str, Any]:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - start)
     wall = statistics.median(walls)
-    return {"wall_ms": wall * 1e3, **device_breakdown(_profiled(fn), wall, label=label, unit=unit, top=4)}
+    breakdown = device_breakdown(_profiled(fn), wall, label=label, unit=unit, top=4)
+    k1 = sum(n for name, n in breakdown.pop("by_name_launches").items() if K1_KERNEL.search(name))
+    return {"wall_ms": wall * 1e3, **breakdown, "k1_kernels": k1}
 
 
 def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float], int, list[np.ndarray], dict[str, Any]]:
@@ -1442,22 +1581,11 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
         unet_profile = _profile("sdxl: one UNet step (1024², CFG batch 2, bf16, kernels)",
                                 lambda: sd.predict_noise(x16, 0, **inputs), unit="step")  # fmt: skip
 
-    # the VAE decode alone: host clock between synchronizes around the decoder
-    decoded: list[torch.Tensor] = []
-    decode_seconds: list[float] = []
-    decode_start: list[float] = []
-
-    def before_decode(_module: Any, _inputs: Any) -> None:
-        torch.cuda.synchronize()
-        decode_start.append(time.perf_counter())
-
-    def after_decode(_module: Any, _inputs: Any, out: torch.Tensor) -> None:
-        torch.cuda.synchronize()
-        decode_seconds.append(time.perf_counter() - decode_start[-1])
-        decoded.append(out)
-
-    hooks = [sd.lda[1].register_forward_pre_hook(before_decode), sd.lda[1].register_forward_hook(after_decode)]
-    seconds = []
+    # the VAE decode alone: host clock between synchronizes around the decode program
+    decodes = _Decodes()
+    decodes.watch(pipe)
+    decoded, decode_seconds = decodes.tensors, decodes.seconds
+    seconds, peaks = [], []
     images = []
     reset_launches()
     for seed, (prompt, negative) in enumerate(PROMPTS):
@@ -1473,6 +1601,7 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
         arr = np.asarray(image)
         images.append(arr)
         peak = torch.cuda.max_memory_allocated(dev)
+        peaks.append(peak)
         print(
             f"sdxl request {seed}: {seconds[-1]:.3f} s (VAE decode {decode_seconds[-1]:.4f} s), kernel launches "
             f"{launched}, image {image.size}, "
@@ -1486,11 +1615,96 @@ def run_sdxl(dev: torch.device) -> tuple[dict[str, int], list[float], list[float
         if float(out.float().std()) == 0.0 or arr.min() == arr.max():
             raise AssertionError(f"request {seed}: the image is constant")
     launches = read_launches()
-    for hook in hooks:
-        hook.remove()
+    decodes.close()
+    graphed = graphed_against_eager("16a (SDXL 1024², 30 DDIM steps, CFG 5.0, bf16)", dev, sd, pipe,
+                                    {"seconds": seconds[0], "peak_memory_bytes": peaks[0]},
+                                    {"x": x16, "kwargs": inputs}, SDXL_LAUNCHES_PER_CALL)  # fmt: skip
+    graphed["eager_unet_step_profile"] = unet_profile
     del sd, pipe, sdpa, decoded, emb, pooled, x, x16, reference, plain_noise, kernel_noise
     _free()
-    return launches, seconds, decode_seconds, peak, images, unet_profile
+    return launches, seconds, decode_seconds, peak, images, unet_profile, graphed
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the compiled programs against the eager path
+# ---------------------------------------------------------------------------
+
+
+def graphed_against_eager(label: str, dev: torch.device, sd: Any, pipe: Any, first: dict[str, Any],
+                          step_inputs: dict[str, Any], k1_per_step: int) -> dict[str, Any]:  # fmt: skip
+    """Phase 16a/16b on a phase's model: requests through `pipe` (its loop
+    and decode programs, warm) and the same requests eagerly (a
+    `TextToImage` whose programs are its plain functions: `sd.diffuse` and
+    `sd.lda.decode` called directly), alternated eager, graphed, graphed,
+    eager on two seeds; the pixels a graphed image has off its eager one,
+    the two seeds' graphed images apart, seconds and peak memory (the
+    graphs' pool included), and one UNet step as a program, replayed and
+    traced: K1's kernels in its trace, the K1 launches the counter adds
+    for a replay and `k1_per_step` all equal. `first` is the phase's
+    first request (its first call: eager run, capture)."""
+    from refiners_tpu_torch.fluxion import graphs
+    from refiners_tpu_torch.pipelines import TextToImage
+
+    class EagerTextToImage(TextToImage):
+        """Each program run as its first call runs it (`Program.eager`), on every request."""
+
+        def _program(self, name: str, fn: Callable[..., Any]) -> Any:
+            return super()._program(name, fn).eager
+
+    eager_pipe = EagerTextToImage(sd, size=pipe.size, condition_scale=pipe.condition_scale)
+    prompt, negative = PROMPTS[0]
+    runs: dict[str, list[dict[str, Any]]] = {"eager": [], "graphed": []}
+
+    def pool_bytes() -> int:
+        """The memory the graphs of the pipeline's two programs hold (one pool, shared)."""
+        return sum(pool.bytes() for pool in {id(p.pool): p.pool for p in pipe._compiled.values()}.values())
+
+    for kind, seed in (("eager", 0), ("graphed", 0), ("graphed", 1), ("eager", 1)):
+        serve = eager_pipe if kind == "eager" else pipe
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = time.perf_counter()
+        with torch.inference_mode():
+            image = np.asarray(serve(prompt, negative_prompt=negative, seed=seed))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated(dev) + (pool_bytes() if kind == "graphed" else 0)
+        runs[kind].append({"seed": seed, "image": image, "seconds": seconds, "peak_memory_bytes": peak})
+    off = [int((g["image"] != e["image"]).any(axis=-1).sum())
+           for g, e in zip(runs["graphed"], sorted(runs["eager"], key=lambda r: r["seed"]))]  # fmt: skip
+    seeds_apart = int((runs["graphed"][0]["image"] != runs["graphed"][1]["image"]).any(axis=-1).sum())
+
+    step = graphs.Program(lambda sd, x, kwargs: sd.predict_noise(x, 0, **kwargs), name=f"{label} UNet step")
+    with torch.inference_mode():
+        step(sd, **step_inputs)  # the first call: eager run, capture
+        before = read_launches()["flash_attention_packed"]
+        profile = _profile(f"phase 16 {label}: one UNet step as a program (replayed)", lambda: step(sd, **step_inputs),
+                           unit="step")  # fmt: skip
+    # the counter's launches for one replay (`_profile` replays 5 times) against K1's kernels in the trace
+    counted = (read_launches()["flash_attention_packed"] - before) / 5
+    traced = profile["k1_kernels"]
+    report = {"first_call_seconds": first["seconds"], "first_call_peak_memory_bytes": first.get("peak_memory_bytes"),
+              "graphed_seconds": [r["seconds"] for r in runs["graphed"]], "eager_seconds": [r["seconds"] for r in runs["eager"]],
+              "graphed_peak_memory_bytes": max(r["peak_memory_bytes"] for r in runs["graphed"]),
+              "eager_peak_memory_bytes": max(r["peak_memory_bytes"] for r in runs["eager"]),
+              "graph_pool_bytes": pool_bytes(), "pixels_off": off, "seeds_pixels_apart": seeds_apart,
+              "graphed_unet_step_profile": profile, "replayed_step_k1_counted": counted,
+              "replayed_step_k1_kernels_traced": traced}  # fmt: skip
+    print(f"phase 16 {label}: {_smi()}; first call {report['first_call_seconds']:.3f} s (eager run, capture); graphed "
+          f"{[round(x, 3) for x in report['graphed_seconds']]} s, eager {[round(x, 3) for x in report['eager_seconds']]} s "
+          f"(alternated E G G E, seeds 0 0 1 1); peak memory graphed {report['graphed_peak_memory_bytes'] / 2**30:.2f} GiB "
+          f"(graph pool {report['graph_pool_bytes'] / 2**30:.2f} GiB), eager {report['eager_peak_memory_bytes'] / 2**30:.2f} "
+          f"GiB; pixels off the eager image {off}; the two seeds' images {seeds_apart} pixels apart; a graphed UNet step "
+          f"{profile['wall_ms']:.2f} ms of wall, {profile['device_ms']:.2f} ms of device time, idle {profile['idle_share']:.3f}, "
+          f"K1 launches counted for a replay {counted}, K1 kernels in its trace {traced}")  # fmt: skip
+    if not counted == traced == k1_per_step:
+        raise AssertionError(f"phase 16 {label}: a replayed UNet step counts {counted} K1 launches and its trace shows "
+                             f"{traced} K1 kernels, not {k1_per_step}")  # fmt: skip
+    if any(off):
+        raise AssertionError(f"phase 16 {label}: a graphed image is {off} pixels off its eager image")
+    if not seeds_apart:
+        raise AssertionError(f"phase 16 {label}: two seeds gave one image")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1568,8 +1782,9 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
     del reference, plain, fused, f32_fused
     _free()
 
-    decoded: list[torch.Tensor] = []
-    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out))
+    decodes = _Decodes()
+    decodes.watch(pipe)
+    decoded = decodes.tensors
     want_fused = {**{k: 0 for k in _counters()}, "flash_attention_packed": LAUNCHES_PER_REQUEST,
                   "group_norm_stats": GROUP_NORM_LAUNCHES_PER_REQUEST,
                   "group_norm_apply": GROUP_NORM_LAUNCHES_PER_REQUEST}  # fmt: skip
@@ -1633,7 +1848,7 @@ def run_sdxl_passes(dev: torch.device, bf16_image: np.ndarray) -> tuple[dict[str
     if not report["psnr_vs_bf16"] >= INT8_PSNR_FLOOR:
         raise AssertionError(f"int8 + fused image at PSNR {report['psnr_vs_bf16']:.2f} < {INT8_PSNR_FLOOR} against bf16")
     launches = read_launches()
-    hook.remove()
+    decodes.close()
 
     # one W8A8 UNet step, warm: host clock, then traced (after the counts are read)
     with torch.inference_mode():
@@ -1768,15 +1983,25 @@ def _unet_trainer(dev: torch.device, toml: str, records: list[dict[str, Any]]) -
     return SmokeTrainer(UnetConfig.load_from_toml_string(toml), batch_size=2, latent_size=64, num_batches=4)
 
 
-def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]]:
+def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]], dict[str, Any]]:
+    """Phase 4b under ``jit_step`` (its loss and gradient one captured
+    program), then phase 16d: the same 4 steps eagerly, cuDNN deterministic
+    in both, the losses and weights held bit-equal and the steps' seconds
+    compared. Returns the launches, the compiled run's records and 16d's report."""
+    from refiners_tpu_torch.fluxion import manual_seed
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     records: list[dict[str, Any]] = []
     t0 = time.perf_counter()
+    manual_seed(0)  # the UNet's biases and norms come from the init stream: the same for phase 16d's eager run
     trainer = _unet_trainer(dev, TRAIN_CONFIG, records)
     before = {name: p.detach().clone() for name, p in trainer.unet.named_parameters() if p.ndim >= 2}
     print(f"sd15 trainer: built in {time.perf_counter() - t0:.1f} s, bf16, {trainer.learnable_parameter_count} parameters")
     reset_launches()
     trainer.train()
     launches = read_launches()
+    compiled_weights = {k: v.detach().clone() for k, v in trainer.unet.state_dict().items()}
+    step_program = trainer._step_program
     for i, r in enumerate(records):
         print(
             f"sd15 trainer step {i}: {r['seconds']:.3f} s, loss {r['loss']:.5f}, optimizer step {r['optimizer_step']}, "
@@ -1798,7 +2023,36 @@ def run_trainer(dev: torch.device) -> tuple[dict[str, int], list[dict[str, Any]]
     print(f"sd15 trainer: {len(before)} weights of two or more dims all changed; every parameter finite")
     del trainer, before, params
     _free()
-    return launches, records
+
+    # phase 16d: the same run eagerly (no jit_step)
+    eager_records: list[dict[str, Any]] = []
+    manual_seed(0)
+    eager = _unet_trainer(dev, TRAIN_CONFIG.replace("jit_step = true", "jit_step = false"), eager_records)
+    reset_launches()
+    eager.train()
+    differing = sum(int((v != compiled_weights[k]).sum()) for k, v in eager.unet.state_dict().items())
+    losses, eager_losses = [r["loss"] for r in records], [r["loss"] for r in eager_records]
+    torch.backends.cudnn.deterministic = False
+    report = {"captures": step_program.captures, "first_step_seconds": records[0]["seconds"],
+              "warm_step_seconds": [r["seconds"] for r in records[1:]],
+              "eager_step_seconds": [r["seconds"] for r in eager_records], "losses": losses, "eager_losses": eager_losses,
+              "differing_weight_elements": differing, "peak_memory_bytes": [r["peak_memory_bytes"] for r in records],
+              "eager_peak_memory_bytes": [r["peak_memory_bytes"] for r in eager_records],
+              "graph_pool_bytes": step_program.pool_bytes()}  # fmt: skip
+    print(f"phase 16d: 4 SD1.5 UNet training steps (batch 2, 64² latents, bf16, AdamW, accumulation 2), jit_step "
+          f"against eager: first step {report['first_step_seconds']:.3f} s (eager run, capture), warm steps "
+          f"{[round(x, 4) for x in report['warm_step_seconds']]} s, eager steps "
+          f"{[round(x, 4) for x in report['eager_step_seconds']]} s; losses {losses} against {eager_losses}; "
+          f"{differing} weight elements differ; {step_program.captures} capture(s); graph pool "
+          f"{report['graph_pool_bytes'] / 2**30:.2f} GiB")  # fmt: skip
+    if losses != eager_losses or differing or any(r["launches"] != e["launches"] for r, e in zip(records, eager_records)):
+        raise AssertionError(f"phase 16d: the compiled steps are not the eager steps ({losses} against {eager_losses}, "
+                             f"{differing} weight elements differ)")  # fmt: skip
+    if step_program.captures != 1:  # one batch shape and one model: one key
+        raise AssertionError(f"phase 16d: the 4 steps captured {step_program.captures} graphs, not 1")
+    del eager, compiled_weights
+    _free()
+    return launches, records, report
 
 
 # ---------------------------------------------------------------------------
@@ -2042,7 +2296,9 @@ def run_vae_training(dev: torch.device) -> tuple[dict[str, int], dict[str, Any]]
     del prodigy, initial, after
     _free()
 
-    # (d) remat on the decoder's blocks: the second (warm) step with and without it
+    # (d) remat on the decoder's blocks with and without it: the peak memory of the first step (under jit_step
+    # its eager run and capture allocate the activations; a replay runs in the graph's pool, which
+    # max_memory_allocated does not see), the seconds of the second (a replay)
     plain_records: list[dict[str, Any]] = []
     plain = _vae_trainer(dev, config("Lion8bit", VAE_LION_LR, 2), plain_records)
     train(plain, plain_records)
@@ -2062,7 +2318,7 @@ def run_vae_training(dev: torch.device) -> tuple[dict[str, int], dict[str, Any]]
     _check_vae_launches("no remat", plain_records, VAE_STEP_LAUNCHES)
     _check_vae_launches("remat", remat_records, VAE_REMAT_LAUNCHES)
     gap = abs(remat_records[0]["loss"] - plain_records[0]["loss"]) / plain_records[0]["loss"]
-    peak, remat_peak = plain_records[1]["peak_memory_bytes"], remat_records[1]["peak_memory_bytes"]
+    peak, remat_peak = plain_records[0]["peak_memory_bytes"], remat_records[0]["peak_memory_bytes"]
     print(f"vae train: remat peak memory {remat_peak / 2**30:.2f} GiB against {peak / 2**30:.2f} GiB without, "
           f"{remat_records[1]['seconds']:.3f} s a step against {plain_records[1]['seconds']:.3f}; first loss gap {gap:.3e}")  # fmt: skip
     if not remat_peak < peak or not gap <= VAE_REMAT_LOSS_TOL:
@@ -2202,6 +2458,8 @@ def run_sam(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
                 raise AssertionError(f"request {i}: predict_pipelined differs from predict")
         print(f"sam: predict_pipelined over 3 embeddings in {seconds * 1e3:.2f} ms ({launched} launches), equal to the serial predicts")
 
+        report["graphed_against_eager"] = _sam_graphed_against_eager(dev, sam, images[0], prompts[0])
+
         hq = HQSAMAdapter(sam).inject()
         (w, h) = SAM_IMAGES[0]
         embedding, seconds, launched = timed(lambda: sam.compute_image_embedding(images[0]))
@@ -2221,9 +2479,54 @@ def run_sam(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
         f"{[round(x, 2) for x in report['predict_ms']]}, peak memory {report['peak_memory_bytes'] / 2**30:.2f} GiB, "
         f"launches {launches}"
     )
+    from refiners_tpu_torch.foundationals.segment_anything import model as sam_model
+
+    for program in (sam_model._encode_image, sam_model._predict_masks):  # module-level: their keys hold SAM-H
+        program.clear_cache()
     del sam, relpos, embeddings, serial, pipelined, hq
     _free()
     return report, launches
+
+
+def _sam_graphed_against_eager(dev: torch.device, sam: Any, image: Any, prompt: dict[str, Any]) -> dict[str, Any]:
+    """Phase 16c on phase 5's SAM-H: an embedding and a points `predict`
+    (both programs warm), against the same two functions called eagerly,
+    alternated eager, graphed, graphed, eager; outputs bit-equal, seconds."""
+    from refiners_tpu_torch.foundationals.segment_anything import model as sam_model
+
+    root = sam_model._root_chain(sam)
+    canvas, scaled = sam._host_preprocess(image)
+    coordinates, type_mask = sam.point_encoder.points_to_tensor(**prompt)
+    mask_args = (tuple(map(tuple, type_mask.tolist())), None)
+    times: dict[str, dict[str, list[float]]] = {"embedding": {"eager": [], "graphed": []}, "predict": {"eager": [], "graphed": []}}
+    outputs: dict[str, dict[str, Any]] = {"embedding": {}, "predict": {}}
+
+    def timed(kind: str, what: str, fn: Callable[[], Any]) -> None:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[what][kind].append(time.perf_counter() - start)
+        outputs[what][kind] = out
+
+    with torch.inference_mode():
+        embedding = sam.compute_image_embedding(image)
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            encode = sam_model._encode_image.eager if kind == "eager" else sam_model._encode_image
+            predict = sam_model._predict_masks.eager if kind == "eager" else sam_model._predict_masks
+            timed(kind, "embedding", lambda: encode(root, canvas, scaled)[0])
+            timed(kind, "predict", lambda: predict(root, embedding.features, coordinates.to(dev), *mask_args, {},
+                                                   embedding.original_image_size, sam.image_encoder_resolution, True))  # fmt: skip
+    equal = torch.equal(outputs["embedding"]["eager"], outputs["embedding"]["graphed"]) and all(
+        torch.equal(a, b) for a, b in zip(outputs["predict"]["eager"], outputs["predict"]["graphed"]))  # fmt: skip
+    report = {"embedding_seconds": times["embedding"], "predict_seconds": times["predict"], "bit_equal": equal}
+    print(f"phase 16c (SAM-H, bf16): {_smi()}; an embedding graphed {[round(x, 4) for x in times['embedding']['graphed']]} s, "
+          f"eager {[round(x, 4) for x in times['embedding']['eager']]} s; a points predict graphed "
+          f"{[round(x * 1e3, 2) for x in times['predict']['graphed']]} ms, eager "
+          f"{[round(x * 1e3, 2) for x in times['predict']['eager']]} ms (alternated E G G E); outputs bit-equal {equal}")  # fmt: skip
+    if not equal:
+        raise AssertionError("phase 16c: SAM's programs differ from their eager functions")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2237,6 +2540,7 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
     with its K1 launches counted."""
     import refiners_tpu_torch.fluxion.layers as fl
     from refiners_tpu_torch.fluxion import manual_seed
+    from refiners_tpu_torch.fluxion.graphs import Program
     from refiners_tpu_torch.fluxion.utils import synthesize_weights, tensor_to_image
     from refiners_tpu_torch.foundationals.latent_diffusion import (
         SD1UNet,
@@ -2292,7 +2596,7 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
         emb16, x16 = emb.to(BF16), x.to(BF16)
         report["unet_step_profile"] = _profile("sd15: one UNet step (512², CFG batch 2, bf16, kernels)",
                                                lambda: sd.predict_noise(x16, 0, clip_text_embedding=emb16), unit="step")  # fmt: skip
-    del reference, plain_noise, kernel_noise, x, x16
+    del reference, plain_noise, kernel_noise, x
     _free()
 
     # the 9-channel inpainting model: the same weights, apart from its conv_in, sharing the VAE and CLIP
@@ -2305,26 +2609,17 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
     print(f"sd15: StableDiffusion_1_Inpainting built, {len(unet9.state_dict()) - len(shared)} tensor(s) not shared "
           f"with the text-to-image UNet")  # fmt: skip
 
-    # each decode also timed alone: host clock between synchronizes around the decoder
-    decoded: list[torch.Tensor] = []
-    decode_seconds: list[float] = []
-
-    def before_decode(_module: Any, _inputs: Any) -> None:
-        torch.cuda.synchronize()
-        decode_seconds.append(-time.perf_counter())
-
-    def after_decode(_module: Any, _inputs: Any, out: torch.Tensor) -> None:
-        torch.cuda.synchronize()
-        decode_seconds[-1] += time.perf_counter()
-        decoded.append(out.float())
-
-    hooks = [sd.lda[1].register_forward_pre_hook(before_decode), sd.lda[1].register_forward_hook(after_decode)]
+    # each request's decode program also timed alone (img2img decodes eagerly: not timed)
+    decodes = _Decodes(sd.lda[1])
+    decoded, decode_seconds = decodes.tensors, decodes.seconds
     requests: list[dict[str, Any]] = []
 
     def request(label: str, want: int, fn: Callable[[], Any]) -> Any:
         """`fn` between synchronizes: seconds, peak memory and K1 launches;
-        every image it decodes finite and not constant."""
-        del decoded[:], decode_seconds[:]
+        every image it decodes finite and not constant; served again
+        (`_replayed`) where it captured."""
+        decodes.clear()
+        captures = Program.total_captures
         before = read_launches()["flash_attention_packed"]
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -2336,8 +2631,9 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
         peak = torch.cuda.max_memory_allocated(dev)
         images = out if isinstance(out, list) else [out]
         z = torch.cat(decoded)
+        decode = f"{decode_seconds[-1]:.4f} s" if decode_seconds else "eager"
         print(
-            f"sd15 {label}: {seconds:.3f} s (VAE decode {decode_seconds[-1]:.4f} s), peak memory {peak / 2**30:.2f} GiB, "
+            f"sd15 {label}: {seconds:.3f} s (VAE decode {decode}), peak memory {peak / 2**30:.2f} GiB, "
             f"K1 launches {launched}, {len(images)} image(s) {images[0].size}, "
             f"decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}"
         )
@@ -2347,20 +2643,26 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
             raise AssertionError(f"sd15 {label}: decoded images of shape {tuple(z.shape)} are not finite")
         if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
             raise AssertionError(f"sd15 {label}: an image is constant")
-        requests.append({"request": label, "seconds": seconds, "vae_decode_seconds": decode_seconds[-1],
+        requests.append({"request": label, "seconds": seconds, "vae_decode_seconds": decode_seconds[-1] if decode_seconds else None,
                          "peak_memory_bytes": peak, "k1_launches": launched})  # fmt: skip
+        if Program.total_captures != captures:  # the first call of a program's key: served again, replayed
+            requests.append(_replayed(f"sd15 {label}", fn, out, want, decoded))
         return out
 
     reset_launches()
-    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))  # CFG 7.5
+    pipe = decodes.watch(TextToImage(sd, size=(SD15_SIZE, SD15_SIZE)))  # CFG 7.5
     images = [request(f"text-to-image {seed}", SD15_LAUNCHES_PER_REQUEST,
                       lambda: pipe(prompt, negative_prompt=negative, seed=seed))
               for seed, (prompt, negative) in enumerate(PROMPTS)]  # fmt: skip
+    report["graphed_against_eager"] = graphed_against_eager(
+        "16b (SD1.5 512², 30 DPM++ steps, CFG 7.5, bf16)", dev, sd, pipe, requests[0],
+        {"x": x16, "kwargs": {"clip_text_embedding": emb16}}, SD15_LAUNCHES_PER_STEP,
+    )  # fmt: skip
 
     # num_images = 2: one batch of 2 latents (CFG batch 4), each image held
     # against a single request on its noise
-    pair = request("num_images=2", SD15_LAUNCHES_PER_REQUEST,
-                   lambda: TextToImage(sd, size=pipe.size, num_images=2)(*PROMPTS[0], seed=SD15_PAIR_SEED))  # fmt: skip
+    pair_pipe = decodes.watch(TextToImage(sd, size=pipe.size, num_images=2))
+    pair = request("num_images=2", SD15_LAUNCHES_PER_REQUEST, lambda: pair_pipe(*PROMPTS[0], seed=SD15_PAIR_SEED))
     pair_decoded = decoded[-1]
     noise = torch.randn((2, 4, latent, latent), generator=torch.Generator(dev).manual_seed(SD15_PAIR_SEED), device=dev)
     pair_err, pair_psnr = [], []
@@ -2396,18 +2698,19 @@ def run_sd15(dev: torch.device) -> tuple[dict[str, Any], dict[str, int]]:
     half = np.arange(SD15_SIZE)[None, :] >= SD15_SIZE // 2
     mask = Image.fromarray(np.where(half, 255, 0).astype(np.uint8).repeat(SD15_SIZE, 0), mode="L")
 
+    inpaint_pipe = decodes.watch(TextToImage(inpainting, size=pipe.size))
+
     def inpaint() -> Any:
         with torch.inference_mode():
             inpainting.set_inpainting_conditions(images[0], mask, latents_size=(latent, latent))
-        return TextToImage(inpainting, size=pipe.size)(*PROMPTS[2], seed=SD15_INPAINT_SEED)
+        return inpaint_pipe(*PROMPTS[2], seed=SD15_INPAINT_SEED)
 
     request("inpainting", SD15_LAUNCHES_PER_REQUEST + 1, inpaint)
     # the path's launches: the requests' own, not those of the single runs the pair was held against
     launches = {"flash_attention_packed": sum(r["k1_launches"] for r in requests)}
-    for hook in hooks:
-        hook.remove()
+    decodes.close()
     report["requests"] = requests
-    del inpainting, unet9, pipe, sdpa, decoded, images, pair, pair_decoded, noise, emb, emb16
+    del inpainting, unet9, pipe, pair_pipe, inpaint_pipe, sdpa, decoded, images, pair, pair_decoded, noise, emb, emb16, x16
     _free()
     return report, launches, sd
 
@@ -2445,7 +2748,8 @@ class AdaptedServing:
     three ways, gated; after each eject the bare CFG step, which must equal
     the one taken before the first injection bit for bit; and requests, each
     between synchronizes with its seconds, peak memory and K1 launches
-    (counted from 0), every image it decodes finite and not constant.
+    (counted from 0), every image it decodes finite and not constant, and
+    served again, replayed, where it was a program's first call.
     `extra` holds the model's other step inputs (SDXL: the pooled
     embedding and the time ids), `prefix` names the model in the log."""
 
@@ -2455,8 +2759,8 @@ class AdaptedServing:
         self.dev, self.sd, self.x, self.emb = dev, sd, x, emb
         self.prefix, self.condition_scale, self.extra = prefix, condition_scale, extra or {}
         self.size = size if size is not None else (SD15_SIZE, SD15_SIZE)
-        self.decoded: list[torch.Tensor] = []
-        self.hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: self.decoded.append(out.float()))
+        self.decodes = _Decodes(sd.lda[1])
+        self.decoded = self.decodes.tensors
         self.requests: list[dict[str, Any]] = []
         self.base, _ = self.step(BF16, kernel=True)
 
@@ -2523,12 +2827,15 @@ class AdaptedServing:
 
     def request(self, label: str, want: int, fn: Callable[[], Any], size: tuple[int, int] | None = None) -> None:
         """One request, `fn` (its per-request conditions included), of images of `size` (height, width;
-        the serving's size by default)."""
+        the serving's size by default); served again (`_replayed`) where it captured."""
+        from refiners_tpu_torch.fluxion.graphs import Program
+
         size = size if size is not None else self.size
-        del self.decoded[:]
+        self.decodes.clear()
         torch.cuda.reset_peak_memory_stats(self.dev)
         torch.cuda.synchronize()
         reset_launches()
+        captures = Program.total_captures
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2546,10 +2853,12 @@ class AdaptedServing:
         if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
             raise AssertionError(f"{self.prefix} {label}: an image is constant")
         self.requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
+        if Program.total_captures != captures:  # the first call of a program's key: served again, replayed
+            self.requests.append(_replayed(f"{self.prefix} {label}", fn, out, want, self.decoded))
 
     def close(self) -> tuple[list[dict[str, Any]], dict[str, int]]:
         """The requests, and the path's K1 launches (the requests' own)."""
-        self.hook.remove()
+        self.decodes.close()
         return self.requests, {"flash_attention_packed": sum(r["k1_launches"] for r in self.requests)}
 
 
@@ -2576,7 +2885,7 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
         emb = sd.compute_clip_text_embedding(*PROMPTS[0])
     serving = AdaptedServing(dev, sd, x, emb)
     report: dict[str, Any] = {}
-    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+    pipe = serving.decodes.watch(TextToImage(sd, size=(SD15_SIZE, SD15_SIZE)))
 
     def served(seed: int, prepare: Callable[[], None] = lambda: None) -> Callable[[], Any]:
         """A text-to-image request, `prepare` (the per-request condition) included."""
@@ -2707,7 +3016,8 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
         SD1IPAdapter,
         StyleAlignedAdapter,
     )
-    from refiners_tpu_torch.pipelines import TextToImage
+    from refiners_tpu_torch.fluxion.graphs import Program
+    from refiners_tpu_torch.pipelines import TextToImage, _diffuse
 
     steps = sd.solver.num_inference_steps
     per_call = SD15_LAUNCHES_PER_STEP
@@ -2727,7 +3037,7 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
         emb2 = sd.compute_clip_text_embedding(*pair_prompts)
     serving = AdaptedServing(dev, sd, x, emb)
     report: dict[str, Any] = {}
-    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+    pipe = serving.decodes.watch(TextToImage(sd, size=(SD15_SIZE, SD15_SIZE)))
 
     # (a) self-attention guidance at 0.75: a second UNet call a step (batch 1) on the degraded latents.
     # Its mask thresholds the middle block's attention mass, so routes that differ by bf16 rounding
@@ -2771,13 +3081,15 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
     report["style_aligned"] = {"reference_sample_rel": reference_rel, "other_sample_rel": other_rel,
                                **serving.gate("StyleAligned", per_call, inputs=pair)}  # fmt: skip
 
+    request_generator = torch.Generator(dev)  # one per program argument, seeded again per request, as TextToImage's
+
     def style_aligned_request() -> list[Any]:
-        generator = torch.Generator(dev).manual_seed(71)
+        generator = request_generator.manual_seed(71)
         with torch.inference_mode():
             embedding = sd.compute_clip_text_embedding(*pair_prompts)
             noise = torch.randn((2, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
-            z = sd.diffuse(sd.solver.scale_model_input(noise, step=-1), clip_text_embedding=embedding,
-                           condition_scale=7.5, generator=generator)  # fmt: skip
+            # the pipeline's loop program on the pair's batch (TextToImage serves one prompt)
+            z = pipe._program("diffuse", _diffuse)(sd, sd.solver.scale_model_input(noise, step=-1), embedding, 7.5, generator)
             return tensor_to_images((sd.lda.decode(z) + 1) / 2)
 
     serving.request("StyleAligned (2 images)", per_call * steps + 1, style_aligned_request)
@@ -2816,18 +3128,24 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
     print(f"sd15 reference-only: K1's share of the step's device time {profile['k1_share']:.3f}")
     report["reference_only"]["unet_step_profile"] = profile
 
+    @Program
+    def refonly_loop(sd: Any, z: torch.Tensor, embedding: torch.Tensor, pair_latents: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:  # fmt: skip
+        """The request's loop, one program: the guide noised to each step, then the step."""
+        for i in sd.steps:
+            step_noise = torch.randn(pair_latents.shape, generator=generator, device=dev)
+            refonly.set_controlnet_condition(sd.solver.add_noise(pair_latents, step_noise, i))
+            z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+        return z
+
     def refonly_request() -> Any:
-        generator = torch.Generator(dev).manual_seed(72)
+        generator = request_generator.manual_seed(72)
         with torch.inference_mode():
             latents = sd.lda.image_to_latents(guide_image)  # the guide encoded once a request
             pair_latents = torch.cat([latents, latents])
             embedding = sd.compute_clip_text_embedding(*PROMPTS[1])
             noise = torch.randn((1, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
-            z = sd.solver.scale_model_input(noise, step=-1)
-            for i in sd.steps:
-                step_noise = torch.randn(pair_latents.shape, generator=generator, device=dev)
-                refonly.set_controlnet_condition(sd.solver.add_noise(pair_latents, step_noise, i))
-                z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+            z = refonly_loop(sd, sd.solver.scale_model_input(noise, step=-1), embedding, pair_latents, generator)
             return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
 
     serving.request("reference-only", 3 * per_call * steps + 2, refonly_request)
@@ -2851,15 +3169,21 @@ def run_sd15_zoo(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str, 
                          **serving.gate("Restart (its first timestep)", per_call, use_restart_solver)}  # fmt: skip
     sd.solver = ddim
 
+    @Program
+    def restart_loop(sd: Any, z: torch.Tensor, embedding: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The request's loop, one program, Restart's iterations at its start step."""
+        for i in sd.steps:
+            z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5)
+            if i == restart.start_step:
+                z = restart(z, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+        return z
+
     def restart_request() -> Any:
-        generator = torch.Generator(dev).manual_seed(73)
+        generator = request_generator.manual_seed(73)
         with torch.inference_mode():
             embedding = sd.compute_clip_text_embedding(*PROMPTS[2])
             z = torch.randn((1, 4, latent, latent), generator=generator, device=dev).to(sd.unet.dtype)
-            for i in sd.steps:
-                z = sd(z, i, clip_text_embedding=embedding, condition_scale=7.5)
-                if i == restart.start_step:
-                    z = restart(z, clip_text_embedding=embedding, condition_scale=7.5, generator=generator)
+            z = restart_loop(sd, z, embedding, generator)
             return tensor_to_images((sd.lda.decode(z) + 1) / 2)[0]
 
     extra = restart.num_iterations * (restart.num_steps - 1)
@@ -2980,7 +3304,7 @@ def run_sd15_slice(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str
         emb = sd.compute_clip_text_embedding(*PROMPTS[0])
     serving = AdaptedServing(dev, sd, x, emb)
     report: dict[str, Any] = {}
-    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+    pipe = serving.decodes.watch(TextToImage(sd, size=(SD15_SIZE, SD15_SIZE)))
 
     # (a) ELLA: its encoder first in the UNet, the 32 text UseContexts of the cross-attentions pointed at
     # its latents; synthetic weights damped as golden_cfg.build_ella damps them
@@ -3034,7 +3358,7 @@ def run_sd15_slice(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[str
         ic.set_ic_light_condition(foreground, subject)
     ic_serving = AdaptedServing(dev, ic, x, emb)
     report["ic_light"] = ic_serving.gate("IC-Light", per_call)
-    ic_pipe = TextToImage(ic, size=(SD15_SIZE, SD15_SIZE), condition_scale=IC_LIGHT_SCALE)
+    ic_pipe = ic_serving.decodes.watch(TextToImage(ic, size=(SD15_SIZE, SD15_SIZE), condition_scale=IC_LIGHT_SCALE))
 
     def ic_request() -> Any:
         with torch.inference_mode():
@@ -3374,6 +3698,7 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     from refiners_tpu_torch.foundationals.latent_diffusion.t2i_adapter import ConditionEncoderXL
     from refiners_tpu_torch.pipelines import TextToImage
 
+    sd.set_inference_steps(SDXL_ZOO_STEPS)
     steps = sd.solver.num_inference_steps
     per_call = SDXL_LAUNCHES_PER_CALL
     per_request = per_call * steps + 1
@@ -3390,7 +3715,7 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     single = {"inputs": (x, emb[1:]), "extra": {"pooled_text_embedding": pooled[1:], "time_ids": time_ids[1:]}}
     serving = AdaptedServing(dev, sd, x, emb, prefix="sdxl", condition_scale=5.0, extra=extra, size=(size, size))
     report: dict[str, Any] = {}
-    pipe = TextToImage(sd, size=(size, size))
+    pipe = serving.decodes.watch(TextToImage(sd, size=(size, size)))
 
     def served(seed: int, prepare: Callable[[], None] = lambda: None) -> Callable[[], Any]:
         """A text-to-image request, `prepare` (the per-request condition) included."""
@@ -3593,7 +3918,7 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     _free()
 
     # (j) MultiDiffusion: a 1024 × 2048 panorama, three 128² latent tiles (overlap 64), each with its own
-    # DDIM, 30 steps, CFG 5.0; one decode of the whole 128 × 256 latent
+    # DDIM at the phase's steps, CFG 5.0; one decode of the whole 128 × 256 latent
     md = SDXLMultiDiffusion(sd)
     height, width = SDXL_PANORAMA
     tiles = MultiDiffusion.generate_latent_tiles(Size(height // 8, width // 8), Size(latent, latent), min_overlap=latent // 2)
@@ -3793,7 +4118,10 @@ def run_box_segmenter(dev: torch.device) -> dict[str, Any]:
     print(f"box segmenter: MVANet (Swin-B) built, {n_params} parameters, float32, {time.perf_counter() - t0:.1f} s")
     image = _sam_image(210, BOX_IMAGE)
     captured: dict[str, torch.Tensor] = {}
-    hook = segmenter.model.register_forward_hook(lambda _m, inputs, out: captured.update(input=inputs[0], logits=out))
+    # the first request's (its program's eager run): a hook inside a program runs at its first call and capture only
+    hook = segmenter.model.register_forward_hook(
+        lambda _m, inputs, out: None if torch.cuda.is_current_stream_capturing() else captured.update(input=inputs[0], logits=out)
+    )  # fmt: skip
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the port's float32
     try:
         torch.cuda.synchronize()
@@ -3907,10 +4235,9 @@ def run_sd15_conversion(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dic
     folder = Path(__file__).resolve().parent / "build" / "chip_smoke_conversion"
     shutil.rmtree(folder, ignore_errors=True)
     folder.mkdir(parents=True)
-    pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))  # DPM++ 30 steps, CFG 7.5
+    decodes = _Decodes()
+    pipe = decodes.watch(TextToImage(sd, size=(SD15_SIZE, SD15_SIZE)))  # DPM++ 30 steps, CFG 7.5
     prompt, negative = PROMPTS[0]
-    decoded: list[torch.Tensor] = []
-    hook = sd.lda[1].register_forward_hook(lambda _m, _i, out: decoded.append(out.float().cpu()))
 
     def serve(label: str) -> tuple[np.ndarray, torch.Tensor, int, float]:
         """Phase 7's first request: its image, decoded tensor, K1 launches and seconds."""
@@ -3924,7 +4251,7 @@ def run_sd15_conversion(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dic
         print(f"conversion: {label}: {seconds:.3f} s, K1 launches {launches}")
         if launches != SD15_LAUNCHES_PER_REQUEST:
             raise AssertionError(f"conversion: {label} launched K1 {launches} times, not {SD15_LAUNCHES_PER_REQUEST}")
-        return np.asarray(image), decoded[-1], launches, seconds
+        return np.asarray(image), decodes.tensors[-1].cpu(), launches, seconds
 
     def restore(module: torch.nn.Module, path: Path, original: dict[str, torch.Tensor], label: str) -> None:
         """Zero `module`, load `path` into it with strict=True, and hold every tensor bit-equal to `original`."""
@@ -3990,7 +4317,7 @@ def run_sd15_conversion(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dic
         print(f"conversion: REGISTRY['sd15.autoencoder'].convert(): {registry['bytes_in']} bytes in, "
               f"{registry['bytes_out']} bytes out, {registry_seconds:.3f} s; loaded with strict=True, bit-equal")  # fmt: skip
     finally:
-        hook.remove()
+        decodes.close()
         shutil.rmtree(folder, ignore_errors=True)
     _free()
     report = {"conversions": conversions, "registry": registry, "request_seconds": seconds, "k1_launches": launches,
@@ -4256,8 +4583,9 @@ def run_root_examples(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
     (one LoRA) through their `main`, from refiners-layout files of phase 7's
     weights, a seeded canny ControlNet and a LoRA written under
     ``build/root_examples/`` (deleted after); each against the same request
-    served here on phase 7's model with DDIM. Returns the report and the
-    examples' K1 launches."""
+    served here on phase 7's model with DDIM, which is served again,
+    replayed (`_replayed`). Returns the report and the examples' K1
+    launches."""
     import shutil
     from pathlib import Path
 
@@ -4284,53 +4612,61 @@ def run_root_examples(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
     prompt, negative = PROMPTS[0]
     common = ["--prompt", prompt, "--weights-dir", str(folder), "--steps", str(EXAMPLE_STEPS), "--seed", str(EXAMPLE_SEED)]
 
-    def in_process_controlnet_lora() -> Any:
+    @contextlib.contextmanager
+    def controlnet_lora_served() -> Iterator[Callable[[], Any]]:
         manager = SDLoraManager(sd)
         manager.add_loras("style", tensors=load_from_safetensors(folder / "lora.safetensors"), scale=0.7)
         weights = load_from_safetensors(folder / "controlnet.sd15.canny.safetensors")
         adapter = SD1ControlnetAdapter(sd.unet, name="canny", scale=0.8, weights=weights).inject()
         cond = image_to_tensor(Image.open(folder / "canny.png").convert("RGB"), device=dev)
         adapter.set_controlnet_condition(torch.cat([cond, cond]))
+        pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE), condition_scale=7.5)
         try:
-            return TextToImage(sd, size=(SD15_SIZE, SD15_SIZE), condition_scale=7.5)(
-                prompt, negative_prompt="low quality", seed=EXAMPLE_SEED
-            )
+            yield lambda: pipe(prompt, negative_prompt="low quality", seed=EXAMPLE_SEED)
         finally:
             adapter.eject()
             manager.remove_loras("style")
+
+    @contextlib.contextmanager
+    def txt2img_served() -> Iterator[Callable[[], Any]]:
+        pipe = TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))
+        yield lambda: pipe(prompt, negative_prompt=negative, seed=EXAMPLE_SEED)
 
     runs = {
         "txt2img": (
             lambda: txt2img.main(["--model", "sd15", "--negative", negative, "--size", str(SD15_SIZE),
                                   "--out", str(folder / "txt2img.png"), *common]),
-            lambda: TextToImage(sd, size=(SD15_SIZE, SD15_SIZE))(prompt, negative_prompt=negative, seed=EXAMPLE_SEED),
+            txt2img_served,
         ),
         "controlnet_lora": (
             lambda: controlnet_lora.main(["--condition", str(folder / "canny.png"), "--lora", str(folder / "lora.safetensors"),
                                           "--out", str(folder / "controlnet_lora.png"), *common]),
-            in_process_controlnet_lora,
+            controlnet_lora_served,
         ),
     }  # fmt: skip
     dpm = sd.solver
     sd.solver = DDIM(num_inference_steps=EXAMPLE_STEPS, device=dev)
     report: dict[str, Any] = {}
     launches = 0
-    for name, (example, in_process) in runs.items():
-        timed: dict[str, tuple[float, int, int, np.ndarray]] = {}
-        for label, fn in (("example", example), ("in-process", in_process)):
-            _free()
-            torch.cuda.reset_peak_memory_stats(dev)
-            torch.cuda.synchronize()
-            reset_launches()
-            start = time.perf_counter()
-            image = fn()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            timed[label] = (seconds, read_launches()["flash_attention_packed"], torch.cuda.max_memory_allocated(dev),
-                            np.asarray(image))  # fmt: skip
-        (seconds, launched, peak, image), (ref_seconds, ref_launched, ref_peak, ref) = timed["example"], timed["in-process"]
-        off, psnr = int((image != ref).any(axis=-1).sum()), _psnr(image, ref)
+
+    def timed(fn: Callable[[], Any]) -> tuple[float, int, int, np.ndarray]:
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        image = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        return seconds, read_launches()["flash_attention_packed"], torch.cuda.max_memory_allocated(dev), np.asarray(image)
+
+    for name, (example, served) in runs.items():
         want = EXAMPLE_LAUNCHES[name]
+        seconds, launched, peak, image = timed(example)
+        with served() as serve:  # the in-process request: its programs' first call, then served again, replayed
+            ref_seconds, ref_launched, ref_peak, ref = timed(serve)
+            replay = _replayed(f"examples.{name} in-process", serve, ref, want)
+        off, psnr = int((image != ref).any(axis=-1).sum()), _psnr(image, ref)
         print(f"examples.{name}: main {seconds:.3f} s (model built, files loaded, one request), peak memory "
               f"{peak / 2**30:.2f} GiB, K1 launches {launched}; the request in-process on phase 7's model "
               f"{ref_seconds:.3f} s, {ref_peak / 2**30:.2f} GiB, {ref_launched} launches; image {image.shape}, "
@@ -4340,7 +4676,8 @@ def run_root_examples(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
         if image.shape != (SD15_SIZE, SD15_SIZE, 3) or np.ptp(image) == 0 or not psnr >= EXAMPLE_PSNR:
             raise AssertionError(f"examples.{name}: image {image.shape}, PSNR {psnr} against the in-process request")
         report[name] = {"seconds": seconds, "peak_memory_bytes": peak, "launches": launched, "pixels_off": off,
-                        "psnr": psnr, "in_process_seconds": ref_seconds, "in_process_peak_memory_bytes": ref_peak}  # fmt: skip
+                        "psnr": psnr, "in_process_seconds": ref_seconds, "in_process_peak_memory_bytes": ref_peak,
+                        "in_process_replayed": replay}  # fmt: skip
         launches += launched
     sd.solver = dpm
     shutil.rmtree(folder)
@@ -4685,25 +5022,42 @@ def main() -> int:
     for results, label in ((gn_stats, "K5a"), (gn_apply, "K5b"), (quantize, "K6"), (quantize_rows, "K6 rows")):
         _print_row(label, results[0]["ms"], results[0])
     _free()
-    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_images, unet_profile = run_sdxl(dev)
+    def done(phase: str) -> None:
+        print(f"{phase}: done at {time.perf_counter() - start:.1f} s")
+
+    done("phases 0-2")
+    sdxl_launches, seconds, decode_seconds, sdxl_peak, bf16_images, unet_profile, graphed_sdxl = run_sdxl(dev)
+    done("phases 3, 16a")
     step_check = check_training_step(dev)
-    train_launches, train_records = run_trainer(dev)
+    train_launches, train_records, graphed_training = run_trainer(dev)
+    done("phases 4a, 4b, 16d")
     vae_step = check_vae_step(dev)
     vae_launches, vae_report = run_vae_training(dev)
+    done("phase 4c")
     sam_report, sam_launches = run_sam(dev)
+    done("phases 5, 16c")
     passes_report, passes_launches = run_sdxl_passes(dev, bf16_images[0])
+    done("phase 6")
     sd15_report, sd15_launches, sd15 = run_sd15(dev)
+    done("phases 7, 16b")
     adapters_report, adapters_launches = run_sd15_adapters(dev, sd15)
+    done("phase 8")
     zoo_report, zoo_launches = run_sd15_zoo(dev, sd15)
+    done("phase 9")
     slice_report, slice_launches = run_sd15_slice(dev, sd15)
+    done("phase 10")
     conversion_report, conversion_launches = run_sd15_conversion(dev, sd15)
+    done("phase 13")
     _free()
     sdxl_zoo_report, sdxl_zoo_launches = run_sdxl_zoo(dev, build_sdxl(dev))
+    done("phase 11")
     _free()
     dinov2_report, dinov2_launches = run_dinov2(dev)
     fd_report = run_frechet_distance(dev)
     box_report = run_box_segmenter(dev)
+    done("phase 12")
     mesh_report, mesh_launches, mesh_train_launches = run_mesh(dev, bf16_images)
+    done("phase 14")
     phase15 = time.perf_counter()
     examples_report, examples_launches = run_root_examples(dev, sd15)
     del sd15
@@ -4711,6 +5065,7 @@ def main() -> int:
     coupled_report, coupled_launches = run_coupled_mesh(dev)
     facades_report = check_new_facades(dev)
     print(f"phase 15: {time.perf_counter() - phase15:.1f} s")
+    done("phase 15")
 
     def kernel(name: str, source: str, replaces: str, launches: int, shapes: list[dict], row: dict) -> dict[str, Any]:
         return {
@@ -4830,6 +5185,8 @@ def main() -> int:
         "sdxl_vae_decode_seconds": decode_seconds,
         "sdxl_peak_memory_bytes": sdxl_peak,
         "sdxl_unet_step_profile": unet_profile,
+        "sdxl_graphed_against_eager": graphed_sdxl,
+        "sd15_trainer_jit_step_against_eager": graphed_training,
         "sd15_training_step": step_check,
         "sd15_trainer_seconds_per_step": [r["seconds"] for r in train_records],
         "sd15_trainer_peak_memory_bytes": [r["peak_memory_bytes"] for r in train_records],

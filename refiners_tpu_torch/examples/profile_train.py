@@ -112,7 +112,7 @@ def device_breakdown(
     """Device time by kernel kind of a traced run (and its `top` kernels by
     name), and its idle share; `wall` is the host-clock seconds of the same
     work unprofiled. Printed, and returned: summed device milliseconds, by
-    kind, and the idle share of the traced window."""
+    kind, the kernels by name, and the idle share of the traced window."""
     from torch.autograd import DeviceType
 
     # kernels only: a range of `record_function` (the optimizer's step) also shows on the device as a user
@@ -145,7 +145,8 @@ def device_breakdown(
         f"  traced window {window / 1e3:.1f} ms from the first kernel's start to the last one's end, device busy "
         f"{busy / 1e3:.1f} ms, idle share {1 - busy / window:.3f}; the same {unit} unprofiled: {wall * 1e3:.1f} ms"
     )
-    return {"device_ms": total, "by_kind_ms": {k: v[0] for k, v in by_kind.items()}, "idle_share": 1 - busy / window}
+    return {"device_ms": total, "by_kind_ms": {k: v[0] for k, v in by_kind.items()},
+            "by_name_launches": {k: v[1] for k, v in by_name.items()}, "idle_share": 1 - busy / window}  # fmt: skip
 
 
 def main() -> None:

@@ -102,7 +102,7 @@ class UnetTrainer(Trainer[UnetConfig, dict[str, torch.Tensor]]):
             0, self.solver.num_inference_steps, (self.batch_size,), generator=self.generator, device=self.device
         )
         noise, steps = self.shard_batch((noise, steps))
-        noised = self.solver.add_noise(latents, noise, steps.tolist())
+        noised = self.solver.add_noise(latents, noise, steps)
         self.unet.set_timestep(self.solver.timesteps[steps])
         self.unet.set_clip_text_embedding(batch["text"].to(self.dtype))
         prediction = self.unet(noised)

@@ -19,6 +19,9 @@ class Converter(ContextModule):
         parent = self.ensure_parent
         device = parent.device if self.set_device else None
         dtype = parent.dtype if self.set_dtype else None
+        # to the card without a wait: a page-locked host tensor's copy is then one a CUDA graph capture holds
+        non_blocking = device is not None and device.type == "cuda"
         return tuple(
-            x.to(device=device, dtype=dtype if x.is_floating_point() else None) for x in inputs
+            x.to(device=device, dtype=dtype if x.is_floating_point() else None, non_blocking=non_blocking)
+            for x in inputs
         )

@@ -39,6 +39,10 @@ def _bytes_to_unicode() -> dict[int, str]:
 class CLIPTokenizer(fl.Module):
     """Byte-level BPE tokenizer producing (batch, sequence_length) ids."""
 
+    # host-side tables and the merge cache: left out of a compiled program's
+    # key (`fluxion.graphs`), as the JAX package leaves them out of its pytree
+    _pytree_ignore = frozenset({"_byte_encoder", "_encoder", "_bpe_ranks", "_cache", "_pattern", "_native"})
+
     def __init__(
         self,
         vocabulary_path: str | Path = DEFAULT_VOCAB,

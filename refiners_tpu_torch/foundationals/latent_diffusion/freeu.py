@@ -31,7 +31,7 @@ def fourier_filter(x: torch.Tensor, scale: float = 1, threshold: int = 1) -> tor
     x_freq = torch.fft.fftshift(torch.fft.fftn(x.float(), dim=(-2, -1)), dim=(-2, -1))
     mask = torch.ones((height, width), dtype=torch.float32, device=x.device)
     cr, cc = height // 2, width // 2
-    mask[cr - threshold : cr + threshold, cc - threshold : cc + threshold] = scale
+    mask[cr - threshold : cr + threshold, cc - threshold : cc + threshold].fill_(scale)  # no host scalar copied up
     x_freq = torch.fft.ifftshift(x_freq * mask, dim=(-2, -1))
     return torch.fft.ifftn(x_freq, dim=(-2, -1)).real.to(x.dtype)
 

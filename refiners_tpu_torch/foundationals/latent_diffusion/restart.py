@@ -10,7 +10,7 @@ are overwritten; `num_iterations` times. The noise comes from a
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Any, Generic, TypeVar
 
@@ -20,6 +20,7 @@ import torch
 from refiners_tpu_torch.fluxion import rng
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.solvers import DDIM, Solver
+from refiners_tpu_torch.foundationals.latent_diffusion.solvers.solver import gather
 
 T = TypeVar("T", bound=LatentDiffusionModel)
 
@@ -33,8 +34,8 @@ def add_noise_interval(
     target_timestep: torch.Tensor,
 ) -> torch.Tensor:
     """Noise `x` from `initial_timestep` forward to `target_timestep`."""
-    initial = solver.cumulative_scale_factors[initial_timestep]
-    target = solver.cumulative_scale_factors[target_timestep]
+    initial = gather(solver.cumulative_scale_factors, initial_timestep)
+    target = gather(solver.cumulative_scale_factors, target_timestep)
     factor = target / initial
     return factor * x + torch.sqrt(1 - factor**2) * noise
 
@@ -48,6 +49,7 @@ class Restart(Generic[T]):
     num_iterations: int = 2
     start_time: float = 0.1
     end_time: float = 2
+    _solvers: dict[tuple[int, torch.device], DDIM] = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         assert isinstance(self.ldm.solver, DDIM), "Restart sampling only works with DDIM solver"
@@ -62,8 +64,7 @@ class Restart(Generic[T]):
         **kwargs: Any,
     ) -> torch.Tensor:
         original_solver = self.ldm.solver
-        new_solver = DDIM(original_solver.num_inference_steps, device=original_solver.timesteps.device)
-        new_solver.timesteps = self.timesteps.to(original_solver.timesteps.device)
+        new_solver = self._solver(original_solver.num_inference_steps, original_solver.timesteps.device)
         self.ldm.solver = new_solver
         try:
             for i in range(self.num_iterations):
@@ -82,6 +83,17 @@ class Restart(Generic[T]):
         finally:
             self.ldm.solver = original_solver
         return x
+
+    def _solver(self, num_inference_steps: int, device: torch.device) -> DDIM:
+        """The restart DDIM (its timesteps overwritten), built once for a
+        step count and device: its tables go up to the device at the first
+        call, not inside a compiled program's capture."""
+        key = (num_inference_steps, device)
+        if key not in self._solvers:
+            solver = DDIM(num_inference_steps, device=device)
+            solver.timesteps = self.timesteps.to(device)
+            self._solvers[key] = solver
+        return self._solvers[key]
 
     def _restart_noise(
         self, generator: torch.Generator | None, shape: tuple[int, ...], device: torch.device, iteration: int

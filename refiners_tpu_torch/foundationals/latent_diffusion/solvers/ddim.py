@@ -13,6 +13,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.solvers.solver import (
     ModelPredictionType,
     Solver,
     TimestepSpacing,
+    gather,
 )
 
 
@@ -49,12 +50,12 @@ class DDIM(Solver):
         """Deterministic DDIM update, in float32; no noise on the last step."""
         self._check_step(step)
         is_last = step == self.num_inference_steps - 1
-        current_scale = self.cumulative_scale_factors[self.timesteps[step].long()]
+        current_scale = gather(self.cumulative_scale_factors, self.timesteps[step])
         xf = x.float()
         nf = predicted_noise.float()
         predicted_x = (xf - torch.sqrt(1 - current_scale**2) * nf) / current_scale
         if is_last:
             previous_scale = self.cumulative_scale_factors[0]
             return (previous_scale * predicted_x).to(x.dtype)
-        previous_scale = self.cumulative_scale_factors[self.timesteps[step + 1].long()]
+        previous_scale = gather(self.cumulative_scale_factors, self.timesteps[step + 1])
         return (previous_scale * predicted_x + torch.sqrt(1 - previous_scale**2) * nf).to(x.dtype)

@@ -20,6 +20,7 @@ from refiners_tpu_torch.foundationals.latent_diffusion.solvers.solver import (
     Solver,
     SolverParams,
     TimestepSpacing,
+    gather,
 )
 
 
@@ -101,8 +102,8 @@ class LCMSolver(Solver):
         nf = predicted_noise.float()
 
         current_timestep = self.timesteps[step].long()
-        scale = self.cumulative_scale_factors[current_timestep]
-        std = self.noise_std[current_timestep]
+        scale = gather(self.cumulative_scale_factors, current_timestep)
+        std = gather(self.noise_std, current_timestep)
         estimate = (xf - std * nf) / scale
 
         # "Parameterization for Consistency Models"

@@ -25,6 +25,14 @@ from refiners_tpu_torch.fluxion import layers as fl
 T = TypeVar("T", bound="Solver")
 
 
+def gather(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """`table[index]` for an integer tensor `index` on the table's device,
+    with `index`'s shape. Indexing with a 0-dim tensor reads it back to the
+    host as a Python int, which a compiled program (a CUDA graph capture)
+    cannot do; a gather reads it on the device."""
+    return table.index_select(0, index.reshape(-1).long()).reshape(index.shape)
+
+
 class NoiseSchedule(str, Enum):
     UNIFORM = "uniform"
     QUADRATIC = "quadratic"  # "Stable Diffusion" schedule, arXiv:2305.08891 table 1
@@ -237,15 +245,19 @@ class Solver(fl.Module, ABC):
         assert self.first_inference_step <= step < self.num_inference_steps, f"invalid step {step}"
 
     def _add_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int) -> torch.Tensor:
-        timestep = self.timesteps[step].long()  # indexed on the tables' device, no host read
-        csf = self.cumulative_scale_factors[timestep]
-        std = self.noise_std[timestep]
+        timestep = self.timesteps[step]  # indexed on the tables' device, no host read
+        csf = gather(self.cumulative_scale_factors, timestep)
+        std = gather(self.noise_std, timestep)
         # arXiv:2006.11239 Eq. 4, in float32
         return (csf * x.float() + std * noise.float()).to(x.dtype)
 
-    def add_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int | list[int]) -> torch.Tensor:
+    def add_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int | list[int] | torch.Tensor) -> torch.Tensor:
         """Noise `x` to the timestep of inference step `step`; with a list,
-        one step per batch element."""
+        or a (B,) tensor of steps on the tables' device (indexed there, no
+        host read), one step per batch element."""
+        if isinstance(step, torch.Tensor):
+            assert step.shape == (len(x),), f"one step per batch element, got {tuple(step.shape)}"
+            return self._add_noise(x, noise, step.reshape(-1, *(1,) * (x.ndim - 1)))  # type: ignore[arg-type]
         if isinstance(step, list):
             assert len(x) == len(noise) == len(step)
             return torch.stack([self._add_noise(x[i], noise[i], s) for i, s in enumerate(step)], dim=0)
@@ -253,9 +265,9 @@ class Solver(fl.Module, ABC):
 
     def remove_noise(self, x: torch.Tensor, noise: torch.Tensor, step: int) -> torch.Tensor:
         """The inverse of `add_noise`, arXiv:2006.11239 Eq. 15, in float32."""
-        timestep = self.timesteps[step].long()
-        csf = self.cumulative_scale_factors[timestep]
-        std = self.noise_std[timestep]
+        timestep = self.timesteps[step]
+        csf = gather(self.cumulative_scale_factors, timestep)
+        std = gather(self.noise_std, timestep)
         return ((x.float() - std * noise.float()) / csf).to(x.dtype)
 
     @property

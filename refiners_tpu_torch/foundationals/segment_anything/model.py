@@ -1,16 +1,20 @@
 """The SegmentAnything facade; counterpart of
 ``refiners_tpu/foundationals/segment_anything/model.py``.
 
-The JAX package compiles two programs, one that encodes an image and one
-that turns prompts into masks; here they are two eager functions with the
-same steps (`_encode_image`, `_predict_masks`). Image embeddings are NCHW,
-(1, 256, 64, 64); masks keep the public (N, M, H, W) layout, bool when
-binarized. The facades build on (or move their parts to) the card unless
-`device` says otherwise (``device="cpu"``).
+As the JAX package compiles two programs, one that encodes an image and one
+that turns prompts into masks, `_encode_image` and `_predict_masks` are two
+compiled programs (`fluxion.graphs.Program`: CUDA graphs on the card, eager
+on the CPU), keyed as JAX's jit is: the model, the input shapes, and the
+static arguments (`scaled_size`; the type mask as a tuple, `original_size`,
+the encoder resolution and `binarize`). The prompt packing stays on the
+host. Image embeddings are NCHW, (1, 256, 64, 64); masks keep the public
+(N, M, H, W) layout, bool when binarized. The facades build on (or move
+their parts to) the card unless `device` says otherwise (``device="cpu"``).
 
-Neither function waits for the card: host data goes up with
-``non_blocking=True`` copies and the point type mask stays on the host, so
-`predict_pipelined` can enqueue every request before it reads any back.
+Neither program waits for the card: host data goes up with
+``non_blocking=True`` copies before a program runs, and the point type mask
+stays on the host (in the key), so `predict_pipelined` can enqueue every
+request before it reads any back.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from PIL import Image
 
 import refiners_tpu_torch.fluxion.layers as fl
+from refiners_tpu_torch.fluxion.graphs import Program
 from refiners_tpu_torch.fluxion.utils import default_device
 from refiners_tpu_torch.foundationals.segment_anything.image_encoder import SAMViT, SAMViTH
 from refiners_tpu_torch.foundationals.segment_anything.mask_decoder import MaskDecoder
@@ -65,19 +70,29 @@ def _to_device(x: torch.Tensor, device: torch.device | None) -> torch.Tensor:
     return x.to(device, non_blocking=True)
 
 
+def _filled(values: tuple[float, ...], device: torch.device | None) -> torch.Tensor:
+    """`values` as a float32 vector on `device`, written by fills: no copy
+    from host memory, which a capture cannot hold."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)  # `out[i] = v` copies a host scalar tensor up
+    return out
+
+
+@Program
 def _encode_image(root: fl.Chain, x: torch.Tensor, scaled_size: tuple[int, int]) -> tuple[torch.Tensor, dict]:
-    """Normalize, zero the padding and run the ViT.
+    """Normalize, zero the padding and run the ViT, as one program.
 
     `x` is the host-resized image in [0, 255] on the square encoder canvas,
     (1, 3, R, R). The normalization runs in float32 on the device; the padded
     region is zeroed after it, as the reference pads after normalizing.
     """
     h, w = scaled_size
-    mean = _to_device(torch.tensor(PIXEL_MEAN, dtype=torch.float32).reshape(1, 3, 1, 1), x.device)
-    std = _to_device(torch.tensor(PIXEL_STD, dtype=torch.float32).reshape(1, 3, 1, 1), x.device)
+    mean = _filled(PIXEL_MEAN, x.device).reshape(1, 3, 1, 1)
+    std = _filled(PIXEL_STD, x.device).reshape(1, 3, 1, 1)
     xn = (x.float() - mean) / std
-    xn[:, :, h:, :] = 0.0
-    xn[:, :, :, w:] = 0.0
+    xn[:, :, h:, :].zero_()  # in place: `= 0.0` copies a host scalar tensor up
+    xn[:, :, :, w:].zero_()
     vit = root.ensure_find(SAMViT)
     features = vit(xn.to(vit.dtype))
     captured: dict = {}
@@ -88,11 +103,12 @@ def _encode_image(root: fl.Chain, x: torch.Tensor, scaled_size: tuple[int, int])
     return features, captured
 
 
+@Program
 def _predict_masks(
     root: fl.Chain,
     image_embedding: torch.Tensor,
     coordinates: torch.Tensor,
-    type_mask: torch.Tensor,
+    type_mask: tuple[tuple[int, ...], ...],
     low_res_mask: torch.Tensor | None,
     captured_contexts: dict,
     original_size: tuple[int, int],
@@ -100,7 +116,9 @@ def _predict_masks(
     binarize: bool,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalize the coordinates, encode the prompts and the mask, decode the
-    masks, upsample them and binarize. `type_mask` is a host tensor."""
+    masks, upsample them and binarize, as one program. The type mask is a
+    tuple (in the key): the prompt padding branches on its values on the
+    host, so each prompt configuration has its own program."""
     for context, store in captured_contexts.items():
         root.set_context(context, dict(store))
     point_encoder = root.ensure_find(PointEncoder)
@@ -117,7 +135,7 @@ def _predict_masks(
     else:
         mask_embedding = mask_encoder.get_no_mask_dense_embedding(image_embedding_size=image_embedding_size)
 
-    point_encoder.set_type_mask(type_mask=type_mask)
+    point_encoder.set_type_mask(type_mask=torch.tensor(type_mask, dtype=torch.int32))
     point_embedding = point_encoder(coordinates)
     dense_positional_embedding = point_encoder.get_dense_positional_embedding(image_embedding_size=image_embedding_size)
     mask_decoder.set_image_embedding(image_embedding=image_embedding)
@@ -210,8 +228,8 @@ class SegmentAnything(fl.Chain):
         return _predict_masks(
             root,
             image_embedding,
-            coordinates,
-            type_mask,
+            _to_device(coordinates, image_embedding.device),
+            tuple(map(tuple, type_mask.tolist())),
             low_res_mask,
             captured_contexts,
             original_size,

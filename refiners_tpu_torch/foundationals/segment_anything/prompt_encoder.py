@@ -59,7 +59,11 @@ class PointTypeEmbedding(fl.WeightedModule, fl.ContextModule):
 
     def forward(self, type_mask: torch.Tensor) -> torch.Tensor:
         # type ids are 1-based; id 0 (unused) maps to zeros
-        type_mask = type_mask.to(self.weight.device)
+        if type_mask.device != self.weight.device:
+            # the prompt's mask, on the host: its rows picked by value (views, one stack), not uploaded
+            zeros = self.weight.new_zeros(self.embedding_dim)
+            rows = [self.weight[min(t, len(PointType)) - 1] if t > 0 else zeros for t in type_mask.flatten().tolist()]
+            return torch.stack(rows).reshape(*type_mask.shape, self.embedding_dim)
         idx = (type_mask.long() - 1).clamp(0, len(PointType) - 1)
         return torch.where((type_mask > 0)[..., None], self.weight[idx], 0.0)
 

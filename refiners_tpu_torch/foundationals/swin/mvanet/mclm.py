@@ -6,6 +6,7 @@ Multi-view stacks are (B, V, C, H, W); attention sequences are seq-first.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -34,6 +35,40 @@ class PerPixel(fl.Chain):
         )
 
 
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """`t` in page-locked memory on a CUDA machine: its copy to the card is
+    one a compiled program's capture can hold (an unpinned one it cannot)."""
+    return t.pin_memory() if torch.cuda.is_available() else t
+
+
+def _dim_t(num_pos_feats: int) -> np.ndarray:
+    t = np.arange(0, num_pos_feats, dtype=np.float32)
+    return 10000 ** (2 * (t // 2) / num_pos_feats)
+
+
+@functools.cache
+def _sine_embedding(num_pos_feats: int, h: int, w: int) -> torch.Tensor:
+    """DETR's sine embedding of an (h, w) grid, (h·w, 1, C), computed once on the host."""
+    dim_t = _dim_t(num_pos_feats)
+    y_embed = np.cumsum(np.ones((1, h, w, 1), dtype=np.float32), axis=1)
+    x_embed = np.cumsum(np.ones((1, h, w, 1), dtype=np.float32), axis=2)
+    eps, scale = 1e-6, 2 * math.pi
+    y_embed = (y_embed - 0.5) / (y_embed[:, -1:, :] + eps) * scale
+    x_embed = (x_embed - 0.5) / (x_embed[:, :, -1:] + eps) * scale
+
+    pos_x = x_embed / dim_t
+    pos_y = y_embed / dim_t
+    pos_x = np.stack((np.sin(pos_x[:, :, :, 0::2]), np.cos(pos_x[:, :, :, 1::2])), axis=4).reshape(1, h, w, -1)
+    pos_y = np.stack((np.sin(pos_y[:, :, :, 0::2]), np.cos(pos_y[:, :, :, 1::2])), axis=4).reshape(1, h, w, -1)
+    pos = np.concatenate((pos_y, pos_x), axis=3)  # (1, h, w, C)
+    return _pinned(torch.from_numpy(np.ascontiguousarray(pos.transpose(1, 2, 0, 3).reshape(h * w, 1, -1))))
+
+
+@functools.cache
+def _pool_embeddings(num_pos_feats: int, pool_ratios: tuple[int, ...], h: int, w: int) -> torch.Tensor:
+    return _pinned(torch.cat([_sine_embedding(num_pos_feats, h // r, w // r) for r in pool_ratios]))
+
+
 class PositionEmbeddingSine(fl.Module):
     """DETR's fixed sine position embedding of an (h, w) grid, (h·w, 1, C), on the host."""
 
@@ -43,22 +78,10 @@ class PositionEmbeddingSine(fl.Module):
 
     @property
     def dim_t(self) -> np.ndarray:
-        t = np.arange(0, self.num_pos_feats, dtype=np.float32)
-        return 10000 ** (2 * (t // 2) / self.num_pos_feats)
+        return _dim_t(self.num_pos_feats)
 
     def forward(self, h: int, w: int) -> torch.Tensor:
-        y_embed = np.cumsum(np.ones((1, h, w, 1), dtype=np.float32), axis=1)
-        x_embed = np.cumsum(np.ones((1, h, w, 1), dtype=np.float32), axis=2)
-        eps, scale = 1e-6, 2 * math.pi
-        y_embed = (y_embed - 0.5) / (y_embed[:, -1:, :] + eps) * scale
-        x_embed = (x_embed - 0.5) / (x_embed[:, :, -1:] + eps) * scale
-
-        pos_x = x_embed / self.dim_t
-        pos_y = y_embed / self.dim_t
-        pos_x = np.stack((np.sin(pos_x[:, :, :, 0::2]), np.cos(pos_x[:, :, :, 1::2])), axis=4).reshape(1, h, w, -1)
-        pos_y = np.stack((np.sin(pos_y[:, :, :, 0::2]), np.cos(pos_y[:, :, :, 1::2])), axis=4).reshape(1, h, w, -1)
-        pos = np.concatenate((pos_y, pos_x), axis=3)  # (1, h, w, C)
-        return torch.from_numpy(np.ascontiguousarray(pos.transpose(1, 2, 0, 3).reshape(h * w, 1, -1)))
+        return _sine_embedding(self.num_pos_feats, h, w)
 
 
 class MultiPoolPos(fl.Module):
@@ -71,7 +94,7 @@ class MultiPoolPos(fl.Module):
 
     def forward(self, *args: int) -> torch.Tensor:
         h, w = args
-        return torch.cat([self.positional_embedding(h // r, w // r) for r in self.pool_ratios])
+        return _pool_embeddings(self.positional_embedding.num_pos_feats, tuple(self.pool_ratios), h, w)
 
 
 class Repeat(fl.Module):

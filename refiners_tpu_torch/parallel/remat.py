@@ -66,12 +66,15 @@ class Recompute(fl.Chain):
                     context.clear()
                     context.update(current)
 
-        # no early stop: it ends the recompute by raising through the chain, whose layers wrap every exception
+        # no early stop: it ends the recompute by raising through the chain, whose layers wrap every exception;
+        # under a CUDA graph capture (a compiled training step) the generators' state cannot be read: there a
+        # subtree that draws random numbers would recompute with other draws (no port layer draws in a forward)
         with torch.utils.checkpoint.set_checkpoint_early_stop(False):
             return torch.utils.checkpoint.checkpoint(
                 super().forward,
                 *args,
                 use_reentrant=False,
+                preserve_rng_state=not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()),
                 context_fn=lambda: (contextlib.nullcontext(), forward_contexts()),
             )
 

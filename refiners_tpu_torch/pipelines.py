@@ -1,22 +1,29 @@
 """Text-to-image pipeline; counterpart of ``refiners_tpu/pipelines.py``.
 
 Bundles prompt encoding, the denoising loop and the VAE decode under
-``torch.inference_mode()``. Pass a ("data", "tensor") mesh
-(`parallel.make_mesh`) to run data-parallel over the CFG batch and the
-images, with tensor-parallel attention and feed-forward weights when
-``tensor > 1``: every rank of the mesh runs the same call, one process per
-card (`torchrun`).
+``torch.inference_mode()``. As the JAX package jits the loop (its
+``lax.scan``) and the decode, the loop and the decode are two compiled
+programs (`fluxion.graphs.Program`: CUDA graphs on the card, cached per
+key, eager on the CPU), which share one memory pool (they never run at
+the same time); the model and its settings make the key, prompts and
+seeds are inputs. Pass a ("data", "tensor") mesh (`parallel.make_mesh`)
+to run data-parallel over the CFG batch and the images, with
+tensor-parallel attention and feed-forward weights when ``tensor > 1``:
+every rank of the mesh runs the same call, one process per card
+(`torchrun`). A mesh on gloo runs the two programs eagerly (its
+collectives run on the host); on NCCL they are captured.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
 import torch
 from PIL import Image
 
 from refiners_tpu_torch.fluxion import rng
+from refiners_tpu_torch.fluxion.graphs import Pool, Program
 from refiners_tpu_torch.fluxion.utils import tensor_to_images
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.model import StableDiffusion_XL
@@ -44,6 +51,9 @@ class TextToImage:
     condition_scale: float | None = None
     mesh: Any = None  # a ("data", "tensor") DeviceMesh
     num_images: int = 1
+    _compiled: dict[str, Program] = field(default_factory=dict, repr=False)
+    _pool: Pool = field(default_factory=Pool, repr=False)
+    _generators: dict[torch.device, torch.Generator] = field(default_factory=dict, repr=False)
 
     def __post_init__(self) -> None:
         self._sharded = False
@@ -62,30 +72,39 @@ class TextToImage:
         self._sharded = True
 
     def _seed(self, seed: int | None, device: torch.device) -> torch.Generator:
-        """The generator of `seed`; without one, a seed drawn from the
+        """The pipeline's generator of `device` (the one its programs draw
+        from) seeded by `seed`; without one, by a seed drawn from the
         device's seeded generator (on a mesh: rank 0's, given to every rank,
         so that all ranks draw the same noise)."""
-        if seed is not None:
-            return torch.Generator(device).manual_seed(seed)
-        if self.mesh is None:
-            return rng.generator(device)
-        from refiners_tpu_torch.parallel.sharding import broadcast_from_first
+        if seed is None:
+            drawn = torch.randint(2**62, (1,), generator=rng.generator(device), device=device)
+            if self.mesh is not None:
+                from refiners_tpu_torch.parallel.sharding import broadcast_from_first
 
-        drawn = torch.randint(2**62, (1,), generator=rng.generator(device), device=device)
-        broadcast_from_first([drawn], self.mesh)
-        return torch.Generator(device).manual_seed(int(drawn))
+                broadcast_from_first([drawn], self.mesh)
+            seed = int(drawn)
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(device)
+        return self._generators[device].manual_seed(seed)
 
-    def _decode(self, z: torch.Tensor) -> torch.Tensor:
-        """The VAE decode; on a mesh each rank decodes its block of the
-        images and the blocks are gathered, where "data" divides them."""
+    def _program(self, name: str, fn: Callable[..., Any]) -> Program:
+        """`fn` as this pipeline's compiled program `name` (eager on a gloo mesh)."""
+        if name not in self._compiled:
+            self._compiled[name] = Program(fn, name=f"TextToImage.{name}", mesh=self.mesh, pool=self._pool)
+        return self._compiled[name]
+
+    def _decode(self, lda: Any, z: torch.Tensor) -> torch.Tensor:
+        """The VAE decode, the second program; on a mesh each rank decodes
+        its block of the images and the blocks are gathered, where "data"
+        divides them."""
         if self.mesh is None:
-            return self.sd.lda.decode(z)
+            return lda.decode(z)
         from refiners_tpu_torch.parallel import batch_sharding
 
         sharding = batch_sharding(self.mesh, z.ndim)
         if not sharding.divides(z):
-            return self.sd.lda.decode(z)
-        return sharding.gather(self.sd.lda.decode(sharding.shard(z)))
+            return lda.decode(z)
+        return sharding.gather(lda.decode(sharding.shard(z)))
 
     @torch.inference_mode()
     def __call__(
@@ -96,10 +115,11 @@ class TextToImage:
         condition_scale: float | None = None,
     ) -> Image.Image | list[Image.Image]:
         """Generate `num_images` images (a single Image when 1). The noise,
-        and a stochastic solver's draws, come from a generator on the model's
-        device seeded by `seed` (else the device's seeded generator). On a
-        mesh every rank draws the whole batch's noise from the same seed, so
-        the images do not depend on the mesh."""
+        and a stochastic solver's draws, come from the pipeline's generator
+        on the model's device seeded by `seed` (else by a seed drawn from the
+        device's seeded generator). On a mesh every rank draws the whole
+        batch's noise from the same seed, so the images do not depend on the
+        mesh."""
         self._ensure_sharded()
         sd = self.sd
         device, dtype = sd.unet.device, sd.unet.dtype
@@ -122,8 +142,20 @@ class TextToImage:
         else:
             scale = condition_scale or self.condition_scale or 7.5
             emb = sd.compute_clip_text_embedding(prompt, negative_prompt)
-        z = sd.diffuse(
-            x, clip_text_embedding=emb.repeat_interleave(n, dim=0), condition_scale=scale, generator=generator, **kwargs
-        )
-        images = tensor_to_images((self._decode(z) + 1) / 2)
+        z = self._program("diffuse", _diffuse)(sd, x, emb.repeat_interleave(n, dim=0), scale, generator, **kwargs)
+        images = tensor_to_images((self._program("decode", self._decode)(sd.lda, z) + 1) / 2)
         return images[0] if n == 1 else images
+
+
+def _diffuse(
+    sd: LatentDiffusionModel,
+    x: torch.Tensor,
+    clip_text_embedding: torch.Tensor,
+    condition_scale: float,
+    generator: torch.Generator,
+    **kwargs: torch.Tensor,
+) -> torch.Tensor:
+    """The denoising loop: `TextToImage`'s first program."""
+    return sd.diffuse(
+        x, clip_text_embedding=clip_text_embedding, condition_scale=condition_scale, generator=generator, **kwargs
+    )

@@ -1,18 +1,22 @@
 """BoxSegmenter: MVANet behind a box crop, margin and paste; counterpart of
 ``refiners_tpu/solutions/box_segmenter.py``.
 
-Eager on the model's device: built with no device, it lands on the card
-(``fluxion.utils.default_device``); CPU use passes ``device="cpu"``.
+The MVANet forward and its sigmoid are one compiled program
+(`fluxion.graphs.Program`), as the JAX package jits them: a CUDA graph on
+the card, eager on the CPU. Built with no device, the model lands on the
+card (``fluxion.utils.default_device``); CPU use passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+from functools import cached_property
 from pathlib import Path
 from typing import Any
 
 import torch
 from PIL import Image
 
+from refiners_tpu_torch.fluxion.graphs import Program
 from refiners_tpu_torch.fluxion.utils import default_device, image_to_tensor, normalize, tensor_to_image
 from refiners_tpu_torch.foundationals.swin.mvanet import MVANet
 
@@ -41,6 +45,11 @@ class BoxSegmenter:
     def __call__(self, img: Image.Image, box_prompt: BoundingBox | None = None) -> Image.Image:
         return self.run(img, box_prompt)
 
+    @cached_property
+    def _predict(self) -> Program:
+        """The forward and its sigmoid, as one program."""
+        return Program(lambda m, x: torch.sigmoid(m(x)), name="BoxSegmenter._predict")
+
     def add_margin(self, box: BoundingBox) -> BoundingBox:
         x0, y0, x1, y1 = box
         mx = int((x1 - x0) * self.margin)
@@ -65,7 +74,7 @@ class BoxSegmenter:
         in_t = image_to_tensor(img.resize((1024, 1024), Image.Resampling.BILINEAR), device=model.device)
         in_t = normalize(in_t, [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]).to(model.dtype)
         with torch.inference_mode():
-            prediction = torch.sigmoid(model(in_t))  # (1, 1, 1024, 1024)
+            prediction = self._predict(model, in_t)  # (1, 1, 1024, 1024)
         return tensor_to_image(prediction).resize(img.size, Image.Resampling.BILINEAR)
 
     def run(self, img: Image.Image, box_prompt: BoundingBox | None = None) -> Image.Image:

@@ -12,8 +12,10 @@ Prodigy with ``safeguard_warmup``; every default (betas, eps, weight decay
 applied by the Trainer at every optimizer step.
 
 The ``[training.mesh]`` section (`MeshConfig`) trains over a ("data",
-"tensor") mesh of the running process group (see the Trainer). Not ported
-yet: ``jit_step`` (raises NotImplementedError naming ROADMAP.md, step 14).
+"tensor") mesh of the running process group (see the Trainer).
+``training.jit_step`` runs the loss and its gradient as one compiled
+program (`fluxion.graphs.Program`: a CUDA graph on the card), as the JAX
+package jits them.
 """
 
 from __future__ import annotations
@@ -31,9 +33,6 @@ from refiners_tpu_torch.training_utils.clock import ClockConfig
 from refiners_tpu_torch.training_utils.common import Iteration, Step, TimeValue, parse_number_unit_field
 from refiners_tpu_torch.training_utils.config_base import Config, parsed
 from refiners_tpu_torch.training_utils.optimizers import Lion, Prodigy
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 step {step})"
-
 
 def _tuple(value: Any) -> tuple[Any, ...]:
     return tuple(value)
@@ -62,11 +61,6 @@ class TrainingConfig(Config):
     gradient_clipping_max_norm: float | None = None
     jit_step: bool = False
     mesh: MeshConfig | None = parsed(_mesh_config, default=None)  # [training.mesh] enables DP/TP
-
-    def __post_init__(self) -> None:
-        super().__post_init__()
-        if self.jit_step:
-            raise NotImplementedError("training.jit_step (a compiled step: CUDA graphs) " + _NOT_PORTED.format(step=14))
 
 
 class Optimizers(str, Enum):

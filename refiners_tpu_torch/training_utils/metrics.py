@@ -3,7 +3,9 @@
 
 Representations are the class tokens of a DINOv2 model at 224² (257 tokens:
 the plain attention path), taken in float64 on the host; the distance is
-numpy, as in the JAX package.
+numpy, as in the JAX package. The forward is a compiled program
+(`fluxion.graphs.Program`) for the call's batches, as the JAX package jits
+it: a CUDA graph on the card, eager on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from refiners_tpu_torch.fluxion.graphs import Program
 from refiners_tpu_torch.foundationals import dinov2
 
 
@@ -27,11 +30,12 @@ class _Sized(Protocol):
 def get_dinov2_representations(model: dinov2.ViT, batches: Iterable[torch.Tensor]) -> np.ndarray:
     """Class-token embeddings of every (B, 3, 224, 224) batch, as float64."""
     reps: list[np.ndarray] = []
+    run = Program(lambda m, x: m(x)[:, 0], name="get_dinov2_representations")
     for batch in batches:
         batch_size = batch.shape[0]
         assert batch.shape == (batch_size, 3, 224, 224), f"expected NCHW 224² batches, got {tuple(batch.shape)}"
         with torch.inference_mode():
-            pred = model(batch.to(device=model.device, dtype=model.dtype))[:, 0]
+            pred = run(model, batch.to(device=model.device, dtype=model.dtype))
         assert pred.shape == (batch_size, model.embedding_dim)
         reps.append(pred.double().cpu().numpy())
     return np.concatenate(reps)

@@ -7,7 +7,9 @@ order. What changes with PyTorch:
 
 - the backward pass is ``loss.backward()`` in place of `jax.value_and_grad`:
   each step adds loss / N to the parameters' ``.grad`` (gradient
-  accumulation over N steps);
+  accumulation over N steps), tensors created as zeros before the first
+  step (an unused parameter has a zero gradient, as in the JAX package) and
+  zeroed in place after each optimizer step;
 - each model has one `torch.optim` optimizer, built at its first step; every
   optimizer step sets each ``param_group["lr"]`` to `current_learning_rate`,
   which gives the JAX package's per-step rebuild of the optax transform;
@@ -25,7 +27,16 @@ order. What changes with PyTorch:
   optimizer step the gradients are averaged over "data" before the
   clipping. The model is not wrapped (no ``DistributedDataParallel``), so
   its ``state_dict()`` keys stay the JAX package's. After the backward,
-  ``loss`` is the mean of the ranks' losses, the loss of the whole batch.
+  ``loss`` is the mean of the ranks' losses, the loss of the whole batch;
+- with ``training.jit_step``, `compute_loss`, ``(loss / N).backward()`` and
+  the gradients' accumulation into ``.grad`` run as one compiled program
+  (`fluxion.graphs.Program`: a CUDA graph on the card, eager on the CPU and
+  on a gloo mesh), keyed by the trainer's modules and the batch's shapes,
+  as the JAX package jits its loss and gradient. The graph adds into the
+  same ``.grad`` tensors at every replay, the batch is copied into the
+  program's own buffers, and a CUDA `torch.Generator` held by the trainer
+  is registered with the graph. The norm, the clipping and the optimizer
+  step stay outside, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from refiners_tpu_torch.fluxion import layers as fl
+from refiners_tpu_torch.fluxion.graphs import Program
 from refiners_tpu_torch.fluxion.utils import str_to_dtype
 from refiners_tpu_torch.parallel.sharding import is_split, local, sum_over_shards
 from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
@@ -156,6 +168,7 @@ class Trainer(Generic[ConfigType, Batch], ABC):
         self.grad_norm: float = 0.0
         self._scheduler_steps = 0
         self._plateau: dict[str, Any] = {"best": None, "bad": 0, "cooldown": 0, "factor": 1.0}
+        self._step_program: Program | None = None
         self._load_callbacks()
         self._call_callbacks(event_name="on_init_begin")
         self._load_models()
@@ -294,13 +307,22 @@ class Trainer(Generic[ConfigType, Batch], ABC):
 
     # -- optimization --------------------------------------------------------
 
+    def _loss_and_backward(
+        self, modules: list[torch.nn.Module], batch: Batch, accum: int, generators: list[torch.Generator]
+    ) -> torch.Tensor:
+        """The loss of `batch`, its gradient / `accum` added into ``.grad``:
+        the ``jit_step`` program (`modules` and `generators` are the
+        trainer's own, named for the program's key and its graph), or the
+        same run eagerly."""
+        loss = self.compute_loss(batch)
+        (loss / accum).backward()
+        return loss.detach()
+
     def backward(self) -> None:
-        """Accumulate gradients (loss / N into ``.grad``); apply the clipped
+        """After `step` has added loss / N into ``.grad``: apply the clipped
         optimizer update when due."""
         self._call_callbacks(event_name="on_backward_begin")
         assert self.loss is not None, "backward() needs the loss of step()"
-        accum = self.config.training.gradient_accumulation.number
-        (self.loss / accum).backward()
         if self.mesh is not None:
             self.loss = self.loss.detach().clone()
             self._average_over_data([self.loss])
@@ -309,9 +331,6 @@ class Trainer(Generic[ConfigType, Batch], ABC):
         if self.clock.is_optimizer_step:
             self._call_callbacks(event_name="on_optimizer_step_begin")
             params = self.learnable_parameters
-            for p in params:  # an unused parameter has a zero gradient, as in the JAX package
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
             if self.mesh is not None:
                 with torch.no_grad():
                     self._average_over_data([p.grad for p in params])
@@ -328,7 +347,7 @@ class Trainer(Generic[ConfigType, Batch], ABC):
                     continue
                 optimizer = self._optimizer_for(item)
                 optimizer.step()
-                optimizer.zero_grad(set_to_none=True)
+                optimizer.zero_grad(set_to_none=False)
             self._call_callbacks(event_name="on_optimizer_step_end")
 
             if self.clock.is_due(self.config.lr_scheduler.update_interval):
@@ -356,9 +375,22 @@ class Trainer(Generic[ConfigType, Batch], ABC):
                     p["bad"], p["cooldown"] = 0, cfg.cooldown
 
     def step(self, batch: Batch) -> None:
-        """Single training step."""
+        """Single training step: the loss, its gradient / N added into
+        ``.grad`` (one program under ``jit_step``), then `backward`."""
         self._call_callbacks(event_name="on_compute_loss_begin")
-        self.loss = self.compute_loss(self.shard_batch(batch))
+        for p in self.learnable_parameters:  # the gradients' tensors, kept from step to step and zeroed in place
+            if p.grad is None:  # an unused parameter keeps a zero gradient, as in the JAX package
+                p.grad = torch.zeros_like(p)
+        run = self._loss_and_backward
+        if self.config.training.jit_step:
+            if self._step_program is None:
+                self._step_program = Program(run, name="Trainer.jit_step", mesh=self.mesh)
+            run = self._step_program
+        held = vars(self).values()
+        modules = [m for m in held if isinstance(m, torch.nn.Module)]
+        generators = [g for g in held if isinstance(g, torch.Generator)]
+        accum = self.config.training.gradient_accumulation.number
+        self.loss = run(modules, self.shard_batch(batch), accum, generators)
         self._call_callbacks(event_name="on_compute_loss_end")
         self.backward()
 

@@ -368,14 +368,14 @@ def test_what_is_not_ported_raises_naming_the_roadmap() -> None:
         config = tu.BaseConfig.load_from_toml_string(base.format(name))
         assert isinstance(config.optimizer.get(torch.nn.Linear(2, 2).parameters()), optimizer)
     # [training.mesh] is ported: it parses as the JAX package's MeshConfig does, unknown keys refused;
-    # jit_step (ROADMAP.md step 14) still raises
+    # jit_step is ported (a compiled step: tests/test_torch_graphs.py): it parses as the JAX package's
     mesh = tu.BaseConfig.load_from_toml_string(base.format("SGD") + "[training.mesh]\ntensor = 2\n").training.mesh
     jax_mesh = jtu.config.MeshConfig(tensor=2)
     assert (mesh.data, mesh.tensor, mesh.tensor_parallel_rules) == (jax_mesh.data, jax_mesh.tensor, jax_mesh.tensor_parallel_rules)
     with pytest.raises(ValueError, match="bogus"):
         tu.BaseConfig.load_from_toml_string(base.format("SGD") + "[training.mesh]\nbogus = 2\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tu.BaseConfig.load_from_toml_string(base.format("SGD") + "jit_step = true\n")
+    training = tu.BaseConfig.load_from_toml_string(base.format("SGD") + "jit_step = true\n").training
+    assert training.jit_step is True and jtu.config.TrainingConfig(jit_step=True).jit_step is True
     defaults, jax_defaults = tu.OptimizerConfig(optimizer="AdamW"), jtu.OptimizerConfig(optimizer="AdamW")
     for key in ("learning_rate", "betas", "eps", "weight_decay"):
         assert getattr(defaults, key) == getattr(jax_defaults, key)
