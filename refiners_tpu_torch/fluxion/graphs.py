@@ -52,6 +52,13 @@ come from the device's default generator or from a CUDA `torch.Generator`
 passed as an argument, which is registered with the graph: seeding it
 again before a call (``manual_seed``) gives that call the eager draws of
 the seed.
+
+Spans (`fluxion.tracing`, each with ``program=<name>``): a call's key walk
+and lookup (``refiners.Program.key``); a first call
+(``refiners.Program.first_call``: its eager run, ``.eager``, and the
+capture through the key check, ``.capture``); a replay's copy-in,
+launch and output clones (``.copy_in``, ``.replay``, ``.clone``). On the
+CPU only the key's span shows.
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ from enum import Enum
 from typing import Any, Callable
 
 import torch
+
+from refiners_tpu_torch.fluxion.tracing import span
 
 _PLAIN = frozenset({type(None), bool, int, float, complex, str, bytes, torch.dtype, torch.device, torch.memory_format})
 # torch.nn.Module's own bookkeeping (hook dicts and the like): in the key only when not empty
@@ -426,14 +435,20 @@ class Program:
         if self.runs_eagerly:
             return self.fn(*args, **kwargs)
         a, kw = list(args), dict(kwargs)
-        walk = _Walk(a, kw)
-        device = walk.device
-        if device is None or device.type != "cuda":
+        with span("refiners.Program.key", program=self.name):
+            walk = _Walk(a, kw)
+            device = walk.device
+            on_card = device is not None and device.type == "cuda"
+            entry = self._cache.get(walk.key) if on_card else None
+            tensors = walk.tensors
+            if entry is not None:  # a replay reads the call's tensors alone; freeing the walk is the key's cost too
+                del walk
+        if not on_card:
             return self._run(a, kw, walk, None)
-        entry = self._cache.get(walk.key)
         if entry is None:
-            return self._first_call(a, kw, walk, device)
-        return self._replay(entry, walk)
+            with span("refiners.Program.first_call", program=self.name):
+                return self._first_call(a, kw, walk, device)
+        return self._replay(entry, tensors)
 
     def _run(self, a: list[Any], kw: dict[str, Any], walk: _Walk, statics: list[torch.Tensor] | None) -> Any:
         restore = walk.snapshot()
@@ -447,7 +462,7 @@ class Program:
     def _first_call(self, a: list[Any], kw: dict[str, Any], walk: _Walk, device: torch.device) -> Any:
         stream, current = _side_stream(device), torch.cuda.current_stream(device)
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with span("refiners.Program.eager", program=self.name), torch.cuda.stream(stream):
             result = self._run(a, kw, walk, None)
         current.wait_stream(stream)
 
@@ -462,25 +477,26 @@ class Program:
         pool = self.pool.handle(device)
         counters = _counters()
         before = [c.launches for c in counters]
-        try:
-            # `torch.cuda.graph` without its synchronize and `empty_cache` (which would free every cached
-            # block, for the eager work that follows to allocate again)
-            with torch.cuda.stream(stream):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    outputs = self._run(a, kw, walk, statics)
-                finally:
-                    graph.capture_end()
-        except Exception as error:
-            _recover(device, generators, states)
-            self.pool.drop(device)
-            raise CaptureError(f"{self.name}: the CUDA graph capture failed at {_failed_at(error)}") from error
-        finally:
-            launched = {i: c.launches - n for i, (c, n) in enumerate(zip(counters, before)) if c.launches != n}
-            for c, n in zip(counters, before):
-                c.launches = n  # nothing ran during the capture
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self._check_key(walk.key, _Walk(a, kw).key)
+        with span("refiners.Program.capture", program=self.name):
+            try:
+                # `torch.cuda.graph` without its synchronize and `empty_cache` (which would free every cached
+                # block, for the eager work that follows to allocate again)
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        outputs = self._run(a, kw, walk, statics)
+                    finally:
+                        graph.capture_end()
+            except Exception as error:
+                _recover(device, generators, states)
+                self.pool.drop(device)
+                raise CaptureError(f"{self.name}: the CUDA graph capture failed at {_failed_at(error)}") from error
+            finally:
+                launched = {i: c.launches - n for i, (c, n) in enumerate(zip(counters, before)) if c.launches != n}
+                for c, n in zip(counters, before):
+                    c.launches = n  # nothing ran during the capture
+            torch.cuda.current_stream(device).wait_stream(stream)
+            self._check_key(walk.key, _Walk(a, kw).key)
         self._cache[walk.key] = _Entry(graph, statics, outputs, launched, pool)
         self.captures += 1
         Program.total_captures += 1
@@ -492,11 +508,14 @@ class Program:
             raise CaptureError(f"{self.name}: a call changes its own key, so that no later call could replay "
                                f"its graph: {_first_difference(before, after)}")  # fmt: skip
 
-    def _replay(self, entry: _Entry, walk: _Walk) -> Any:
-        if entry.statics:
-            torch._foreach_copy_(entry.statics, walk.tensors)
-        entry.graph.replay()
-        counters = _counters()
-        for i, n in entry.launches.items():
-            counters[i].launches += n
-        return _rebuild(entry.outputs, lambda t: t.clone())
+    def _replay(self, entry: _Entry, tensors: list[torch.Tensor]) -> Any:
+        with span("refiners.Program.copy_in", program=self.name):
+            if entry.statics:
+                torch._foreach_copy_(entry.statics, tensors)
+        with span("refiners.Program.replay", program=self.name):
+            entry.graph.replay()
+            counters = _counters()
+            for i, n in entry.launches.items():
+                counters[i].launches += n
+        with span("refiners.Program.clone", program=self.name):
+            return _rebuild(entry.outputs, lambda t: t.clone())

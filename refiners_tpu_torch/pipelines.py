@@ -12,6 +12,11 @@ tensor-parallel attention and feed-forward weights when ``tensor > 1``:
 every rank of the mesh runs the same call, one process per card
 (`torchrun`). A mesh on gloo runs the two programs eagerly (its
 collectives run on the host); on NCCL they are captured.
+
+Spans (`fluxion.tracing`): ``refiners.TextToImage.call`` around a call,
+``.encode`` (the tokenizers and text encoders), ``refiners.wait.read_images``
+(the images read to the host, which waits there for the card) and
+``.to_images`` (the PIL images built on the host).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from PIL import Image
 
 from refiners_tpu_torch.fluxion import rng
 from refiners_tpu_torch.fluxion.graphs import Pool, Program
+from refiners_tpu_torch.fluxion.tracing import span
 from refiners_tpu_torch.fluxion.utils import tensor_to_images
 from refiners_tpu_torch.foundationals.latent_diffusion.model import LatentDiffusionModel
 from refiners_tpu_torch.foundationals.latent_diffusion.stable_diffusion_xl.model import StableDiffusion_XL
@@ -120,30 +126,36 @@ class TextToImage:
         device's seeded generator). On a mesh every rank draws the whole
         batch's noise from the same seed, so the images do not depend on the
         mesh."""
-        self._ensure_sharded()
-        sd = self.sd
-        device, dtype = sd.unet.device, sd.unet.dtype
-        generator = self._seed(seed, device)
-        n = self.num_images
-        h, w = self.size
-        noise = torch.randn((n, 4, h // 8, w // 8), generator=generator, device=device, dtype=torch.float32)
-        x = sd.solver.scale_model_input(noise.to(dtype), step=-1)
+        with span("refiners.TextToImage.call"):
+            self._ensure_sharded()
+            sd = self.sd
+            device, dtype = sd.unet.device, sd.unet.dtype
+            generator = self._seed(seed, device)
+            n = self.num_images
+            h, w = self.size
+            noise = torch.randn((n, 4, h // 8, w // 8), generator=generator, device=device, dtype=torch.float32)
+            x = sd.solver.scale_model_input(noise.to(dtype), step=-1)
 
-        # (2, ...) [uncond, cond] → (2n, ...) [uncond×n, cond×n]: the layout of
-        # predict_noise's cat((x, x)) CFG batch
-        kwargs: dict[str, Any] = {}
-        if isinstance(sd, StableDiffusion_XL):
-            scale = condition_scale or self.condition_scale or 5.0
-            emb, pooled = sd.compute_clip_text_embedding(prompt, negative_prompt)
-            kwargs = {
-                "pooled_text_embedding": pooled.repeat_interleave(n, dim=0),
-                "time_ids": sd.default_time_ids.repeat_interleave(n, dim=0),
-            }
-        else:
-            scale = condition_scale or self.condition_scale or 7.5
-            emb = sd.compute_clip_text_embedding(prompt, negative_prompt)
-        z = self._program("diffuse", _diffuse)(sd, x, emb.repeat_interleave(n, dim=0), scale, generator, **kwargs)
-        images = tensor_to_images((self._program("decode", self._decode)(sd.lda, z) + 1) / 2)
+            # (2, ...) [uncond, cond] → (2n, ...) [uncond×n, cond×n]: the layout of
+            # predict_noise's cat((x, x)) CFG batch
+            kwargs: dict[str, Any] = {}
+            with span("refiners.TextToImage.encode"):
+                if isinstance(sd, StableDiffusion_XL):
+                    scale = condition_scale or self.condition_scale or 5.0
+                    emb, pooled = sd.compute_clip_text_embedding(prompt, negative_prompt)
+                    kwargs = {
+                        "pooled_text_embedding": pooled.repeat_interleave(n, dim=0),
+                        "time_ids": sd.default_time_ids.repeat_interleave(n, dim=0),
+                    }
+                else:
+                    scale = condition_scale or self.condition_scale or 7.5
+                    emb = sd.compute_clip_text_embedding(prompt, negative_prompt)
+            z = self._program("diffuse", _diffuse)(sd, x, emb.repeat_interleave(n, dim=0), scale, generator, **kwargs)
+            decoded = (self._program("decode", self._decode)(sd.lda, z) + 1) / 2
+            with span("refiners.wait.read_images"):  # the host waits here for the loop and the decode
+                decoded = decoded.cpu()
+            with span("refiners.TextToImage.to_images"):
+                images = tensor_to_images(decoded)
         return images[0] if n == 1 else images
 
 

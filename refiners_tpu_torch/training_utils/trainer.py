@@ -36,7 +36,11 @@ order. What changes with PyTorch:
   same ``.grad`` tensors at every replay, the batch is copied into the
   program's own buffers, and a CUDA `torch.Generator` held by the trainer
   is registered with the graph. The norm, the clipping and the optimizer
-  step stay outside, as in the JAX package.
+  step stay outside, as in the JAX package;
+- spans (`fluxion.tracing`): ``refiners.Trainer.step`` (its id the clock's
+  step), ``refiners.Trainer.optimizer_step`` (averaging, norm, clipping,
+  optimizer, learning rate) and in it ``refiners.wait.grad_norm``, the
+  norm read back to the host.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from refiners_tpu_torch.fluxion import layers as fl
 from refiners_tpu_torch.fluxion.graphs import Program
+from refiners_tpu_torch.fluxion.tracing import span
 from refiners_tpu_torch.fluxion.utils import str_to_dtype
 from refiners_tpu_torch.parallel.sharding import is_split, local, sum_over_shards
 from refiners_tpu_torch.training_utils.callback import Callback, CallbackConfig
@@ -329,31 +334,33 @@ class Trainer(Generic[ConfigType, Batch], ABC):
         self._call_callbacks(event_name="on_backward_end")
 
         if self.clock.is_optimizer_step:
-            self._call_callbacks(event_name="on_optimizer_step_begin")
-            params = self.learnable_parameters
-            if self.mesh is not None:
-                with torch.no_grad():
-                    self._average_over_data([p.grad for p in params])
-            total_norm = _global_norm([p.grad for p in params])
-            max_norm = self.config.training.gradient_clipping_max_norm
-            if max_norm:  # None or 0: no clipping, as in the JAX package (and torch's clip_grads_with_norm_)
-                scale = torch.clamp(max_norm / (total_norm + 1e-6), max=1.0)
-                with torch.no_grad():
-                    torch._foreach_mul_([local(p.grad) for p in params], scale)
-            self.grad_norm = float(total_norm)
+            with span("refiners.Trainer.optimizer_step"):
+                self._call_callbacks(event_name="on_optimizer_step_begin")
+                params = self.learnable_parameters
+                if self.mesh is not None:
+                    with torch.no_grad():
+                        self._average_over_data([p.grad for p in params])
+                total_norm = _global_norm([p.grad for p in params])
+                max_norm = self.config.training.gradient_clipping_max_norm
+                if max_norm:  # None or 0: no clipping, as in the JAX package (and torch's clip_grads_with_norm_)
+                    scale = torch.clamp(max_norm / (total_norm + 1e-6), max=1.0)
+                    with torch.no_grad():
+                        torch._foreach_mul_([local(p.grad) for p in params], scale)
+                with span("refiners.wait.grad_norm"):
+                    self.grad_norm = float(total_norm)
 
-            for item in self.models.values():
-                if not item.trainable:
-                    continue
-                optimizer = self._optimizer_for(item)
-                optimizer.step()
-                optimizer.zero_grad(set_to_none=False)
-            self._call_callbacks(event_name="on_optimizer_step_end")
+                for item in self.models.values():
+                    if not item.trainable:
+                        continue
+                    optimizer = self._optimizer_for(item)
+                    optimizer.step()
+                    optimizer.zero_grad(set_to_none=False)
+                self._call_callbacks(event_name="on_optimizer_step_end")
 
-            if self.clock.is_due(self.config.lr_scheduler.update_interval):
-                self._call_callbacks(event_name="on_lr_scheduler_step_begin")
-                self.lr_scheduler_step()
-                self._call_callbacks(event_name="on_lr_scheduler_step_end")
+                if self.clock.is_due(self.config.lr_scheduler.update_interval):
+                    self._call_callbacks(event_name="on_lr_scheduler_step_begin")
+                    self.lr_scheduler_step()
+                    self._call_callbacks(event_name="on_lr_scheduler_step_end")
 
     def lr_scheduler_step(self) -> None:
         self._scheduler_steps += 1
@@ -377,22 +384,23 @@ class Trainer(Generic[ConfigType, Batch], ABC):
     def step(self, batch: Batch) -> None:
         """Single training step: the loss, its gradient / N added into
         ``.grad`` (one program under ``jit_step``), then `backward`."""
-        self._call_callbacks(event_name="on_compute_loss_begin")
-        for p in self.learnable_parameters:  # the gradients' tensors, kept from step to step and zeroed in place
-            if p.grad is None:  # an unused parameter keeps a zero gradient, as in the JAX package
-                p.grad = torch.zeros_like(p)
-        run = self._loss_and_backward
-        if self.config.training.jit_step:
-            if self._step_program is None:
-                self._step_program = Program(run, name="Trainer.jit_step", mesh=self.mesh)
-            run = self._step_program
-        held = vars(self).values()
-        modules = [m for m in held if isinstance(m, torch.nn.Module)]
-        generators = [g for g in held if isinstance(g, torch.Generator)]
-        accum = self.config.training.gradient_accumulation.number
-        self.loss = run(modules, self.shard_batch(batch), accum, generators)
-        self._call_callbacks(event_name="on_compute_loss_end")
-        self.backward()
+        with span("refiners.Trainer.step", id=self.clock.step):
+            self._call_callbacks(event_name="on_compute_loss_begin")
+            for p in self.learnable_parameters:  # the gradients' tensors, kept from step to step and zeroed in place
+                if p.grad is None:  # an unused parameter keeps a zero gradient, as in the JAX package
+                    p.grad = torch.zeros_like(p)
+            run = self._loss_and_backward
+            if self.config.training.jit_step:
+                if self._step_program is None:
+                    self._step_program = Program(run, name="Trainer.jit_step", mesh=self.mesh)
+                run = self._step_program
+            held = vars(self).values()
+            modules = [m for m in held if isinstance(m, torch.nn.Module)]
+            generators = [g for g in held if isinstance(g, torch.Generator)]
+            accum = self.config.training.gradient_accumulation.number
+            self.loss = run(modules, self.shard_batch(batch), accum, generators)
+            self._call_callbacks(event_name="on_compute_loss_end")
+            self.backward()
 
     def epoch(self) -> None:
         set_epoch = getattr(self.data_iterable, "set_epoch", None)
