@@ -75,6 +75,14 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      a row-offset view off a 16-byte boundary and float32: bit-equal to
      ``quantize_rows_int8_plain``, |q| ≤ 127, zero padding rows; and the
      host cost of one call against the eager sequence it replaces;
+   - the LoRA kernels (``lora_add_``: ``lora_down_kernel`` then
+     ``lora_up_add_kernel``) at the SDXL UNet's adapted shapes, (2048, 1280
+     → 1280), (2048, 1280 → 10240), (2048, 5120 → 1280), (8192, 640 → 640)
+     and (154, 2048 → 1280), two rank-32 LoRAs at 1.0 and 0.5 in bf16:
+     within 1e-2 of ``lora_add_plain`` in float32; timed queued and
+     captured in a CUDA graph after the target's product, beside each
+     kernel alone, the plain version, the ``Sum`` chain they replace and
+     ``torch.addmm`` on concatenated weights (the library yardstick);
    - for every kernel at its main-path shape: the bound (the larger of the
      bytes over 3.35 TB/s and the operations over 989 TFLOP/s in bf16, or
      67 TFLOP/s in float32 FFMA) and the time of one PyTorch call that
@@ -185,9 +193,12 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    per ControlNet), its image finite and not constant; after the eject,
    one base UNet step bit-equal to the one taken before the first
    injection. A LoRA at scale 0 gives the base step bit for bit and the
-   scales move it. With the ControlNet, the float32 reference step is also
-   taken once under PyTorch's default (cuDNN TF32 on) and its distance
-   from the TF32-off step printed (no gate), and one bf16 step is traced.
+   scales move it; every LoRA call of the set runs the LoRA kernels, once
+   (``_lora_routes``: no LoRA left on the ``Sum``), and a bf16 UNet step
+   launches them once per adapted Linear. With the ControlNet, the float32
+   reference step is also taken once under PyTorch's default (cuDNN TF32
+   on) and its distance from the TF32-off step printed (no gate), and one
+   bf16 step is traced.
 9. SD1.5 with guidance and image prompts: phase 7's model, one request
    for each adapter set, injected before it and ejected after it: (a)
    self-attention guidance at 0.75 (through ``TextToImage``); (b)
@@ -251,7 +262,10 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
    sets without guidance at batch 1); each request's seconds, peak memory
    and K1 launches (2101, 1051 × 4, 281 × 3, 1561, the panorama 3151),
    every image finite and not constant; after each eject the base step
-   bit-equal to the one before the first injection. The Control-LoRA's
+   bit-equal to the one before the first injection. In (e), (g), (h) and
+   (i) every LoRA call with a Linear target runs the LoRA kernels, once,
+   and a bf16 UNet step launches them once per such adapter (the
+   Control-LoRA's Conv2d LoRAs keep the ``Sum``). The Control-LoRA's
    copy shares the UNet's tensors (device memory added at most its own
    parameters' plus 64 MiB) and its LoRAs leave the UNet's own path
    alone; one Control-LoRA step is traced (device time by kind, idle and
@@ -600,6 +614,10 @@ SD15_PAIR_PSNR = 35.0
 SD15_PAIR_SEED, SD15_IMG2IMG_SEED, SD15_INPAINT_SEED = 10, 20, 30
 SD15_IMG2IMG_STRENGTH = 0.5
 LORA_RANK = 32
+# (rows, in, out) of the SDXL UNet's Linears under a LoRA at 1024² with CFG: the 1280-wide level's
+# projections, GEGLU's first and the feed-forward's second Linear, the 640-wide level's projections,
+# the cross-attention keys and values on the two 77-token text embeddings
+LORA_ADD_SHAPES = [(2048, 1280, 1280), (2048, 1280, 10240), (2048, 5120, 1280), (8192, 640, 640), (154, 2048, 1280)]
 LORA_SCALES = {"style": 1.0, "detail": 0.5}  # the two LoRAs of phase 8's first request
 LORA_LAYERS = 16 * 10 + 12 * 6  # Linears of the UNet's 16 transformer blocks and of CLIP-L's 12 layers
 CONTROLNET_PARAMETERS = 361_279_120
@@ -762,6 +780,28 @@ def _device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graphed_ms(fn: Callable[[], Any], reps: int = 20) -> float:
+    """Device milliseconds per call of `fn` replayed from one CUDA graph of
+    `reps` calls: the gaps between launches that a captured program has."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _host_ms(fn: Callable[[], Any], reps: int = 200) -> float:
     """Host milliseconds a call: `reps` calls enqueued without a synchronize."""
     for _ in range(5):
@@ -786,7 +826,7 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 def _counters() -> dict[str, Any]:
     from refiners_tpu_torch.ops import flash_attention as fa
     from refiners_tpu_torch.ops import group_norm as gn
-    from refiners_tpu_torch.ops import quant
+    from refiners_tpu_torch.ops import lora, quant
 
     return {
         "flash_attention_packed": fa.flash_attention_packed,
@@ -798,6 +838,7 @@ def _counters() -> dict[str, Any]:
         "group_norm_apply": gn.group_norm_apply,
         "quantize_int8": quant.quantize_int8,
         "quantize_rows_int8": quant.quantize_rows_int8,
+        "lora_add_": lora.lora_add_,
     }
 
 
@@ -849,6 +890,41 @@ def _replayed(label: str, fn: Callable[[], Any], first: Any, want: int,
         raise AssertionError(f"{label}: served again, {captured} capture(s), {launched} K1 launches (not {want}), "
                              f"{off} pixels off, decoded bit-equal {equal}")  # fmt: skip
     return {"request": f"{label} (replayed)", "seconds": seconds, "k1_launches": launched, "pixels_off": off}
+
+
+@contextlib.contextmanager
+def _lora_routes(label: str) -> Iterator[dict[str, int]]:
+    """Every `LoraAdapter` call while open, counted by route: "kernel" (one
+    `lora_add_` launch), "left" (a Linear target, 16-bit CUDA input, and the
+    `Sum` ran: a LoRA left behind), "sum" (the `Sum`, rightly: float32, or a
+    Conv2d target). On exit, raises if a call launched more than once, a
+    LoRA was left behind or none ran through the kernels."""
+    import refiners_tpu_torch.fluxion.layers as fl
+    from refiners_tpu_torch.fluxion.adapters.lora import LoraAdapter
+    from refiners_tpu_torch.ops import lora
+
+    counts = {"kernel": 0, "left": 0, "sum": 0, "more": 0}
+    forward = LoraAdapter.forward
+
+    def counted(self: Any, *args: Any) -> Any:
+        before = lora.lora_add_.launches
+        out = forward(self, *args)
+        launched = lora.lora_add_.launches - before
+        x = args[0]
+        half = isinstance(x, torch.Tensor) and x.is_cuda and x.dtype in (BF16, torch.float16)
+        key = ("kernel" if launched == 1 else "more" if launched else
+               "left" if half and type(next(iter(self))) is fl.Linear else "sum")  # fmt: skip
+        counts[key] += 1
+        return out
+
+    LoraAdapter.forward = counted
+    try:
+        yield counts
+    finally:
+        LoraAdapter.forward = forward
+    print(f"{label}: LoraAdapter calls by route {counts}")
+    if counts["left"] or counts["more"] or not counts["kernel"]:
+        raise AssertionError(f"{label}: LoRAs left on the Sum path or launched twice: {counts}")
 
 
 class _Decodes:
@@ -1449,6 +1525,90 @@ def check_quantize_rows(dev: torch.device) -> tuple[list[dict], dict[str, float]
     print(f"int8 rows, host cost per call at (154, 2048): kernel entry {host['host_ms']:.4f} ms, eager sequence "
           f"{host['plain_host_ms']:.4f} ms (200 calls enqueued without a synchronize)")  # fmt: skip
     return results, host
+
+
+def check_lora(dev: torch.device) -> list[dict]:
+    """The LoRA kernels at the SDXL UNet's adapted shapes (`LORA_ADD_SHAPES`),
+    two rank-32 LoRAs at 1.0 and 0.5 in bf16: `lora_add_` (the down kernel,
+    then the up-add kernel) against its plain version in float32 (the gate),
+    timed beside each kernel alone, the plain version, the `Sum` chain it
+    replaces (down, up, scale, zero-bias add and sum add per LoRA) and
+    `torch.addmm` on concatenated weights (a yardstick the port never calls:
+    the copies it needs cost memory)."""
+    import torch.nn.functional as F
+
+    from refiners_tpu_torch.ops import lora
+
+    scales = list(LORA_SCALES.values())
+    gen = torch.Generator(dev).manual_seed(26)
+    results = []
+    for n, fin, fout in LORA_ADD_SHAPES:
+        x = torch.randn((n, fin), generator=gen, device=dev).to(BF16)
+        y0 = torch.randn((n, fout), generator=gen, device=dev).to(BF16)
+        downs = [(torch.randn((LORA_RANK, fin), generator=gen, device=dev) * fin**-0.5).to(BF16) for _ in scales]
+        ups = [(torch.randn((fout, LORA_RANK), generator=gen, device=dev) * (0.3 * LORA_RANK**-0.5)).to(BF16)
+               for _ in scales]  # fmt: skip
+        want = lora.lora_add_plain(y0.float(), x.float(), [d.float() for d in downs], [u.float() for u in ups], scales)
+        y = lora.lora_add_(y0.clone(), x, downs, ups, scales)
+        torch.cuda.synchronize()
+        rel, delta_rel = _rel(y, want), _rel(y.float() - y0.float(), want - y0.float())
+        h = lora.down(x, downs, scales)
+        hcat = torch.cat([s * F.linear(x, d) for s, d in zip(scales, downs)], dim=1)
+        dcat, ucat = torch.cat(downs), torch.cat([s * u for s, u in zip(scales, ups)], dim=1)
+        yt = y0.clone()
+
+        def sum_chain(target: torch.Tensor | None = None) -> torch.Tensor:
+            out = y0 if target is None else target
+            for d, u, s in zip(downs, ups, scales):
+                out = out + (s * F.linear(F.linear(x, d), u) + 0.0)
+            return out
+
+        # the increment over the adapted Linear's own product, all three captured as a program captures them
+        weight = (torch.randn((fout, fin), generator=gen, device=dev) * fin**-0.5).to(BF16)
+        bias = torch.zeros(fout, device=dev, dtype=BF16)
+        target_ms = _graphed_ms(lambda: F.linear(x, weight, bias))
+        with_target = {"lora_add_": _graphed_ms(lambda: lora.lora_add_(F.linear(x, weight, bias), x, downs, ups, scales)) - target_ms,
+                       "Sum chain": _graphed_ms(lambda: sum_chain(F.linear(x, weight, bias))) - target_ms}  # fmt: skip
+
+        ms = _time_ms(lambda: lora.lora_add_(yt, x, downs, ups, scales), reps=10)
+        device_ms = _device_ms(lambda: lora.lora_add_(yt, x, downs, ups, scales))
+        down_ms = _device_ms(lambda: lora.down(x, downs, scales))
+        kernel_ms = _device_ms(lambda: lora.up_add_(yt, h, ups))
+        graphed = {"lora_add_": _graphed_ms(lambda: lora.lora_add_(yt, x, downs, ups, scales)),
+                   "Sum chain": _graphed_ms(sum_chain),
+                   "addmm with downs": _graphed_ms(lambda: torch.addmm(y0, F.linear(x, dcat), ucat.t()))}  # fmt: skip
+        plain_ms = _device_ms(lambda: lora.lora_add_plain(yt, x, downs, ups, scales), reps=5)
+        chain_ms = _device_ms(sum_chain)
+        library_ms = _device_ms(lambda: torch.addmm(y0, F.linear(x, dcat), ucat.t()))
+        library_up_ms = _device_ms(lambda: torch.addmm(y0, hcat, ucat.t()))
+        k = len(scales) * LORA_RANK
+        weights = 2 * k * (fin + fout)
+        # every input byte read once, every output byte written once: y both ways, x once, the weights
+        row = {**_bound(2 * n * k * (fin + fout), 4 * n * fout + 2 * n * fin + weights, BF16),
+               "library_ms": library_ms, "library_call": "F.linear on the concatenated downs, then torch.addmm"}  # fmt: skip
+        # the up-add alone: y both ways, H, the ups; the down alone: x, the downs, H written
+        kernel_row = _bound(2 * n * k * fout, 4 * n * fout + 2 * n * k + 2 * k * fout, BF16)
+        down_row = _bound(2 * n * k * fin, 2 * n * fin + 2 * k * fin + 2 * n * k, BF16)
+        print(f"lora_add_ ({n}, {fin} -> {fout}, 2 LoRAs of rank {LORA_RANK}, bf16): rel_err={rel:.3e} (delta "
+              f"{delta_rel:.3e}) ms={ms:.4f} queued={device_ms:.4f}; down alone queued={down_ms:.4f} (bound "
+              f"{down_row['bound_ms']:.4f}, share {down_row['bound_ms'] / down_ms:.3f}); up-add alone "
+              f"queued={kernel_ms:.4f} (bound {kernel_row['bound_ms']:.4f}, share "
+              f"{kernel_row['bound_ms'] / kernel_ms:.3f}); graphed after the target's product (itself "
+              f"{target_ms:.4f}) {({k: round(v, 4) for k, v in with_target.items()})}; graphed alone "
+              f"{ {k: round(v, 4) for k, v in graphed.items()} } plain={plain_ms:.4f} "
+              f"Sum chain={chain_ms:.4f} addmm with downs={library_ms:.4f} addmm alone={library_up_ms:.4f} "
+              f"bound={row['bound_ms']:.4f} ({row['bound_by']}, share {row['bound_ms'] / device_ms:.3f})")  # fmt: skip
+        if not (torch.isfinite(y).all() and rel <= REL_TOL):
+            raise AssertionError(f"lora_add_ at {(n, fin, fout)} disagrees with its plain version: rel_err={rel}")
+        results.append({"shape": [n, fin, fout], "dtype": str(BF16), "rel_err": rel, "delta_rel_err": delta_rel,
+                        "max_abs_err": _max_abs(y, want), "ms": ms, "device_ms": device_ms, "down_ms": down_ms,
+                        "down_bound_ms": down_row["bound_ms"], "up_add_ms": kernel_ms,
+                        "up_add_bound_ms": kernel_row["bound_ms"], "plain_ms": plain_ms, "sum_chain_ms": chain_ms,
+                        "graphed_ms": graphed, "target_ms": target_ms, "graphed_after_target_ms": with_target,
+                        "library_up_ms": library_up_ms, **row})  # fmt: skip
+        del x, y0, y, yt, want, downs, ups, h, hcat, dcat, ucat, weight, bias
+        _free()
+    return results
 
 
 def check_device_default() -> None:
@@ -2815,6 +2975,21 @@ class AdaptedServing:
                                  f"{plain_launches}), not {want} (0)")  # fmt: skip
         return {**out, "bf16_kernels": err_kernel, "bf16_plain": err_plain, "step_launches": launches}
 
+    def lora_step(self, label: str, prepare: Callable[[], None] = lambda: None) -> int:
+        """One bf16 UNet step, held to one `lora_add_` launch per adapter
+        with a Linear target in the UNet; returns the launches."""
+        import refiners_tpu_torch.fluxion.layers as fl
+        from refiners_tpu_torch.fluxion.adapters.lora import LoraAdapter
+
+        adapters = sum(1 for a in self.sd.unet.layers(LoraAdapter, recurse=True) if type(next(iter(a))) is fl.Linear)
+        self.step(BF16, kernel=True, prepare=prepare)
+        launched = read_launches()["lora_add_"]
+        print(f"{self.prefix} {label}: one UNet step launched the LoRA kernels {launched} times for {adapters} "
+              f"adapted Linears")  # fmt: skip
+        if launched != adapters:
+            raise AssertionError(f"{self.prefix} {label}: {launched} LoRA launches for {adapters} adapted Linears")
+        return launched
+
     def check_base(self, label: str) -> None:
         """After an eject, the bare UNet's step is the one taken before the
         first injection, bit for bit: the same modules, weights and inputs
@@ -2841,18 +3016,21 @@ class AdaptedServing:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         launched = read_launches()["flash_attention_packed"]
+        lora_launched = read_launches()["lora_add_"]
         peak = torch.cuda.max_memory_allocated(self.dev)
         images = out if isinstance(out, list) else [out]
         z = torch.cat(self.decoded)
         print(f"{self.prefix} {label}: {seconds:.3f} s, peak memory {peak / 2**30:.2f} GiB, K1 launches {launched}, "
-              f"{len(images)} image(s), decoded mean {float(z.mean()):.4f} std {float(z.std()):.4f}")  # fmt: skip
+              f"LoRA launches {lora_launched}, {len(images)} image(s), decoded mean {float(z.mean()):.4f} std "
+              f"{float(z.std()):.4f}")  # fmt: skip
         if launched != want:
             raise AssertionError(f"{self.prefix} {label} launched K1 {launched} times, not {want}")
         if tuple(z.shape) != (len(images), 3, *size) or not torch.isfinite(z).all():
             raise AssertionError(f"{self.prefix} {label}: decoded images of shape {tuple(z.shape)} are not finite")
         if any(float(z[i].std()) == 0.0 or np.ptp(np.asarray(im)) == 0 for i, im in enumerate(images)):
             raise AssertionError(f"{self.prefix} {label}: an image is constant")
-        self.requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched})
+        self.requests.append({"request": label, "seconds": seconds, "peak_memory_bytes": peak, "k1_launches": launched,
+                              "lora_add_launches": lora_launched})  # fmt: skip
         if Program.total_captures != captures:  # the first call of a program's key: served again, replayed
             self.requests.append(_replayed(f"{self.prefix} {label}", fn, out, want, self.decoded))
 
@@ -2898,7 +3076,9 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
 
     per_request = {n: SD15_LAUNCHES_PER_STEP * steps + 1 + 4 * n * steps for n in range(3)}  # n ControlNets
 
-    # (a) two LoRAs through SDLoraManager, at scales 1.0 and 0.5
+    # (a) two LoRAs through SDLoraManager, at scales 1.0 and 0.5, every call through the LoRA kernels
+    routes = _lora_routes("sd15 LoRA")
+    routes.__enter__()
     manager = SDLoraManager(sd)
     t0 = time.perf_counter()
     weights = {name: _lora_weights(sd, seed, dev) for name, seed in zip(LORA_SCALES, (41, 42))}  # before any attaches
@@ -2921,8 +3101,10 @@ def run_sd15_adapters(dev: torch.device, sd: Any) -> tuple[dict[str, Any], dict[
         raise AssertionError(f"sd15 LoRA: scale 0 differs from the base step ({_max_abs(zero, serving.base)}) "
                              f"or the scales move it by only {moved}")  # fmt: skip
     report["lora"] = {"layers": n_lora, "rank": LORA_RANK, "scaled_rel_move": moved,
-                      **serving.gate("LoRA", SD15_LAUNCHES_PER_STEP)}  # fmt: skip
+                      **serving.gate("LoRA", SD15_LAUNCHES_PER_STEP),
+                      "lora_add_per_unet_call": serving.lora_step("LoRA")}  # fmt: skip
     serving.request("LoRA x2", per_request[0], served(50))
+    routes.__exit__(None, None, None)
     manager.remove_all()
     serving.check_base("LoRA")
 
@@ -3814,7 +3996,10 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     del ip, adapter, encoder, image_embedding
     _free()
 
-    # (e) two rank-32 LoRAs through SDLoraManager on the UNet and both text encoders, at 1.0 and 0.5
+    # (e) two rank-32 LoRAs through SDLoraManager on the UNet and both text encoders, at 1.0 and 0.5, every
+    # call through the LoRA kernels
+    routes = _lora_routes("sdxl LoRA x2")
+    routes.__enter__()
     manager = SDLoraManager(sd)
     weights = {name: _sdxl_lora_weights(sd, seed, dev, SDXL_LORA_RANK) for name, seed in zip(SDXL_LORA_SCALES, (122, 123))}
     t0 = time.perf_counter()
@@ -3827,8 +4012,9 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     if n_lora != sum(len(w) // 2 for w in weights.values()):
         raise AssertionError(f"{n_lora} LoRA layers attached, not {sum(len(w) // 2 for w in weights.values())}")
     report["lora"] = {"layers": n_lora, "rank": SDXL_LORA_RANK, "attach_seconds": seconds,
-                      **serving.gate("LoRA x2", per_call)}  # fmt: skip
+                      **serving.gate("LoRA x2", per_call), "lora_add_per_unet_call": serving.lora_step("LoRA x2")}  # fmt: skip
     serving.request("LoRA x2", per_request, served(124))
+    routes.__exit__(None, None, None)
     manager.remove_all()
     serving.check_base("LoRA x2")
     del weights
@@ -3861,7 +4047,9 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
         torch.cuda.synchronize()
         print(f"sdxl {label}: {len(manager.loras)} LoRA layers of rank {LCM_LORA_RANK} at scale {scale} attached "
               f"through add_lcm_lora in {time.perf_counter() - t0:.2f} s")  # fmt: skip
-        distilled(label, key, solver, seed)
+        with _lora_routes(f"sdxl {label}"):
+            distilled(label, key, solver, seed)
+            report[key]["lora_add_per_unet_call"] = serving.lora_step(label)
         report[key]["layers"] = len(manager.loras)
         manager.remove_all()
         serving.check_base(label)
@@ -3899,9 +4087,12 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     def set_depth() -> None:
         control.set_condition(conditions["depth"])
 
+    routes = _lora_routes("sdxl Control-LoRA")
+    routes.__enter__()
     report["control_lora"] = {"loras": n_control, "rank": CONTROL_LORA_RANK, "added_bytes": added,
                               "own_bytes": own_bytes, "load_seconds": seconds,
-                              **serving.gate("Control-LoRA", per_call + CONTROL_LORA_SITES, set_depth)}  # fmt: skip
+                              **serving.gate("Control-LoRA", per_call + CONTROL_LORA_SITES, set_depth),
+                              "lora_add_per_unet_call": serving.lora_step("Control-LoRA", set_depth)}  # fmt: skip
     set_depth()
     with torch.inference_mode():
         x16 = x.to(BF16)
@@ -3912,6 +4103,7 @@ def run_sdxl_zoo(dev: torch.device, sd: Any, image_encoder: Any = None) -> tuple
     print(f"sdxl Control-LoRA: K1's share of the step's device time {profile['k1_share']:.3f}")
     report["control_lora"]["unet_step_profile"] = profile
     serving.request("Control-LoRA depth", (per_call + CONTROL_LORA_SITES) * steps + 1, served(131, set_depth))
+    routes.__exit__(None, None, None)
     control.eject()
     serving.check_base("Control-LoRA")
     del control, own, x16, inputs
@@ -4988,6 +5180,7 @@ def main() -> int:
     gn_stats, gn_apply = check_group_norm(dev)
     quantize = check_quantize(dev)
     quantize_rows, rows_host = check_quantize_rows(dev)
+    lora_rows = check_lora(dev)
     for first, label in ((packed, "K1"), (forward, "K2"), (relpos, "K3 global"), (dkv, "K4a"), (dq, "K4b")):
         _print_row(label, first[0]["ms"], rows[label])
     # the SD1.5 UNet's 32×32 site: the first bf16 case at its shape in each list
@@ -5180,6 +5373,12 @@ def main() -> int:
                       quantize_rows, quantize_rows[0]), **rows_host,
              "shapes": [{key: r[key] for key in ("shape", "dtype", "layout", "ms", "plain_ms", "bound_ms")}
                         for r in quantize_rows]},
+            # no TPU kernel: the JAX package leaves a LoRA to XLA, which fuses its Sum
+            {"name": "lora_add_", "route": "cuda", "source": "refiners_tpu_torch/csrc/lora.cu",
+             "replaces": "none (refiners_tpu/fluxion/adapters/lora.py: a Sum of Chain(down, up, Multiply))",
+             "launches_per_unet_call": {"sd15": adapters_report["lora"]["lora_add_per_unet_call"],
+                                        "sdxl": sdxl_zoo_report["lora"]["lora_add_per_unet_call"]},
+             "max_abs_err": max(r["max_abs_err"] for r in lora_rows), "shapes": lora_rows},
         ],  # fmt: skip
         "sdxl_seconds_per_request": seconds,
         "sdxl_vae_decode_seconds": decode_seconds,

@@ -18,6 +18,7 @@ import torch
 import refiners_tpu_torch.fluxion.layers as fl
 from refiners_tpu_torch.fluxion import rng
 from refiners_tpu_torch.fluxion.adapters.adapter import Adapter
+from refiners_tpu_torch.ops.lora import lora_add_, refusal
 
 T = TypeVar("T", bound=fl.WeightedModule)
 
@@ -288,11 +289,55 @@ class Conv2dLora(Lora[fl.Conv2d]):
 
 
 class LoraAdapter(fl.Sum, Adapter[fl.WeightedModule]):
-    """Sum(target, *loras), with the LoRAs managed by name."""
+    """Sum(target, *loras), with the LoRAs managed by name.
+
+    Where the kernel of ``ops.lora`` takes the call, the forward runs the
+    target, then adds every LoRA into its output in place (`lora_add_`): a
+    plain `fl.Linear` target whose branches are all intact `LinearLora`s
+    (down, up, `Multiply` with no bias), one input, CUDA tensors of one 16-bit
+    dtype, no gradient wanted. Anything else (a `Conv2dLora`, a LoRA being
+    trained, float32, the mesh's `DTensor` weights, the CPU) runs the `Sum`.
+    Both read the children as they are at the call: nothing is kept."""
 
     def __init__(self, target: fl.WeightedModule, /, *loras: Lora[Any]) -> None:
         with self.setup_adapter(target):
             super().__init__(target, *loras)
+
+    def forward(self, *args: Any) -> Any:
+        if (operands := self._kernel_operands(*args)) is None:
+            return super().forward(*args)
+        name, target, downs, ups, scales = operands
+        y = self._call_layer(target, name, *args)
+        lora_add_(y, args[0], downs, ups, scales)
+        self._reset_context()
+        return y
+
+    def _kernel_operands(
+        self, *args: Any
+    ) -> tuple[str, fl.Linear, list[torch.Tensor], list[torch.Tensor], list[float]] | None:
+        """(the target's name, the target, the downs, ups and scales) where
+        the kernel route applies, else None."""
+        if len(args) != 1 or not isinstance(x := args[0], torch.Tensor):
+            return None
+        (name, target), *branches = self._modules.items()
+        if type(target) is not fl.Linear or not branches:
+            return None
+        downs, ups, scales = [], [], []
+        for _, lora in branches:
+            if not isinstance(lora, LinearLora) or [type(m) for m in lora] != [fl.Linear, fl.Linear, fl.Multiply]:
+                return None
+            down, up, multiply = lora
+            if down.bias is not None or up.bias is not None or multiply.bias != 0:
+                return None
+            downs.append(down.weight)
+            ups.append(up.weight)
+            scales.append(float(multiply.scale))
+        weight = target.weight
+        if type(weight) not in (torch.Tensor, torch.nn.Parameter) or weight.dtype != x.dtype or weight.device != x.device:
+            return None
+        if refusal(None, x, downs, ups) is not None:
+            return None
+        return name, target, downs, ups, scales
 
     @property
     def lora_layers(self) -> Iterator[Lora[Any]]:

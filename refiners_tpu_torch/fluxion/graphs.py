@@ -83,7 +83,7 @@ def _counters() -> list[Any]:
     """Every kernel wrapper with a ``launches`` counter."""
     from refiners_tpu_torch.ops import flash_attention as fa
     from refiners_tpu_torch.ops import group_norm as gn
-    from refiners_tpu_torch.ops import quant
+    from refiners_tpu_torch.ops import lora, quant
 
     return [
         fa.flash_attention_packed,
@@ -95,6 +95,7 @@ def _counters() -> list[Any]:
         gn.group_norm_apply,
         quant.quantize_int8,
         quant.quantize_rows_int8,
+        lora.lora_add_,
     ]
 
 

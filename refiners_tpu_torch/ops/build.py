@@ -61,6 +61,11 @@ _ENTRIES = {
         [_P] * 5 + [_I, _I, _LL, _I, _LL, _LL, _I, _I, _I, _F, _I, _P],
     ),
     "refiners_quantize_int8": ("quant", [_P] * 3 + [_I] * 4 + [_LL, _I, _ULL, _P]),
+    "refiners_lora_down": (
+        "lora",
+        [_P, _LL, _I, _LL, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F), _P, _I, _P],
+    ),
+    "refiners_lora_up_add": ("lora", [_P, _LL, _I, _I, _I, _P, _I, ctypes.POINTER(_P), ctypes.POINTER(_I), _P]),
 }
 
 
